@@ -7,26 +7,37 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
 Phases (any failure raises, and the script exits non-zero):
   1. device   - the card's name, `nvidia-smi` name and power limit, versions;
-                TF32 off, so every f32 comparison below means f32.
+                TF32 off for matmuls and cuDNN, so every f32 comparison below
+                means f32.
   2. build    - nvcc for sm_90a of every kernel source, all started together.
-  3. kernels  - each kernel against its plain PyTorch version on the card, at
-                the JAX tests' shapes and at the main path's shape, atol/rtol
-                1e-4 (both f32; only the summation order differs); at the main
-                path's shape also the kernel's, the plain version's and one
-                library call's time, and the least time the card could take.
-  4. slice    - the audio,text flagship at full width (hidden 768, 80 000
-                samples, 48 tokens, 1 fusion layer, 8 heads, batch 32) with
-                seeded random weights:
-                (a) logits on the card against the same model on the CPU, 1e-3;
-                (b) the HTTP server (cli/serve.build_server) answering JSON and
-                    npz /score requests, with the kernels' launch counts reset
-                    just before and read just after: every kernel must have
-                    launched, once per forward;
-                (c) throughput of Predictor.predict at batch 32, the forward's
-                    time by stage, and MicroBatcher single-clip p50 latency.
-Prints a `kernels` JSON line, the card's name and power limit, and last
-`{"ok": true, "device": {...}}`.  Without a CUDA device it exits non-zero and
-prints no result.
+  3. kernels  - each kernel against its plain PyTorch version on the card:
+                K1 (framed conv1d) at the JAX tests' shapes and the CNN1D
+                stem's, atol/rtol 1e-4; K2 (window attention) at
+                tests/test_pallas.py's shapes, 1e-5 as there, and at the four
+                Swin3D-T stage shapes of the tri-modal b8 forward, masked and
+                unmasked, 1e-4 (longer f32 sums).  At the main path's shape
+                (K1: the stem at b32; K2: stage 0's shifted block) also the
+                kernel's, the plain version's and one library call's time and
+                the least time the card could take; K2's time at every stage.
+  4. slices   - each served model at full width with seeded random weights:
+                audio,text (hidden 768, 80 000 samples, 48 tokens, 1 fusion
+                layer, 8 heads, batch 32), then audio,text,video (+ the frozen
+                Swin3D-T tower on 128 frames at 112 px in 8-frame windows,
+                batch 8):
+                (a) logits and tower features on the card against the same
+                    model on the CPU, 1e-3 (tri-modal at batch 2);
+                (b) the HTTP server (cli/serve.build_server) answering a short
+                    JSON clip, an npz batch larger than the batch size and 4
+                    concurrent npz clips, with the kernels' launch counts
+                    reset just before and read just after: every kernel of the
+                    path launched its count per served forward (K1 once, K2
+                    12 times), no other kernel;
+                (c) throughput of Predictor.predict at the served batch, the
+                    forward's time by tower, its kernel time by family, and
+                    MicroBatcher single-clip p50 latency.
+Prints a `slice` JSON line per slice, the `kernels` JSON line, the card's
+name and power limit, and last `{"ok": true, "device": {...}}`.  Without a
+CUDA device it exits non-zero and prints no result.
 """
 
 import copy
@@ -49,17 +60,29 @@ from multimodalaggressionrecognition_tpu_torch.cli.train_multimodal import (
 from multimodalaggressionrecognition_tpu_torch.models.layers import (
     seeded_init_)
 from multimodalaggressionrecognition_tpu_torch.models.nn1d import BatchNorm1d
+from multimodalaggressionrecognition_tpu_torch.models.physverb import (
+    IdentityExtractor)
+from multimodalaggressionrecognition_tpu_torch.models.swin3d import (
+    _attention_mask)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
     framed_conv1d, framed_conv1d_reference, out_length)
+from multimodalaggressionrecognition_tpu_torch.ops.cuda.window_attention import (
+    attention_core_reference, fused_window_attention)
 from multimodalaggressionrecognition_tpu_torch.utils import kernels
 
 SEED = 0
 DEVICE = "cuda"
 TOL = dict(atol=1e-4, rtol=1e-4)
-# full width of the flagship (cli/train_multimodal.py defaults)
-FULL = dict(hidden_size=768, fusion_layers=1, fusion_heads=8,
-            audio_samples=80000, text_tokens=48)
-BATCH = 32
+# full width of the flagship (cli/train_multimodal.py defaults) and of the
+# tri-modal model (+ Swin3D-T on 128 frames at 112 px, 8-frame windows)
+FLAGSHIP = dict(hidden_size=768, fusion_layers=1, fusion_heads=8,
+                audio_samples=80000, text_tokens=48)
+TRIMODAL = dict(FLAGSHIP, video_frames=128, video_size=112, video_window=8)
+# (modalities, config, served batch, parity batch, launches per forward)
+BATCH = 32  # the flagship's served batch: K1's main-path shape
+SLICES = [("audio,text", FLAGSHIP, BATCH, BATCH, {"framed_conv1d": 1}),
+          ("audio,text,video", TRIMODAL, 8, 2,
+           {"framed_conv1d": 1, "window_attention": 12})]
 # (name, B, L, F, hop, pad, C, epilogue): tests/test_pallas.py's shapes, a
 # non-multiple F/hop, and the CNN1D stem as the served path calls it (its
 # BatchNorm and ReLU folded into the epilogue)
@@ -69,6 +92,19 @@ K1_SHAPES = [("stem-2x8000", 2, 8000, 160, 40, 80, 64, False),
              ("epilogue-1x4000", 1, 4000, 160, 40, 80, 64, True),
              ("f147-hop40", 2, 8000, 147, 40, 3, 24, False),
              ("stem-32x80000", BATCH, 80000, 160, 40, 80, 64, True)]
+# K2: (W, N, heads, d, nW_img) of tests/test_pallas.py, random masks
+K2_TEST_SHAPES = [(8, 24, 3, 8, 4), (6, 49, 3, 32, 3), (4, 12, 2, 16, 0)]
+# K2 as the tri-modal b8 forward calls it: 128 windows of 8 frames, patch
+# grid 4x28x28, window (8,7,7) clamped to 4 frames; (name, W, N, heads, d,
+# nW_img, launches per forward).  Shifted blocks use the real mask of their
+# padded grid (K2_GRIDS); stage 2 clamps h and w (no shift), stage 3 all axes.
+K2_STAGES = [("stage0-shifted", 2048, 196, 3, 32, 16, 1),
+             ("stage0", 2048, 196, 3, 32, 0, 1),
+             ("stage1-shifted", 512, 196, 6, 32, 4, 1),
+             ("stage1", 512, 196, 6, 32, 0, 1),
+             ("stage2", 128, 196, 12, 32, 0, 6),
+             ("stage3", 128, 64, 24, 32, 0, 2)]
+K2_GRIDS = {16: (4, 28, 28), 4: (4, 14, 14)}
 
 
 def peaks(name: str):
@@ -78,6 +114,16 @@ def peaks(name: str):
     if "NVL" in name:
         return 60.0e12, 3.9e12
     return 67.0e12, 3.35e12  # H100 SXM
+
+
+def bound(card: str, flops: float, nbytes: float):
+    """The least time the card could take: {bound_ms, bound_by, and both
+    terms}."""
+    peak_flops, peak_bw = peaks(card)
+    ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms}
 
 
 def log(*parts):
@@ -114,6 +160,15 @@ def rotating(make, n: int = 4):
     return call
 
 
+def in_turns(fns, reps: int = 30):
+    """{key: min ms} of each fn, timed in turns a, b, ..., ..., b, a."""
+    order = list(fns) + list(fns)[::-1]
+    times = {k: [] for k in fns}
+    for key in order:
+        times[key].append(cuda_ms(fns[key], reps=reps))
+    return {k: min(v) for k, v in times.items()}
+
+
 def k1_inputs(b, length, f, c, epilogue, seed):
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((b, length), generator=g)
@@ -125,7 +180,7 @@ def k1_inputs(b, length, f, c, epilogue, seed):
             for t in (x, w, bias, scale, shift)]
 
 
-def kernel_phase(card: str):
+def k1_phase(card: str):
     """K1 against its plain version at every shape; times at the stem."""
     worst = 0.0
     for name, b, length, f, hop, pad, c, epi in K1_SHAPES:
@@ -148,34 +203,141 @@ def kernel_phase(card: str):
         return x, w, bi, sc, sh, w.t().contiguous()[:, None, :]
 
     call = rotating(make)
-    kern = call(lambda x, w, bi, sc, sh, _: framed_conv1d(
-        x, w, bi, f, hop, pad, sc, sh, relu=True))
-    plain = call(lambda x, w, bi, sc, sh, _: framed_conv1d_reference(
-        x, w, bi, f, hop, pad, sc, sh, relu=True))
-    # yardstick only (the port never calls it): cuDNN's conv with bias, in
-    # the (B, C, T) layout, without the scale/shift/ReLU epilogue
-    library = call(lambda x, w, bi, sc, sh, w_conv: F.conv1d(
-        x[:, None, :], w_conv, bi, stride=hop, padding=pad))
-    # in turns: kernel, plain, library, library, plain, kernel
-    times = {"ms": [], "plain_ms": [], "library_ms": []}
-    for key in ("ms", "plain_ms", "library_ms", "library_ms", "plain_ms", "ms"):
-        fn = {"ms": kern, "plain_ms": plain, "library_ms": library}[key]
-        times[key].append(cuda_ms(fn))
-    times = {k: min(v) for k, v in times.items()}
+    times = in_turns({
+        "ms": call(lambda x, w, bi, sc, sh, _: framed_conv1d(
+            x, w, bi, f, hop, pad, sc, sh, relu=True)),
+        "plain_ms": call(lambda x, w, bi, sc, sh, _: framed_conv1d_reference(
+            x, w, bi, f, hop, pad, sc, sh, relu=True)),
+        # yardstick only (the port never calls it): cuDNN's conv with bias,
+        # in the (B, C, T) layout, without the scale/shift/ReLU epilogue
+        "library_ms": call(lambda x, w, bi, sc, sh, w_conv: F.conv1d(
+            x[:, None, :], w_conv, bi, stride=hop, padding=pad))})
     flops = 2 * b * t * f * c
     nbytes = 4 * (b * length + f * c + 3 * c + b * t * c)
-    peak_flops, peak_bw = peaks(card)
-    bound_ops, bound_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-    bound = {"bound_ms": max(bound_ops, bound_bytes),
-             "bound_by": "operations" if bound_ops >= bound_bytes else "bytes"}
+    bd = bound(card, flops, nbytes)
     log(f"k1 stem timing on {card}: kernel {times['ms']:.4f} ms, plain "
         f"{times['plain_ms']:.4f} ms, F.conv1d {times['library_ms']:.4f} ms, "
-        f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}: "
-        f"{flops / 1e9:.3f} GFLOP at {peak_flops / 1e12:.1f} TFLOP/s = "
-        f"{bound_ops:.4f} ms, {nbytes / 1e6:.2f} MB at {peak_bw / 1e12:.2f} "
-        f"TB/s = {bound_bytes:.4f} ms); kernel at "
-        f"{bound['bound_ms'] / times['ms'] * 100:.1f}% of the bound")
-    return {"max_abs_err": worst, **times, **bound}
+        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
+        f"{flops / 1e9:.3f} GFLOP = {bd['ops_ms']:.4f} ms, "
+        f"{nbytes / 1e6:.2f} MB = {bd['bytes_ms']:.4f} ms); kernel at "
+        f"{bd['bound_ms'] / times['ms'] * 100:.1f}% of the bound")
+    return {"max_abs_err": worst, **times, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"]}
+
+
+def k2_inputs(w, n, heads, d, nw, seed, stage_mask=False):
+    """qkv, bias and mask on the card, drawn there from `seed`."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    c = heads * d
+    qkv = torch.randn((w, n, 3 * c), generator=g, device=DEVICE)
+    bias = torch.randn((heads, n, n), generator=g, device=DEVICE) * 0.1
+    mask = None
+    if nw and stage_mask:
+        mask = torch.from_numpy(_attention_mask(
+            *K2_GRIDS[nw], (4, 7, 7), (0, 3, 3))).to(DEVICE)
+    elif nw:
+        mask = torch.where(torch.rand((nw, n, n), generator=g,
+                                      device=DEVICE) > 0.7, -100.0, 0.0)
+    return qkv, bias, mask
+
+
+def k2_work(w, n, heads, d, nw):
+    """(operations, bytes) of one launch: two N x N x d products per window
+    and head; qkv, bias and mask read once, the output written once."""
+    c = heads * d
+    return (4 * w * heads * n * n * d,
+            4 * (w * n * 3 * c + heads * n * n + nw * n * n + w * n * c))
+
+
+def sdpa_args(qkv, bias, mask, heads):
+    """q, k, v and attn_mask for F.scaled_dot_product_attention: the same
+    function, with windows sharing a mask slot batched as (W/nW, nW*heads,
+    N, d).  Made once, outside the timing."""
+    w, n, c3 = qkv.shape
+    d = c3 // 3 // heads
+    nw = 1 if mask is None else mask.shape[0]
+    q, k, v = (t.reshape(w // nw, nw * heads, n, d)
+               for t in qkv.view(w, n, 3, heads, d).permute(2, 0, 3, 1, 4))
+    am = bias[None] if mask is None else (bias[None] + mask[:, None])
+    return q, k, v, am.reshape(1, nw * heads, n, n)
+
+
+def k2_phase(card: str):
+    """K2 against its plain version at every shape; at stage 0's shifted
+    block the kernel, plain and SDPA times; the kernel's time per stage."""
+    worst = 0.0
+    shapes = ([(f"test-{w}x{n}-d{d}", w, n, h, d, nw, 1e-5, False)
+               for w, n, h, d, nw in K2_TEST_SHAPES]
+              + [(name, w, n, h, d, nw, 1e-4, True)
+                 for name, w, n, h, d, nw, _ in K2_STAGES])
+    for name, w, n, heads, d, nw, tol, stage in shapes:
+        qkv, bias, mask = k2_inputs(w, n, heads, d, nw, seed=n * 100 + d,
+                                    stage_mask=stage)
+        got = fused_window_attention(qkv, bias, mask, heads)
+        torch.cuda.synchronize()
+        ref = attention_core_reference(qkv, bias, mask, heads)
+        err = (got - ref).abs().max().item()
+        torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
+        worst = max(worst, err)
+        log(f"k2 {name}: W={w} N={n} heads={heads} d={d} nW_img={nw} "
+            f"out={tuple(got.shape)} max_abs_err={err:.3e} <= {tol:g} ok")
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def sdpa(q, k, v, am):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+
+    # every stage: the kernel; at the main path's shape (stage 0's shifted
+    # block) also the plain version, and there and at stage 2 SDPA
+    main, per_stage, fwd_ms, fwd_bound = {}, {}, 0.0, 0.0
+    for name, w, n, heads, d, nw, launches in K2_STAGES:
+        def make(i):
+            return k2_inputs(w, n, heads, d, nw, seed=7 + i, stage_mask=True)
+
+        call = rotating(make)
+        fns = {"ms": call(
+            lambda q, b, m: fused_window_attention(q, b, m, heads))}
+        if name == "stage0-shifted":
+            fns["plain_ms"] = call(
+                lambda q, b, m: attention_core_reference(q, b, m, heads))
+        if name in ("stage0-shifted", "stage2"):
+            fns["library_ms"] = rotating(
+                lambda i: sdpa_args(*make(i), heads))(sdpa)
+        times = in_turns(fns)
+        bd = bound(card, *k2_work(w, n, heads, d, nw))
+        if name == "stage0-shifted":
+            main = {**times, "bound_ms": bd["bound_ms"],
+                    "bound_by": bd["bound_by"]}
+        per_stage[name] = times["ms"]
+        fwd_ms += launches * times["ms"]
+        fwd_bound += launches * bd["bound_ms"]
+        labels = {"ms": "kernel", "plain_ms": "plain", "library_ms": "SDPA"}
+        log(f"k2 {name} x{launches} per forward on {card}: "
+            + ", ".join(f"{labels[k]} {v:.4f} ms" for k, v in times.items())
+            + f"; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
+            f"operations {bd['ops_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} "
+            f"ms); kernel at {bd['bound_ms'] / times['ms'] * 100:.1f}% of "
+            "the bound")
+    log(f"k2 per tri-modal b8 forward (12 launches): kernel {fwd_ms:.4f} ms, "
+        f"bound {fwd_bound:.4f} ms ({fwd_bound / fwd_ms * 100:.1f}%)")
+
+    # the yardstick computes the same function, and which kernel it takes
+    name, w, n, heads, d, nw, _ = K2_STAGES[0]
+    qkv, bias, mask = k2_inputs(w, n, heads, d, nw, seed=7, stage_mask=True)
+    args = sdpa_args(qkv, bias, mask, heads)
+    lib_out = (sdpa(*args).reshape(w, heads, n, d).transpose(1, 2)
+               .reshape(w, n, heads * d))
+    lib_err = (lib_out - attention_core_reference(qkv, bias, mask, heads)
+               ).abs().max().item()
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            sdpa(*args)
+        backend = "its memory-efficient kernel"
+    except RuntimeError:
+        backend = "another kernel than the memory-efficient one"
+    log(f"k2 SDPA at {name}: {backend}, max |d| vs plain {lib_err:.3e}")
+    return {"max_abs_err": worst, **main, "ms_by_stage": per_stage,
+            "forward_ms": fwd_ms, "forward_bound_ms": fwd_bound}
 
 
 def kernel_breakdown(fn, reps: int = 5):
@@ -196,63 +358,98 @@ def kernel_breakdown(fn, reps: int = 5):
         name = e.key.lower()
         # cuDNN's implicit-GEMM convs are named "...fprop_implicit_gemm..."
         family = ("framed_conv1d (K1)" if "framed_conv1d" in name
-                  else "cuDNN conv (trunk)" if "fprop" in name or "conv" in name
-                  else "gemm (Linear, attention)" if "gemm" in name
-                  else "elementwise, norm, pool, copy")
+                  else "window_attention (K2)" if "window_attention" in name
+                  else "cuDNN conv (CNN1D trunk, patch embed)"
+                  if "fprop" in name or "conv" in name
+                  else "gemm (Linear, fusion attention)" if "gemm" in name
+                  else "LayerNorm" if "layer_norm" in name
+                  else "roll, copies, pads, concat" if any(
+                      k in name for k in ("roll", "copy", "pad", "cat"))
+                  else "other elementwise, GELU, reductions")
         families[family] = (families.get(family, 0.0)
                             + e.self_device_time_total / reps / 1e3)
     return families
 
 
-def full_batch(seed: int):
-    """A full-width batch: zero-padded text tails and one absent row."""
+def full_batch(cfg, modalities, n: int, seed: int):
+    """A full-width batch: zero-padded text tails and, past two rows, one
+    absent row."""
     g = torch.Generator().manual_seed(seed)
-    audio = torch.randn((BATCH, FULL["audio_samples"]), generator=g) * 0.1
-    text = torch.randn((BATCH, FULL["text_tokens"], FULL["hidden_size"]),
-                       generator=g)
-    for i in range(0, BATCH, 3):
-        text[i, 20 + i:] = 0.0  # zero-padded (masked) token rows
-    present = torch.ones(BATCH)
-    present[-1] = 0.0  # absent row: every token masked
-    return {"audio": {"data": audio, "present": present},
-            "text": {"data": text, "present": present}}
+    data = {}
+    if "audio" in modalities:
+        data["audio"] = torch.randn((n, cfg["audio_samples"]), generator=g) * 0.1
+    if "text" in modalities:
+        text = torch.randn((n, cfg["text_tokens"], cfg["hidden_size"]),
+                           generator=g)
+        for i in range(0, n, 3):
+            text[i, 20 + i:] = 0.0  # zero-padded (masked) token rows
+        data["text"] = text
+    if "video" in modalities:
+        size = cfg["video_size"]
+        data["video"] = torch.randn((n, cfg["video_frames"], size, size, 3),
+                                    generator=g)
+    present = torch.ones(n)
+    if n > 2:
+        present[-1] = 0.0  # absent row: every token masked
+    return {m: {"data": d, "present": present} for m, d in data.items()}
 
 
 def to(batch, device):
     return {m: {k: v.to(device) for k, v in d.items()} for m, d in batch.items()}
 
 
-def parity_phase():
-    """(a) The same seeded model on the card and on the CPU."""
-    model = seeded_init_(build_model(MultimodalConfig(**FULL), ("audio", "text")),
-                         SEED)
+@torch.no_grad()
+def seeded_model(cfg, modalities):
+    """The seeded model with non-trivial BatchNorm statistics and LayerNorm
+    parameters.  With the initial LayerNorm (weight 1, bias 0) every token
+    of the Swin tower's mean-pooled output sums to ~1e-6, and the fusion
+    masks a token whose features sum to exactly 0: rounding would decide."""
+    model = seeded_init_(build_model(MultimodalConfig(**cfg), modalities), SEED)
     g = torch.Generator().manual_seed(SEED + 1)
-    for m in model.modules():  # non-trivial BatchNorm statistics
+    for m in model.modules():
         if isinstance(m, BatchNorm1d):
             m.running_mean.copy_(torch.randn(m.running_mean.shape, generator=g)
                                  * 0.1)
             m.running_var.copy_(torch.rand(m.running_var.shape, generator=g)
                                 + 0.5)
-    model.eval()
+        elif isinstance(m, torch.nn.LayerNorm):
+            m.weight.copy_(1.0 + 0.1 * torch.randn(m.weight.shape, generator=g))
+            m.bias.copy_(0.05 * torch.randn(m.bias.shape, generator=g))
+    return model.eval()
+
+
+def parity_phase(label, cfg, modalities, n: int):
+    """(a) The same seeded model on the card and on the CPU: each tower's
+    features and the logits."""
+    model = seeded_model(cfg, modalities)
     gpu = copy.deepcopy(model).to(DEVICE)
-    batch = full_batch(SEED + 2)
+    batch = full_batch(cfg, modalities, n, SEED + 2)
+
+    def run(m, b):  # PhysVerbModel.forward, keeping the features
+        feats = m.extract_features(b)
+        return feats, m.classifier(m.fusion(feats))
+
     with torch.inference_mode():
         t0 = time.monotonic()
-        want = model(batch)
+        want_feats, want = run(model, batch)
         cpu_s = time.monotonic() - t0
-        got = gpu(to(batch, DEVICE))
+        got_feats, got = run(gpu, to(batch, DEVICE))
         torch.cuda.synchronize()
-    err = max((got[h].cpu() - want[h]).abs().max().item() for h in want)
     for h in want:
-        if got[h].shape != (BATCH, 2) or not torch.isfinite(got[h]).all():
+        if got[h].shape != (n, 2) or not torch.isfinite(got[h]).all():
             raise AssertionError(f"head {h}: bad logits {got[h].shape}")
-    if err > 1e-3:
-        raise AssertionError(f"GPU vs CPU logits differ by {err:.3e} > 1e-3")
+    err = max((got[h].cpu() - want[h]).abs().max().item() for h in want)
+    feat_err = {m: (got_feats[m].cpu() - want_feats[m]).abs().max().item()
+                for m in want_feats}
+    if err > 1e-3 or max(feat_err.values()) > 1e-3:
+        raise AssertionError(f"{label}: GPU vs CPU logits differ by {err:.3e}, "
+                             f"features by {feat_err} (limit 1e-3)")
     scale = max(want[h].abs().max().item() for h in want)
-    log(f"slice parity: b{BATCH} full width, cuda vs cpu max |dlogit| "
-        f"{err:.3e} <= 1e-3 ok (max |logit| {scale:.3e}; cpu forward "
-        f"{cpu_s:.2f} s)")
-    return batch
+    log(f"slice {label} parity: b{n} full width, cuda vs cpu max |dlogit| "
+        f"{err:.3e} <= 1e-3 ok (max |logit| {scale:.3e}); max |dfeature| "
+        + ", ".join(f"{m} {e:.3e}" for m, e in feat_err.items())
+        + f"; cpu forward {cpu_s:.2f} s")
+    return err
 
 
 def _http(srv, path, body=None, ctype="application/json"):
@@ -273,37 +470,51 @@ def _check_scores(got, n):
             raise AssertionError(f"{head}: probabilities do not sum to 1")
 
 
-def serving_phase(srv):
+def request(rng, cfg, modalities, n: int, short: bool = False):
+    """{modality: (n, ...)} float32 clips; `short` clips are padded by the
+    server (5/8 of the samples, half the tokens, 12 frames)."""
+    out = {}
+    if "audio" in modalities:
+        length = cfg["audio_samples"] * 5 // 8 if short else cfg["audio_samples"]
+        out["audio"] = rng.standard_normal((n, length)) * 0.1
+    if "text" in modalities:
+        tokens = cfg["text_tokens"] // 2 if short else cfg["text_tokens"]
+        out["text"] = rng.standard_normal((n, tokens, cfg["hidden_size"]))
+    if "video" in modalities:
+        size = cfg["video_size"]
+        frames = 12 if short else cfg["video_frames"]
+        out["video"] = rng.standard_normal((n, frames, size, size, 3))
+    return {m: a.astype(np.float32) for m, a in out.items()}
+
+
+def _npz(arrays):
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def serving_phase(srv, label, cfg, modalities, per_forward):
     """(b) Drive the main path: /score over HTTP, JSON and npz."""
     rng = np.random.default_rng(SEED + 3)
-    hidden, samples, tokens = (FULL["hidden_size"], FULL["audio_samples"],
-                               FULL["text_tokens"])
-
-    def clip_json(length, n_tokens):
-        return json.dumps({
-            "audio": (rng.standard_normal(length) * 0.1).round(4).tolist(),
-            "text": rng.standard_normal((n_tokens, hidden)).round(4).tolist(),
-        }).encode()
-
-    # a batch larger than the fixed size: chunked into BATCH + the rest
-    n_big = BATCH + BATCH // 4
-    buf = io.BytesIO()
-    np.savez(buf, audio=(rng.standard_normal((n_big, samples)) * 0.1)
-             .astype(np.float32),
-             text=rng.standard_normal((n_big, tokens, hidden)).astype(np.float32))
-    short = clip_json(samples * 5 // 8, tokens // 2)  # padded server-side
-    singles = [clip_json(samples, tokens) for _ in range(4)]
+    batch_size = srv.predictor.batch_size
+    short = json.dumps({m: a[0].round(4).tolist() for m, a in request(
+        rng, cfg, modalities, 1, short=True).items()}).encode()
+    # a batch larger than the fixed size: chunked into batch_size + the rest
+    n_big = batch_size + batch_size // 4
+    big = _npz(request(rng, cfg, modalities, n_big))
+    singles = [_npz({m: a[0] for m, a in request(rng, cfg, modalities,
+                                                 1).items()})
+               for _ in range(4)]
 
     dispatches0 = _http(srv, "/statz")["model"]["dispatches"]
-    kernels.launch_counts.clear()  # count the main path only
+    kernels.launch_counts.clear()  # count this path only
     _check_scores(_http(srv, "/score", short), 1)
-    _check_scores(_http(srv, "/score", buf.getvalue(), "application/x-npz"),
-                  n_big)
+    _check_scores(_http(srv, "/score", big, "application/x-npz"), n_big)
     # concurrent single clips, coalesced by the micro-batcher
     results = [None] * len(singles)
 
     def hit(i):
-        results[i] = _http(srv, "/score", singles[i])
+        results[i] = _http(srv, "/score", singles[i], "application/x-npz")
 
     threads = [threading.Thread(target=hit, args=(i,))
                for i in range(len(singles))]
@@ -319,63 +530,97 @@ def serving_phase(srv):
     dispatches = stats["dispatches"] - dispatches0
     if dispatches < 3:
         raise AssertionError(f"/statz dispatches advanced by {dispatches}")
-    for name in ("framed_conv1d",):
-        if counts.get(name, 0) != dispatches:
-            raise AssertionError(f"{name} launched {counts.get(name, 0)} times "
-                                 f"in {dispatches} served forwards")
-    log(f"slice serving: 6 requests (JSON 1 short clip, npz {n_big} clips, "
-        f"4 concurrent clips) -> {dispatches} forwards, launches {counts}, "
-        f"mean group {stats.get('mean_group_size')} ok")
+    for name in set(per_forward) | set(counts):
+        want = per_forward.get(name, 0) * dispatches
+        if counts.get(name, 0) != want:
+            raise AssertionError(
+                f"{label}: {name} launched {counts.get(name, 0)} times in "
+                f"{dispatches} served forwards, want {want}")
+    log(f"slice {label} serving: 6 requests (JSON 1 short clip, npz {n_big} "
+        f"clips, 4 concurrent npz clips) -> {dispatches} forwards, launches "
+        f"{counts}, mean group {stats.get('mean_group_size')} ok")
     return counts
 
 
-def throughput_phase(srv, batch, card_line):
-    """(c) Predictor.predict at b32, the forward by stage, and p50."""
+def throughput_phase(srv, label, cfg, modalities, card_line):
+    """(c) Predictor.predict at the served batch, the forward by tower and
+    by kernel family, and MicroBatcher single-clip p50."""
     pred, batcher = srv.predictor, srv.batcher
-    gpu = pred.model
+    gpu, batch_size = pred.model, pred.batch_size
     rng = np.random.default_rng(SEED + 4)
-    hidden = FULL["hidden_size"]
-    req = {"audio": (rng.standard_normal((BATCH, FULL["audio_samples"]))
-                     * 0.1).astype(np.float32),
-           "text": rng.standard_normal((BATCH, FULL["text_tokens"], hidden))
-           .astype(np.float32)}
-    for _ in range(3):
+    req = request(rng, cfg, modalities, batch_size)
+    host_mb = sum(a.nbytes for a in req.values()) / 1e6
+    for _ in range(2):
         pred.predict(req)
-    reps = 20
+    reps = 10
     t0 = time.perf_counter()
     for _ in range(reps):
         pred.predict(req)  # ends in a device-to-host copy of the scores
     secs = time.perf_counter() - t0
-    clips_s = BATCH * reps / secs
+    clips_s = batch_size * reps / secs
 
-    on_card = to(batch, DEVICE)
-    audio = on_card["audio"]["data"]
+    on_card = to(full_batch(cfg, modalities, batch_size, SEED + 5), DEVICE)
+    towers = {}
     with torch.inference_mode():
-        fwd = cuda_ms(lambda: gpu(on_card), reps=20)
-        tower = cuda_ms(lambda: gpu.extractors["audio"](audio), reps=20)
-        trunk = cuda_ms(lambda: gpu.extractors["audio"].extractor(audio),
-                        reps=20)
-        families = kernel_breakdown(lambda: gpu(on_card))
+        fwd = cuda_ms(lambda: gpu(on_card), reps=reps)
+        for m, ext in gpu.extractors.items():
+            if not isinstance(ext, IdentityExtractor):
+                towers[m] = cuda_ms(lambda: ext(on_card[m]["data"]), reps=reps)
+        trunk = cuda_ms(lambda: gpu.extractors["audio"].extractor(
+            on_card["audio"]["data"]), reps=reps)
+        feats = gpu.extract_features(on_card)
+        rest = cuda_ms(lambda: gpu.classifier(gpu.fusion(feats)), reps=reps)
+        families = kernel_breakdown(lambda: gpu(on_card), reps=3)
     busy = sum(families.values())
-    log(f"forward kernels by family (b{BATCH}, ms per forward): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+    log(f"slice {label} forward kernels by family (b{batch_size}, ms per "
+        "forward): " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
             families.items(), key=lambda kv: -kv[1]))
         + f"; sum {busy:.4f} ms = {busy / fwd * 100:.1f}% of the "
         f"{fwd:.3f} ms forward, the rest is the card idle between launches")
     lat = []
     clip = {k: v[:1] for k, v in req.items()}
-    for _ in range(30):
+    for _ in range(20):
         t1 = time.perf_counter()
-        batcher.submit(clip).result(timeout=60)
+        batcher.submit(clip).result(timeout=120)
         lat.append((time.perf_counter() - t1) * 1e3)
     p50 = float(np.median(lat))
-    log(f"slice throughput on {card_line}: Predictor.predict b{BATCH} "
-        f"{clips_s:.1f} clips/s ({secs / reps * 1e3:.3f} ms/batch incl. host "
-        f"pad + copies); device forward b{BATCH} {fwd:.3f} ms = audio tower "
-        f"{tower:.3f} ms (CNN1D trunk {trunk:.3f} ms, adaptor "
-        f"{tower - trunk:.3f} ms) + fusion/heads {fwd - tower:.3f} ms; "
-        f"MicroBatcher single-clip p50 {p50:.3f} ms "
-        f"(max_delay_ms {batcher.max_delay * 1e3:.1f}, 30 sequential)")
+    log(f"slice {label} throughput on {card_line}: Predictor.predict "
+        f"b{batch_size} {clips_s:.1f} clips/s ({secs / reps * 1e3:.3f} "
+        f"ms/batch incl. host pad + {host_mb:.1f} MB pageable copy); device "
+        f"forward b{batch_size} {fwd:.3f} ms = "
+        + " + ".join(f"{m} tower {t:.3f} ms" + (
+            f" (CNN1D trunk {trunk:.3f} ms)" if m == "audio" else "")
+            for m, t in towers.items())
+        + f" + fusion/adaptors/heads {rest:.3f} ms; MicroBatcher "
+        f"single-clip p50 {p50:.3f} ms "
+        f"(max_delay_ms {batcher.max_delay * 1e3:.1f}, 20 sequential)")
+    return {"predict_clips_per_s": clips_s, "predict_ms": secs / reps * 1e3,
+            "forward_ms": fwd, "tower_ms": towers,
+            "fusion_heads_ms": rest, "kernel_ms_by_family": families,
+            "kernel_busy_pct": busy / fwd * 100, "p50_ms": p50}
+
+
+def run_slice(label, cfg, batch_size, parity_n, per_forward, card_line):
+    modalities = tuple(sorted(label.split(",")))
+    err = parity_phase(label, cfg, modalities, parity_n)
+    srv = build_server(ServeConfig(**cfg, modalities=label,
+                                   batch_size=batch_size, device=DEVICE,
+                                   allow_random_weights=True, port=0,
+                                   seed=SEED))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        counts = serving_phase(srv, label, cfg, modalities, per_forward)
+        numbers = throughput_phase(srv, label, cfg, modalities, card_line)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.close()
+        thread.join(timeout=60)
+    log(json.dumps({"slice": label, "batch": batch_size,
+                    "parity_max_abs_logit_err": err, "launches": counts,
+                    **numbers}))
+    return counts
 
 
 def main():
@@ -397,28 +642,28 @@ def main():
     libs = kernels.build_all()
     log(f"build: {sorted(libs)} in {time.monotonic() - t0:.1f} s (nvcc, sm_90a)")
 
-    k1 = kernel_phase(name)
-    batch = parity_phase()
-    srv = build_server(ServeConfig(**FULL, batch_size=BATCH, device=DEVICE,
-                                   allow_random_weights=True, port=0,
-                                   seed=SEED))
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
-    try:
-        counts = serving_phase(srv)
-        throughput_phase(srv, batch, card_line)
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        srv.batcher.close()
-        thread.join(timeout=60)
+    k1 = k1_phase(name)
+    k2 = k2_phase(name)
+    launches = {label: run_slice(label, cfg, bs, parity_n, per_forward,
+                                 card_line)
+                for label, cfg, bs, parity_n, per_forward in SLICES}
+    main_path = SLICES[-1][0]  # this slice's path runs every kernel
 
-    log(json.dumps({"kernels": [{
-        "name": "framed_conv1d", "route": "cuda",
-        "source": "multimodalaggressionrecognition_tpu_torch/csrc/framed_conv.cu",
-        "replaces": "multimodalaggressionrecognition_tpu/ops/pallas/"
-                    "framed_conv.py:54",
-        "launches": counts["framed_conv1d"], **k1, "status": "ok"}]}))
+    def entry(kernel, source, replaces, numbers):
+        return {"name": kernel, "route": "cuda",
+                "source": f"multimodalaggressionrecognition_tpu_torch/csrc/"
+                          f"{source}",
+                "replaces": f"multimodalaggressionrecognition_tpu/{replaces}",
+                "launches": launches[main_path].get(kernel, 0),
+                "launches_by_path": {p: c.get(kernel, 0)
+                                     for p, c in launches.items()},
+                **numbers, "status": "ok"}
+
+    log(json.dumps({"kernels": [
+        entry("framed_conv1d", "framed_conv.cu",
+              "ops/pallas/framed_conv.py:54", k1),
+        entry("window_attention", "window_attention.cu",
+              "ops/pallas/window_attention.py:112", k2)]}))
     log(card_line)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -19,7 +19,9 @@ class TrainConfig:
 def clip_shapes_from_config(cfg, modalities):
     """Per-modality single-clip shapes under this config's padding."""
     all_shapes = {"audio": (cfg.audio_samples,),
-                  "text": (cfg.text_tokens, cfg.hidden_size)}
+                  "text": (cfg.text_tokens, cfg.hidden_size),
+                  "video": (cfg.video_frames, cfg.video_size,
+                            cfg.video_size, 3)}
     return {m: all_shapes[m] for m in modalities}
 
 

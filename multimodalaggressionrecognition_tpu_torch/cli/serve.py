@@ -6,7 +6,7 @@ requests through a `serve.MicroBatcher`: whatever arrives within
 --max_delay_ms is coalesced into ONE padded forward.
 
   python -m multimodalaggressionrecognition_tpu_torch.cli.serve \
-      --path_to_checkpoint model.pt --modalities audio,text --port 8000
+      --path_to_checkpoint model.pt --modalities audio,text,video --port 8000
 
 Protocol:
   GET  /healthz -> {"ok": true, "models": {"model": {modalities, heads,
@@ -15,11 +15,12 @@ Protocol:
                     (clips/dispatches), recent-latency p50/p99}
   POST /score   -> {"phys": [[p_neg, p_aggr], ...], "verb": ...}
       Body is JSON ({"audio": clip-or-batch, "text": ...}) or an np.savez
-      archive with Content-Type application/x-npz.  A clip is audio (L,) or
-      text (T, H); a leading batch dim is accepted, and variable lengths
-      are padded/truncated to the model's sizes.  Every request carries the
-      server's full modality set; batches larger than --batch_size are
-      chunked across micro-batch groups.
+      archive with Content-Type application/x-npz.  A clip is audio (L,),
+      text (T, H) or video (T, S, S, 3) frames at the model's --video_size;
+      a leading batch dim is accepted, and variable lengths (samples,
+      tokens, frames) are padded/truncated to the model's sizes.  Every
+      request carries the server's full modality set; batches larger than
+      --batch_size are chunked across micro-batch groups.
 
 Runs on CUDA unless --device cpu; serving pre-exported artifacts
 (--exported) is not ported yet.
@@ -178,7 +179,7 @@ def build_server(cfg: ServeConfig, state_dict=None) -> ThreadingHTTPServer:
     """Construct the HTTP server (not yet serving): builds the model, loads
     its weights, warms the Predictor on `cfg.device` and starts the
     MicroBatcher.  Pass `state_dict` to skip checkpoint restore (tests)."""
-    from ..data.transforms import pad_audio, pad_text
+    from ..data.transforms import pad_audio, pad_text, pad_video
     from ..io.checkpoint import restore_variables
     from ..models.layers import seeded_init_
     from ..serve import MicroBatcher, Predictor, resolve_device
@@ -204,7 +205,7 @@ def build_server(cfg: ServeConfig, state_dict=None) -> ThreadingHTTPServer:
                           device=device)
     predictor.warmup({m: np.zeros((1,) + shapes[m], np.float32)
                       for m in modalities})
-    pad_builders = {"audio": pad_audio, "text": pad_text}
+    pad_builders = {"audio": pad_audio, "text": pad_text, "video": pad_video}
     endpoint = _Endpoint(
         predictor=predictor,
         batcher=MicroBatcher(predictor, max_delay_ms=cfg.max_delay_ms),

@@ -1,5 +1,5 @@
 """Host-side fixed-shape transforms: pad-or-truncate to the compiled sizes
-(audio 80 000 samples, text 48x768 by default)."""
+(audio 80 000 samples, text 48x768, video 128 frames by default)."""
 
 from typing import Callable
 
@@ -18,5 +18,12 @@ def pad_text(target_len: int = 48) -> Callable:
 def pad_audio(target_len: int = 80000) -> Callable:
     def fn(x):  # (L,) -> (target_len,)
         return pad_or_truncate(np.asarray(x, np.float32).reshape(-1), target_len)
+
+    return fn
+
+
+def pad_video(target_frames: int = 128) -> Callable:
+    def fn(x):  # (T, H, W, C) -> (target_frames, H, W, C)
+        return pad_or_truncate(np.asarray(x, np.float32), target_frames, axis=0)
 
     return fn

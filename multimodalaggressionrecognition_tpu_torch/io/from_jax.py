@@ -9,11 +9,16 @@ the port module of the same architecture.  Layout rules:
 - Conv1d:     kernel (K*C_in, C_out)   -> weight (C_out, C_in, K); C_in is
               1 for `conv0` and the previous conv's C_out after it (the
               CNN1D trunk's chain)
+- Conv3d:     kernel (kt, kh, kw, C_in, C_out)
+                                       -> weight (C_out, C_in, kt, kh, kw)
+- Swin:       relative_position_bias_table (entries, heads) kept as it is
 - MHA:        in_proj_kernel (E, 3E)   -> in_proj_weight (3E, E);
               out_proj_kernel/_bias    -> out_proj.weight (transposed)/.bias
 - Norms:      scale -> weight; BN batch_stats mean/var -> running_mean/_var
 - Names:      flax's `extractors_<m>` and `layers_<i>` -> `extractors.<m>`,
-              `layers.<i>` (ModuleDict / ModuleList)
+              `layers.<i>` (ModuleDict / ModuleList); the tri-modal video
+              tower's auto-named `Swin3dTExtractor_0` (its frozen backbone)
+              -> `backbone`, the port's WindowedVideoExtractor attribute
 
 A leaf no rule consumes raises, and `load_jax_variables` loads with
 strict=True, so a port parameter or buffer left unfilled raises too.
@@ -26,7 +31,8 @@ import numpy as np
 import torch
 
 _RENAMES = ((re.compile(r"^extractors_(\w+)$"), r"extractors.\1"),
-            (re.compile(r"^layers_(\d+)$"), r"layers.\1"))
+            (re.compile(r"^layers_(\d+)$"), r"layers.\1"),
+            (re.compile(r"^Swin3dTExtractor_\d+$"), "backbone"))
 
 
 def _module_path(path):
@@ -81,9 +87,11 @@ def from_jax_variables(variables) -> dict:
                 raise ValueError(f"{'/'.join(path)}: kernel rows "
                                  f"{value.shape[0]} not a multiple of C_in {c_in}")
             sd[f"{mod}weight"] = value.reshape(k, c_in, -1).transpose(2, 1, 0)
+        elif leaf == "kernel" and value.ndim == 5:
+            sd[f"{mod}weight"] = value.transpose(4, 3, 0, 1, 2)
         elif leaf == "kernel":
             sd[f"{mod}weight"] = value.T
-        elif leaf in ("bias", "in_proj_bias"):
+        elif leaf in ("bias", "in_proj_bias", "relative_position_bias_table"):
             sd[f"{mod}{leaf}"] = value
         elif leaf == "scale":
             sd[f"{mod}weight"] = value

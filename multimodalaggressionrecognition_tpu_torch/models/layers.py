@@ -99,10 +99,14 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     """Fill every parameter from one `torch.Generator`, with the JAX
     package's initializers: fan-in uniform for Linear/Conv weights and
     biases (torch's defaults), Xavier-uniform packed qkv with zero biases,
-    ones/zeros for norms, identity BatchNorm statistics.  Deterministic on
+    ones/zeros for norms, identity BatchNorm statistics, and Swin's
+    relative-position bias tables from a normal with std 0.02 truncated at
+    two standard deviations.  Deterministic on
     the CPU, so a model built this way and moved to any device carries the
     same weights."""
     from .nn1d import BatchNorm1d, Conv1d
+    from .nn3d import Conv3d
+    from .swin3d import ShiftedWindowAttention3d
 
     g = torch.Generator().manual_seed(seed)
 
@@ -111,7 +115,7 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
         t.copy_(torch.rand(t.shape, generator=g) * (2 * bound) - bound)
 
     for m in model.modules():
-        if isinstance(m, (nn.Linear, Conv1d)):
+        if isinstance(m, (nn.Linear, Conv1d, Conv3d)):
             fan_in = m.weight[0].numel()
             fan_in_uniform_(m.weight, fan_in)
             if m.bias is not None:
@@ -126,6 +130,9 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(m, (nn.LayerNorm, BatchNorm1d)):
             m.weight.fill_(1.0)
             m.bias.zero_()
+        elif isinstance(m, ShiftedWindowAttention3d):
+            nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02,
+                                  a=-0.04, b=0.04, generator=g)
     for m in model.modules():  # after the Linear pass: MHA's out_proj bias
         if isinstance(m, MultiheadSelfAttention):
             m.out_proj.bias.zero_()

@@ -110,12 +110,18 @@ def test_parse_config_and_video_is_a_later_slice():
         "cpu", True, 8)
     assert parse_config(ServeConfig, ["--allow_random_weights", "no"]
                         ).allow_random_weights is False
-    with pytest.raises(SystemExit, match="video slice"):
-        build_model(MultimodalConfig(), ("audio", "text", "video"))
+    cfg = parse_config(ServeConfig, ["--modalities", "audio,text,video",
+                                     "--video_freeze", "false"])
+    assert (cfg.modalities, cfg.video_freeze) == ("audio,text,video", False)
+    # the frozen video tower is served; fine-tuning it is a later slice
+    with pytest.raises(NotImplementedError, match="fine-tuning"):
+        build_model(cfg, ("audio", "text", "video"))
+    with pytest.raises(SystemExit, match="unknown modalities"):
+        build_model(MultimodalConfig(), ("audio", "depth"))
 
 
 def test_kernel_library_is_keyed_by_source():
-    assert "framed_conv" in kernels.kernel_sources()
+    assert {"framed_conv", "window_attention"} <= set(kernels.kernel_sources())
     path = kernels.library_path("framed_conv")
     assert path.startswith(kernels.BUILD_DIR) and path.endswith(".so")
     assert path == kernels.library_path("framed_conv")
