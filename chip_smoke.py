@@ -15,10 +15,14 @@ Phases (any failure raises, and the script exits non-zero):
                 stem's, atol/rtol 1e-4; K2 (window attention) at
                 tests/test_pallas.py's shapes, 1e-5 as there, and at the four
                 Swin3D-T stage shapes of the tri-modal b8 forward, masked and
-                unmasked, 1e-4 (longer f32 sums).  At the main path's shape
-                (K1: the stem at b32; K2: stage 0's shifted block) also the
-                kernel's, the plain version's and one library call's time and
-                the least time the card could take; K2's time at every stage.
+                unmasked, 1e-4 (longer f32 sums); K3 (window-attention
+                backward, dqkv and dbias) at tests/test_pallas.py's gradient
+                shapes, 1e-4, and at the stage shapes, 1e-4 of the largest
+                gradient.  At the main path's shape (K1: the stem at b32;
+                K2, K3: stage 0's shifted block) also the kernel's, the plain
+                version's and one library call's time (K3: SDPA's backward)
+                and the least time the card could take; K2's and K3's time
+                at every stage.
   4. slices   - each served model at full width with seeded random weights:
                 audio,text (hidden 768, 80 000 samples, 48 tokens, 1 fusion
                 layer, 8 heads, batch 32), then audio,text,video (+ the frozen
@@ -35,16 +39,31 @@ Phases (any failure raises, and the script exits non-zero):
                 (c) throughput of Predictor.predict at the served batch, the
                     forward's time by tower, its kernel time by family, and
                     MicroBatcher single-clip p50 latency.
-Prints a `slice` JSON line per slice, the `kernels` JSON line, the card's
-name and power limit, and last `{"ok": true, "device": {...}}`.  Without a
-CUDA device it exits non-zero and prints no result.
+  5. train    - the tri-modal model fine-tuned (Swin unfrozen, remat on):
+                (a) loss and every gradient of the full-width model at b1
+                    with 16 frames, eval mode, on the card against the CPU,
+                    each within 1e-3 times that tensor's largest gradient;
+                (b) cli.train_multimodal.main at full width, batch 8, 2
+                    epochs on a synthetic set, launch counts reset just
+                    before and read just after: finite logged losses, the
+                    logs and checkpoints; then one step of each presence
+                    pattern with its launches (video: K2 24, K3 12; audio:
+                    K1 1; a verb batch: no K2, no K3);
+                (c) the median b8 step time with remat on and off, the peak
+                    memory, the step's kernel time by family.
+Prints a `slice` JSON line per slice, a `train` JSON line, the `kernels`
+JSON line, the card's name and power limit, and last
+`{"ok": true, "device": {...}}`.  Without a CUDA device it exits non-zero
+and prints no result.
 """
 
 import copy
 import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -67,7 +86,10 @@ from multimodalaggressionrecognition_tpu_torch.models.swin3d import (
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
     framed_conv1d, framed_conv1d_reference, out_length)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.window_attention import (
-    attention_core_reference, fused_window_attention)
+    attention_core_reference, fused_window_attention, window_attention_bwd,
+    window_attention_bwd_reference)
+from multimodalaggressionrecognition_tpu_torch.train.steps import (
+    LossSpec, head_losses_and_metrics)
 from multimodalaggressionrecognition_tpu_torch.utils import kernels
 
 SEED = 0
@@ -105,6 +127,9 @@ K2_STAGES = [("stage0-shifted", 2048, 196, 3, 32, 16, 1),
              ("stage2", 128, 196, 12, 32, 0, 6),
              ("stage3", 128, 64, 24, 32, 0, 2)]
 K2_GRIDS = {16: (4, 28, 28), 4: (4, 14, 14)}
+# K3: (W, N, heads, d, nW_img) of tests/test_pallas.py's gradient case,
+# masked and not, and a clamped N=64 window; then K2_STAGES
+K3_TEST_SHAPES = [(6, 24, 3, 8, 0), (6, 24, 3, 8, 3), (4, 64, 2, 16, 2)]
 
 
 def peaks(name: str):
@@ -340,6 +365,102 @@ def k2_phase(card: str):
             "forward_ms": fwd_ms, "forward_bound_ms": fwd_bound}
 
 
+def k3_work(w, n, heads, d, nw):
+    """(operations, bytes) of one backward launch, by the JAX kernel's own
+    count: five N x N x d products per window and head; qkv, g, bias and
+    mask read once, dqkv and dbias written once."""
+    c = heads * d
+    return (10 * w * heads * n * n * d,
+            4 * (2 * w * n * 3 * c + 2 * heads * n * n + nw * n * n
+                 + w * n * c))
+
+
+def k3_inputs(w, n, heads, d, nw, seed, stage_mask=False):
+    qkv, bias, mask = k2_inputs(w, n, heads, d, nw, seed, stage_mask)
+    g = torch.randn((w, n, heads * d), device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(
+                        seed + 1))
+    return qkv, bias, mask, g
+
+
+def sdpa_backward(qkv, bias, mask, g, heads):
+    """fn() running only the backward of F.scaled_dot_product_attention on
+    the same function, gradients to q, k, v and the float bias + mask; the
+    forward runs once, outside the timing."""
+    q, k, v, am = (t.detach().requires_grad_()
+                   for t in sdpa_args(qkv, bias, mask, heads))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+    w, n, c3 = qkv.shape
+    d = c3 // 3 // heads
+    go = g.reshape(w, n, heads, d).transpose(1, 2).reshape(out.shape)
+    return lambda: torch.autograd.grad(out, (q, k, v, am), go,
+                                       retain_graph=True)
+
+
+def k3_phase(card: str):
+    """K3 against its plain version (dqkv and dbias) at the gradient shapes
+    of tests/test_pallas.py (1e-4) and the Swin3D-T stage shapes (1e-4 of
+    the largest gradient); at stage 0's shifted block the kernel, plain and
+    SDPA-backward times; the kernel's time per stage and per train step."""
+    worst = 0.0
+    shapes = ([(f"test-{w}x{n}-d{d}", w, n, h, d, nw, False)
+               for w, n, h, d, nw in K3_TEST_SHAPES]
+              + [(name, w, n, h, d, nw, True)
+                 for name, w, n, h, d, nw, _ in K2_STAGES])
+    for name, w, n, heads, d, nw, stage in shapes:
+        qkv, bias, mask, g = k3_inputs(w, n, heads, d, nw, seed=n + d,
+                                       stage_mask=stage)
+        got = window_attention_bwd(qkv, bias, mask, g, heads)
+        torch.cuda.synchronize()
+        want = window_attention_bwd_reference(qkv, bias, mask, g, heads)
+        errs = []
+        for part, x, y in zip(("dqkv", "dbias"), got, want):
+            tol = 1e-4 * (y.abs().max().item() if stage else 1.0)
+            err = (x - y).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"k3 {name} {part}: max |d| {err:.3e} "
+                                     f"> {tol:.3e}")
+            worst = max(worst, err)
+            errs.append(f"{part} {err:.3e} <= {tol:.3e}")
+        log(f"k3 {name}: W={w} N={n} heads={heads} d={d} nW_img={nw} "
+            + ", ".join(errs) + " ok")
+
+    main, per_stage, step_ms, step_bound = {}, {}, 0.0, 0.0
+    for name, w, n, heads, d, nw, launches in K2_STAGES:
+        def make(i):
+            return k3_inputs(w, n, heads, d, nw, seed=17 + i, stage_mask=True)
+
+        call = rotating(make)
+        fns = {"ms": call(lambda q, b, m, g: window_attention_bwd(
+            q, b, m, g, heads))}
+        if name == "stage0-shifted":
+            fns["plain_ms"] = call(lambda q, b, m, g:
+                                   window_attention_bwd_reference(
+                                       q, b, m, g, heads))
+            fns["library_ms"] = rotating(
+                lambda i: (sdpa_backward(*make(i), heads),))(lambda f: f())
+        times = in_turns(fns, reps=10)
+        bd = bound(card, *k3_work(w, n, heads, d, nw))
+        if name == "stage0-shifted":
+            main = {**times, "bound_ms": bd["bound_ms"],
+                    "bound_by": bd["bound_by"]}
+        per_stage[name] = times["ms"]
+        step_ms += launches * times["ms"]
+        step_bound += launches * bd["bound_ms"]
+        labels = {"ms": "kernel", "plain_ms": "plain",
+                  "library_ms": "SDPA backward"}
+        log(f"k3 {name} x{launches} per train step on {card}: "
+            + ", ".join(f"{labels[k]} {v:.4f} ms" for k, v in times.items())
+            + f"; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
+            f"operations {bd['ops_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} "
+            f"ms); kernel at {bd['bound_ms'] / times['ms'] * 100:.1f}% of "
+            "the bound")
+    log(f"k3 per tri-modal b8 train step (12 launches): kernel {step_ms:.4f} "
+        f"ms, bound {step_bound:.4f} ms ({step_bound / step_ms * 100:.1f}%)")
+    return {"max_abs_err": worst, **main, "ms_by_stage": per_stage,
+            "train_step_ms": step_ms, "train_step_bound_ms": step_bound}
+
+
 def kernel_breakdown(fn, reps: int = 5):
     """Device time per call of fn() by kernel family (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -358,7 +479,10 @@ def kernel_breakdown(fn, reps: int = 5):
         name = e.key.lower()
         # cuDNN's implicit-GEMM convs are named "...fprop_implicit_gemm..."
         family = ("framed_conv1d (K1)" if "framed_conv1d" in name
+                  else "window_attention_bwd (K3)"
+                  if "window_attention_bwd" in name or "sum_groups" in name
                   else "window_attention (K2)" if "window_attention" in name
+                  else "Adam (multi-tensor)" if "multi_tensor" in name
                   else "cuDNN conv (CNN1D trunk, patch embed)"
                   if "fprop" in name or "conv" in name
                   else "gemm (Linear, fusion attention)" if "gemm" in name
@@ -394,8 +518,11 @@ def full_batch(cfg, modalities, n: int, seed: int):
     return {m: {"data": d, "present": present} for m, d in data.items()}
 
 
-def to(batch, device):
-    return {m: {k: v.to(device) for k, v in d.items()} for m, d in batch.items()}
+def to_device(tree, device):
+    """Nested dicts of tensors, moved to `device`."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 @torch.no_grad()
@@ -433,7 +560,7 @@ def parity_phase(label, cfg, modalities, n: int):
         t0 = time.monotonic()
         want_feats, want = run(model, batch)
         cpu_s = time.monotonic() - t0
-        got_feats, got = run(gpu, to(batch, DEVICE))
+        got_feats, got = run(gpu, to_device(batch, DEVICE))
         torch.cuda.synchronize()
     for h in want:
         if got[h].shape != (n, 2) or not torch.isfinite(got[h]).all():
@@ -559,7 +686,8 @@ def throughput_phase(srv, label, cfg, modalities, card_line):
     secs = time.perf_counter() - t0
     clips_s = batch_size * reps / secs
 
-    on_card = to(full_batch(cfg, modalities, batch_size, SEED + 5), DEVICE)
+    on_card = to_device(full_batch(cfg, modalities, batch_size, SEED + 5),
+                        DEVICE)
     towers = {}
     with torch.inference_mode():
         fwd = cuda_ms(lambda: gpu(on_card), reps=reps)
@@ -623,6 +751,195 @@ def run_slice(label, cfg, batch_size, parity_n, per_forward, card_line):
     return counts
 
 
+# the train path: the tri-modal model fine-tuned at full width, batch 8
+TRAIN = dict(TRIMODAL, batch_size=8)
+TRAIN_DATA = dict(num_clusters=4, samples_per_cluster=12, seed=SEED,
+                  audio_len=TRAIN["audio_samples"],
+                  text_len=TRAIN["text_tokens"],
+                  video_frames=TRAIN["video_frames"],
+                  video_hw=TRAIN["video_size"])
+# launches per train step, by presence pattern (remat on: K2 runs again in
+# each block's recompute)
+PER_PATTERN = {"video": {"window_attention": 24, "window_attention_bwd": 12},
+               "audio,text": {"framed_conv1d": 1},
+               "audio,text,video": {"framed_conv1d": 1,
+                                    "window_attention": 24,
+                                    "window_attention_bwd": 12}}
+SPECS = {"phys": LossSpec("focal", class_weights=(0.5, 0.5), gamma=2.0),
+         "verb": LossSpec("ce")}
+
+
+def train_parity(n: int = 1, frames: int = 16):
+    """The loss and every gradient of one batch of the full-width model,
+    unfrozen, eval mode (deterministic), on the card against the CPU:
+    each within 1e-3 * max|g| of that tensor."""
+    cfg = dict(TRIMODAL, video_frames=frames, video_freeze=False)
+    modalities = ("audio", "text", "video")
+    cpu = seeded_model(cfg, modalities)
+    gpu = copy.deepcopy(cpu).to(DEVICE)
+    data = full_batch(cfg, modalities, n, SEED + 6)
+    batch = {"modalities": data,
+             "labels": {"phys": torch.ones(n, dtype=torch.int32),
+                        "verb": torch.zeros(n, dtype=torch.int32)},
+             "label_mask": {"phys": torch.ones(n), "verb": torch.ones(n)}}
+    losses = {}
+    for name, model, b in (("cpu", cpu, batch),
+                           ("cuda", gpu, to_device(batch, DEVICE))):
+        total, _ = head_losses_and_metrics(model(b["modalities"]), b, SPECS, 2)
+        total.backward()
+        losses[name] = total.item()
+    loss_err = abs(losses["cuda"] - losses["cpu"])
+    if not loss_err <= 1e-3 * abs(losses["cpu"]):
+        raise AssertionError(f"train parity: loss cuda {losses['cuda']} vs "
+                             f"cpu {losses['cpu']}")
+    worst, count = 0.0, 0
+    gpu_params = dict(gpu.named_parameters())
+    for name, p in cpu.named_parameters():
+        want, got = p.grad, gpu_params[name].grad
+        if want is None or got is None:
+            raise AssertionError(f"train parity: {name} has no gradient")
+        scale = want.abs().max().item()
+        err = (got.cpu() - want).abs().max().item()
+        if not err <= 1e-3 * scale:
+            raise AssertionError(f"train parity: {name} gradient differs by "
+                                 f"{err:.3e} > 1e-3 * {scale:.3e}")
+        worst = max(worst, err / scale if scale else 0.0)
+        count += 1
+    log(f"train parity: b{n} {frames} frames full width, unfrozen, loss cuda "
+        f"{losses['cuda']:.6f} vs cpu {losses['cpu']:.6f}; {count} "
+        f"gradients, worst max |d| / max |g| {worst:.3e} <= 1e-3 ok")
+    return {"loss_err": loss_err, "grad_rel_err": worst}
+
+
+def step_counts(trainer, batch):
+    """Launch counts of one train step on `batch`, reset just before."""
+    torch.cuda.synchronize()
+    kernels.launch_counts.clear()
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return dict(kernels.launch_counts)
+
+
+def median_step_ms(trainer, batch, steps: int = 6, warm: int = 2):
+    """Median device time of one train step (CUDA events) and the peak
+    device memory over those steps."""
+    for _ in range(warm):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        trainer.train_step(batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), torch.cuda.max_memory_allocated() / 2**30
+
+
+def train_phase(card_line):
+    """Fine-tune the tri-modal model through cli.train_multimodal.main, at
+    full width, b8, 2 epochs on a synthetic set; check its outputs, the
+    launches per presence pattern, card-vs-CPU gradients; time the step."""
+    import pandas as pd
+
+    from multimodalaggressionrecognition_tpu_torch.cli import train_multimodal
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        generate_synthetic_avabos)
+
+    parity = train_parity()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        root = os.path.join(tmp, "avabos")
+        generate_synthetic_avabos(root, **TRAIN_DATA)
+        data_s = time.monotonic() - t0
+        args = ["--dataset_root", root, "--synthetic",
+                "--saving_dir", os.path.join(tmp, "runs"), "--run_name", "r",
+                "--modalities", "audio,text,video", "--video_freeze", "false",
+                "--epoch_num", "2", "--device", DEVICE, "--num_threads", "4"]
+        for k in ("hidden_size", "fusion_layers", "fusion_heads",
+                  "audio_samples", "text_tokens", "video_frames",
+                  "video_size", "video_window", "batch_size"):
+            args += [f"--{k}", str(TRAIN[k])]
+        torch.cuda.synchronize()
+        kernels.launch_counts.clear()  # count this path only
+        t0 = time.monotonic()
+        trainer = train_multimodal.main(args)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)  # read just after the main path
+        fit_s = time.monotonic() - t0
+        steps = trainer.state.step
+        video_steps = counts.get("window_attention_bwd", 0) // 12
+        if steps < 6 or video_steps < 3:
+            raise AssertionError(f"train: {steps} steps, {video_steps} with "
+                                 "video (want >= 6 and >= 3)")
+        files = set(os.listdir(trainer.run_dir))
+        need = {"checkpoint_current", "checkpoint_best_phys",
+                "checkpoint_best_verb", "config.json"} | {
+            f"{h}_{s}_log.csv" for h in ("phys", "verb")
+            for s in ("train", "test")}
+        if not need <= files:
+            raise AssertionError(f"train: missing {sorted(need - files)}")
+        logs = {f: pd.read_csv(os.path.join(trainer.run_dir, f))
+                for f in need if f.endswith("_log.csv")}
+        for f, df in logs.items():
+            if df["epoch"].tolist() != [0, 1] or not np.isfinite(
+                    df["loss"]).all():
+                raise AssertionError(f"train: {f} holds {df.to_dict()}")
+        clips_s = [float(v) for v in
+                   logs["verb_train_log.csv"]["clips_per_sec"]]
+        log(f"train main path: cli.train_multimodal.main, 2 epochs, {steps} "
+            f"steps ({video_steps} with video), launches {counts}; data set "
+            f"made in {data_s:.1f} s, fit {fit_s:.1f} s; epoch clips/s "
+            f"{clips_s} (epoch 0 includes the first step's set-up)")
+
+        # one step of each presence pattern, launches reset around it
+        patterns = {}
+        for batch in trainer.batches(trainer.train_loader):
+            key = ",".join(sorted(batch["modalities"]))
+            patterns.setdefault(key, batch)
+        if sorted(patterns) != sorted(PER_PATTERN):
+            raise AssertionError(
+                f"train: presence patterns {sorted(patterns)}")
+        per_pattern = {}
+        for key, batch in sorted(patterns.items()):
+            got = step_counts(trainer, batch)
+            if got != PER_PATTERN[key]:
+                raise AssertionError(f"train: a {key} step launched {got}, "
+                                     f"want {PER_PATTERN[key]}")
+            per_pattern[key] = got
+        log(f"train launches per step by pattern: {per_pattern} ok")
+
+        batch = patterns["audio,text,video"]
+        swin = trainer.state.model.extractors["video"].backbone.backbone
+        timing = {}
+        for remat in (True, False):
+            swin.remat = remat
+            timing[remat] = median_step_ms(trainer, batch)
+        swin.remat = True
+        families = kernel_breakdown(lambda: trainer.train_step(batch), reps=2)
+    busy = sum(families.values())
+    (on_ms, on_gb), (off_ms, off_gb) = timing[True], timing[False]
+    log(f"train step b8 (audio,text,video, 128 frames at 112 px) on "
+        f"{card_line}: median {on_ms:.3f} ms, peak {on_gb:.2f} GiB with "
+        f"remat; {off_ms:.3f} ms, peak {off_gb:.2f} GiB without")
+    log("train step kernels by family (ms per step, remat on): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            families.items(), key=lambda kv: -kv[1]))
+        + f"; sum {busy:.4f} ms = {busy / on_ms * 100:.1f}% of the "
+        f"{on_ms:.3f} ms step")
+    log(json.dumps({"train": "audio,text,video", "batch": TRAIN["batch_size"],
+                    "video_freeze": False, "steps": steps,
+                    "launches": counts, "launches_per_pattern": per_pattern,
+                    "step_ms_remat": on_ms, "step_ms_no_remat": off_ms,
+                    "peak_gib_remat": on_gb, "peak_gib_no_remat": off_gb,
+                    "epoch_clips_per_s": clips_s,
+                    "kernel_ms_by_family": families,
+                    "kernel_busy_pct": busy / on_ms * 100, **parity}))
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -644,10 +961,12 @@ def main():
 
     k1 = k1_phase(name)
     k2 = k2_phase(name)
+    k3 = k3_phase(name)
     launches = {label: run_slice(label, cfg, bs, parity_n, per_forward,
                                  card_line)
                 for label, cfg, bs, parity_n, per_forward in SLICES}
-    main_path = SLICES[-1][0]  # this slice's path runs every kernel
+    main_path = "train"  # this slice's path runs every kernel
+    launches[main_path] = train_phase(card_line)
 
     def entry(kernel, source, replaces, numbers):
         return {"name": kernel, "route": "cuda",
@@ -663,7 +982,9 @@ def main():
         entry("framed_conv1d", "framed_conv.cu",
               "ops/pallas/framed_conv.py:54", k1),
         entry("window_attention", "window_attention.cu",
-              "ops/pallas/window_attention.py:112", k2)]}))
+              "ops/pallas/window_attention.py:112", k2),
+        entry("window_attention_bwd", "window_attention_bwd.cu",
+              "ops/pallas/window_attention.py:224", k3)]}))
     log(card_line)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,23 +1,30 @@
-"""The multimodal PhysVerb configuration and model builder (the JAX
-package's cli/train_multimodal.py).
+"""Multimodal PhysVerb training (the JAX package's cli/train_multimodal.py).
 
-Only the model side is ported: `--modalities audio,text` builds the flagship
-(CNN1D audio tower + Linear 512->hidden, identity text tower, fusion
-transformer, PhysVerb concat heads), and `+video` adds the frozen windowed
-Swin3D-T tower.  The training loop, losses and data pipeline arrive with the
-trainer slice; an unfrozen Swin tower (`--video_freeze false`) with Swin
-fine-tuning.
+Pipeline: time-intervals table + cluster split -> aggr-type-homogeneous
+batches with the EMPTY protocol -> PhysVerbModel (CNN1D audio tower +
+Linear 512->hidden, identity text tower, optional windowed Swin3D-T video
+tower, frozen or fine-tuned) -> fusion transformer -> PhysVerb concat heads,
+with focal loss ('phys', inverse-frequency alpha) + CE ('verb'), Adam and
+best-UAR checkpoints.  Runs on CUDA unless --device cpu.
+
+  python -m multimodalaggressionrecognition_tpu_torch.cli.train_multimodal \
+      --dataset_root data/avabos --modalities audio,text,video \
+      --video_freeze false --synthetic
 """
 
 from dataclasses import dataclass
 
-from .common import TrainConfig
+import numpy as np
+
+from .common import (TrainConfig, build_trainer, ensure_dataset,
+                     parse_config, run_training)
 
 SWIN_WIDTH = 768  # Swin3D-T's final width: the video tokens' width
 
 
 @dataclass
 class MultimodalConfig(TrainConfig):
+    model_name: str = "multimodal_physverb"
     modalities: str = "audio,text"       # comma-separated; +video to enable
     hidden_size: int = 768
     fusion_layers: int = 1
@@ -31,9 +38,23 @@ class MultimodalConfig(TrainConfig):
     # GELU mode of the Swin MLPs: "poly" and "erf" are the exact GELU,
     # "tanh" torch's tanh approximation (ops/erf.py)
     swin_gelu: str = "poly"
-    # False (fine-tuning the Swin tower) is not ported yet and raises
+    # False fine-tunes the Swin tower instead of freezing it
     video_freeze: bool = True
+    # when fine-tuning: per-block gradient checkpointing of the Swin tower
+    # (recompute each block's inside in the backward), policy "none" (save
+    # nothing; "dots" is not ported)
+    video_remat: bool = True
+    video_remat_policy: str = "none"
+    focal_gamma: float = 2.0
     batch_size: int = 32
+
+
+def class_weights_from_df(df, label_col):
+    """Inverse-frequency alpha weights (reference train_multimodal.py:467-486)."""
+    labels = df[label_col].map({"NOAGGR": 0, "AGGR": 1}).dropna()
+    counts = np.bincount(labels.astype(int), minlength=2).astype(np.float64)
+    weights = counts.sum() / np.maximum(counts, 1.0)
+    return tuple((weights / weights.sum()).tolist())
 
 
 def audio_tokens(audio_samples: int) -> int:
@@ -79,9 +100,11 @@ def build_model(cfg, modalities):
                 f"video tokens are Swin3D-T's {SWIN_WIDTH} wide and share "
                 f"the fusion encoder: hidden_size must be {SWIN_WIDTH}, got "
                 f"{cfg.hidden_size}")
+        remat = cfg.video_remat and not cfg.video_freeze
         extractors["video"] = WindowedVideoExtractor(
-            Swin3dTExtractor(gelu=cfg.swin_gelu), window=cfg.video_window,
-            freeze=cfg.video_freeze)
+            Swin3dTExtractor(gelu=cfg.swin_gelu, remat=remat,
+                             remat_policy=cfg.video_remat_policy),
+            window=cfg.video_window, freeze=cfg.video_freeze)
         adaptor_sizes["video"] = (cfg.hidden_size, cfg.adaptor_out)
         feature_shapes["video"] = (cfg.video_frames // cfg.video_window,
                                    cfg.hidden_size)
@@ -94,3 +117,50 @@ def build_model(cfg, modalities):
         feature_shapes=feature_shapes,
         modalities=tuple(sorted(modalities)),
     )
+
+
+def make_loaders(cfg, df, split, modalities):
+    from ..data.avabos import MultimodalSource, split_by_clusters
+    from ..data.pipeline import BatchLoader
+    from ..data.sampler import AggrBatchSampler
+    from ..data.transforms import pad_audio, pad_text, pad_video
+
+    transforms = {"text": pad_text(cfg.text_tokens),
+                  "audio": pad_audio(cfg.audio_samples),
+                  "video": pad_video(cfg.video_frames)}
+    loaders = []
+    for clusters, shuffle in ((split["train"], True), (split["test"], False)):
+        d = split_by_clusters(df, clusters)
+        src = MultimodalSource(d, cfg.dataset_root, modalities,
+                               transforms=transforms)
+        sampler = AggrBatchSampler(d["aggr_type"].to_numpy(), cfg.batch_size,
+                                   shuffle=shuffle, seed=cfg.seed)
+        loaders.append(BatchLoader(src, sampler, pad_to=cfg.batch_size,
+                                   num_threads=cfg.num_threads))
+    return loaders
+
+
+def main(argv=None):
+    from ..models.layers import seeded_init_
+    from ..serve import resolve_device
+    from ..train.steps import LossSpec
+
+    cfg = parse_config(MultimodalConfig, argv)
+    resolve_device(cfg.device)  # fail before any data or model work
+    modalities = tuple(cfg.modalities.split(","))
+    df, split = ensure_dataset(cfg)
+    train_loader, test_loader = make_loaders(cfg, df, split, modalities)
+    model = seeded_init_(build_model(cfg, modalities), cfg.seed)
+    loss_specs = {
+        "phys": LossSpec("focal",
+                         class_weights=class_weights_from_df(
+                             df, "phys_aggr_label"),
+                         gamma=cfg.focal_gamma),
+        "verb": LossSpec("ce"),
+    }
+    trainer = build_trainer(cfg, model, loss_specs, train_loader, test_loader)
+    return run_training(cfg, trainer)
+
+
+if __name__ == "__main__":
+    main()

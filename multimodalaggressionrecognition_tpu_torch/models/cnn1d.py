@@ -8,13 +8,17 @@
   classifier: mean over L -> SampleDropout(.2) -> Linear(512, classes)
 
 In eval mode each BatchNorm is folded into its conv's epilogue; on the stem
-that puts Conv + BN + ReLU into one launch of the framed-conv kernel.
+that puts Conv + BN + ReLU into one launch of the framed-conv kernel (or,
+where a gradient is needed, the kernel with the bias only and the folded
+affine as torch ops).  In train mode each BatchNorm uses batch statistics
+after its conv.
 """
 
 import torch
 from torch import nn
 
 from .nn1d import BatchNorm1d, Conv1d, Dropout1d, SampleDropout, max_pool1d
+from .stochastic import Dropout
 
 # (features, kernel, stride, padding), grouped into pool blocks.
 _CNN1D_BLOCKS = (
@@ -45,8 +49,12 @@ class CNN1DExtractor(nn.Module):
         idx = 0
         for block_i, block in enumerate(_CNN1D_BLOCKS):
             for _ in block:
-                scale, shift = getattr(self, f"bn{idx}").folded_scale_shift()
-                x = getattr(self, f"conv{idx}")(x, scale, shift, relu=True)
+                conv = getattr(self, f"conv{idx}")
+                bn = getattr(self, f"bn{idx}")
+                if self.training:
+                    x = torch.relu(bn(conv(x)))
+                else:
+                    x = conv(x, *bn.folded_scale_shift(), relu=True)
                 idx += 1
             if block_i < len(_CNN1D_BLOCKS) - 1:
                 x = max_pool1d(x, 4)
@@ -76,7 +84,7 @@ class AudioCnn1DExtractorWrapper(nn.Module):
         super().__init__()
         self.extractor = CNN1DExtractor()
         self.adaptor = nn.Linear(512, hidden_size)
-        self.dropout = nn.Dropout(0.3)
+        self.dropout = Dropout(0.3)
 
     def forward(self, x):
         return self.dropout(torch.relu(self.adaptor(self.extractor(x))))

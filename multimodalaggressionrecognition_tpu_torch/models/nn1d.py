@@ -1,27 +1,24 @@
 """1-D conv-net building blocks with torch semantics, channels-last layout.
 
 Sequence tensors are (B, L, C), as in the JAX package (models/nn1d.py).
-The waveform stem (C_in = 1) runs through the framed-conv CUDA
-kernel (ops/cuda/framed_conv.py), with an inference BatchNorm and ReLU
-folded into its epilogue; every other convolution is `F.conv1d`, as the JAX
-package leaves those to XLA.
+The waveform stem (C_in = 1) runs through the framed-conv CUDA kernel
+(ops/cuda/framed_conv.py): for inference with an eval BatchNorm and ReLU
+folded into its epilogue, and where a gradient is needed through its
+autograd Function with the bias only.  Every other convolution is
+`F.conv1d`, as the JAX package leaves those to XLA.
 
-Only eval-mode forward is ported so far: the training-mode BatchNorm and
-the dropouts raise until the trainer is ported.
+BatchNorm follows torch.nn.BatchNorm1d: in train mode it normalizes with the
+biased batch variance and moves the running statistics (momentum 0.1) with
+the unbiased one; in eval mode it uses the running statistics.  The dropouts
+draw from explicit generators (models/stochastic.py).
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cuda.framed_conv import framed_conv1d
-
-
-def _eval_only(module: nn.Module):
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: only eval-mode forward is ported "
-            "(call .eval()); training arrives with the trainer")
+from ..ops.cuda.framed_conv import framed_conv1d, framed_conv1d_trainable
+from .stochastic import Stochastic
 
 
 class Conv1d(nn.Module):
@@ -47,11 +44,17 @@ class Conv1d(nn.Module):
         if x.shape[-1] == 1:
             # (C_out, 1, K) -> (K, C_out): the kernel's (F, C_out) layout
             w = self.weight[:, 0, :].t().contiguous()
-            return framed_conv1d(x[..., 0].contiguous(), w, self.bias,
-                                 self.kernel_size, self.stride, self.padding,
-                                 scale=scale, shift=shift, relu=relu)
-        y = F.conv1d(x.transpose(1, 2), self.weight, self.bias,
-                     stride=self.stride, padding=self.padding).transpose(1, 2)
+            args = (x[..., 0].contiguous(), w, self.bias, self.kernel_size,
+                    self.stride, self.padding)
+            if not (torch.is_grad_enabled() and (
+                    x.requires_grad or self.weight.requires_grad)):
+                return framed_conv1d(*args, scale=scale, shift=shift,
+                                     relu=relu)
+            y = framed_conv1d_trainable(*args)
+        else:
+            y = F.conv1d(x.transpose(1, 2), self.weight, self.bias,
+                         stride=self.stride, padding=self.padding
+                         ).transpose(1, 2)
         if scale is not None:
             y = y * scale
         if shift is not None:
@@ -60,12 +63,13 @@ class Conv1d(nn.Module):
 
 
 class BatchNorm1d(nn.Module):
-    """torch BatchNorm1d over the channel (last) axis, eval mode: running
-    statistics, eps 1e-5."""
+    """torch BatchNorm1d over the channel (last) axis, eps 1e-5, momentum
+    0.1."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -73,14 +77,25 @@ class BatchNorm1d(nn.Module):
 
     def folded_scale_shift(self):
         """(scale, shift) with bn(y) == y * scale + shift in eval mode."""
-        _eval_only(self)
+        if self.training:
+            raise RuntimeError("BatchNorm1d: only the eval mode folds")
         scale = self.weight * torch.rsqrt(self.running_var + self.eps)
         return scale, self.bias - self.running_mean * scale
 
     def forward(self, x):
-        _eval_only(self)
-        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * inv + self.bias
+        if not self.training:
+            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (x - self.running_mean) * inv + self.bias
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(dim=axes)
+        var = (x - mean).square().mean(dim=axes)
+        n = x.numel() // x.shape[-1]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean)
+            self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * inv + self.bias
 
 
 def max_pool1d(x, window: int):
@@ -88,26 +103,16 @@ def max_pool1d(x, window: int):
     return F.max_pool1d(x.transpose(1, 2), window).transpose(1, 2)
 
 
-class Dropout1d(nn.Module):
-    """Channel dropout on (B, L, C); identity in eval mode."""
+class Dropout1d(Stochastic):
+    """Channel dropout on (B, L, C): zeroes whole channels per sample."""
 
-    def __init__(self, rate: float):
-        super().__init__()
-        self.rate = rate
-
-    def forward(self, x):
-        _eval_only(self)
-        return x
+    def noise_shape(self, x):
+        return (x.shape[0], 1, x.shape[-1])
 
 
-class SampleDropout(nn.Module):
+class SampleDropout(Stochastic):
     """Drops whole rows of a (B, F) tensor (the reference's Dropout1d after
-    Flatten); identity in eval mode."""
+    Flatten)."""
 
-    def __init__(self, rate: float):
-        super().__init__()
-        self.rate = rate
-
-    def forward(self, x):
-        _eval_only(self)
-        return x
+    def noise_shape(self, x):
+        return (x.shape[0], 1)

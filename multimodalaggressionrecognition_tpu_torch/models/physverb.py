@@ -13,6 +13,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from .stochastic import Dropout
+
 MODALITY2AGGR = {"video": "phys", "text": "verb", "audio": "verb"}
 
 
@@ -39,7 +41,7 @@ class PhysVerbClassifier(nn.Module):
         super().__init__()
         self.adaptor_sizes = dict(adaptor_sizes)
         self.m2a = dict(modality2aggr or MODALITY2AGGR)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         for name in sorted(self.adaptor_sizes):
             self.add_module(f"adaptor_{name}",
                             nn.Linear(*self.adaptor_sizes[name]))

@@ -5,8 +5,9 @@ Patch embed Conv3d(3->96, (2,4,4)), stages of shifted-window attention
 blocks (window (8,7,7), shift (4,3,3), depths (2,2,6,2), heads
 (3,6,12,24)), patch merging between stages, final LayerNorm; the extractor
 mean-pools the (T', H', W') grid to a 768-d vector.  Every block's window
-attention runs through the fused window-attention kernel
-(ops/cuda/window_attention.py).  Semantics carried over exactly:
+attention runs through the fused window-attention kernels, forward and
+backward (ops/cuda/window_attention.py `window_attention`).  Semantics
+carried over exactly:
 
 - a window axis is clamped to the input size when the input is no larger
   than the window, and that axis is then not shifted;
@@ -17,9 +18,11 @@ attention runs through the fused window-attention kernel
 - windows are ordered (b, t/wt, h/wh, w/ww), which the kernel's
   `w % nW_img` mask lookup relies on.
 
-Only the eval-mode forward is ported: stochastic depth is the identity in
-eval and raises in train mode until Swin fine-tuning is ported; gradient
-checkpointing (`remat`) is not ported.
+Train mode: row-wise stochastic depth (`x / keep`, per-block rates rising
+linearly to 0.2) drawn from an explicit generator (models/stochastic.py),
+and optional per-block gradient checkpointing (`remat`, the JAX package's
+`nn.remat` of each SwinBlock3d with the save-nothing policy).  The "dots"
+policy (save the matmul outputs) is not ported.
 """
 
 import functools
@@ -30,9 +33,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cuda.window_attention import fused_window_attention
+from ..ops.cuda.window_attention import window_attention
 from ..ops.erf import check_gelu_mode, gelu
 from .nn3d import Conv3d
+from .stochastic import Stochastic, checkpoint
 
 
 @functools.lru_cache(maxsize=8)
@@ -89,13 +93,6 @@ def _window_reverse(windows, window, b, t, h, w):
     return x.reshape(b, t, h, w, c)
 
 
-def _eval_only(module: nn.Module):
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: only the eval-mode forward is ported "
-            "(call .eval()); training arrives with Swin fine-tuning")
-
-
 class ShiftedWindowAttention3d(nn.Module):
     """(B, T, H, W, C) -> same shape: (shifted-)window multi-head attention
     with a learned relative-position bias."""
@@ -121,7 +118,6 @@ class ShiftedWindowAttention3d(nn.Module):
         return t
 
     def forward(self, x):
-        _eval_only(self)
         b, t, h, w, c = x.shape
         window, shift = list(self.window), list(self.shift)
         for i, size in enumerate((t, h, w)):
@@ -151,7 +147,7 @@ class ShiftedWindowAttention3d(nn.Module):
             mask = self._const(("mask", pt, ph, pw, window, shift), x.device,
                                lambda: torch.from_numpy(_attention_mask(
                                    pt, ph, pw, window, shift)))
-        out = self.proj(fused_window_attention(qkv, bias, mask, heads))
+        out = self.proj(window_attention(qkv, bias, mask, heads))
 
         xp = _window_reverse(out, window, b, pt, ph, pw)
         if any(shift):
@@ -159,17 +155,12 @@ class ShiftedWindowAttention3d(nn.Module):
         return xp[:, :t, :h, :w]
 
 
-class StochasticDepth(nn.Module):
-    """Row-wise stochastic depth; the identity in eval mode."""
+class StochasticDepth(Stochastic):
+    """Row-wise stochastic depth (torchvision's 'row' mode): drops a whole
+    sample's residual branch; the identity in eval mode."""
 
-    def __init__(self, rate: float):
-        super().__init__()
-        self.rate = rate
-
-    def forward(self, x):
-        if self.rate:
-            _eval_only(self)
-        return x
+    def noise_shape(self, x):
+        return (x.shape[0],) + (1,) * (x.dim() - 1)
 
 
 class SwinBlock3d(nn.Module):
@@ -192,6 +183,18 @@ class SwinBlock3d(nn.Module):
         x = x + self.sd1(self.attn(self.norm1(x)))
         h = self.mlp_fc2(gelu(self.mlp_fc1(self.norm2(x)), self.gelu))
         return x + self.sd2(h)
+
+
+def _check_remat_policy(policy):
+    if policy == "dots":  # save the matmul outputs
+        raise NotImplementedError(
+            "remat_policy 'dots' is not ported (it never won in the JAX "
+            "package's sweep); use 'none'")
+    if policy not in ("none", None):
+        raise ValueError(f"remat_policy must be 'none' (or None), got "
+                         f"{policy!r} — a typo here would silently run the "
+                         "save-nothing policy")
+    return policy
 
 
 class PatchMerging3d(nn.Module):
@@ -219,8 +222,13 @@ class SwinTransformer3d(nn.Module):
                  num_heads: Sequence[int] = (3, 6, 12, 24),
                  window: Tuple[int, int, int] = (8, 7, 7),
                  stochastic_depth_prob: float = 0.2, gelu: str = "poly",
-                 in_channels: int = 3):
+                 in_channels: int = 3, remat: bool = False,
+                 remat_policy="none"):
         super().__init__()
+        # per-block gradient checkpointing: each block keeps only its input
+        # and recomputes its inside in the backward
+        self.remat = remat
+        _check_remat_policy(remat_policy)
         self.patch_embed = Conv3d(in_channels, embed_dim, (2, 4, 4),
                                   stride=(2, 4, 4))
         self.patch_norm = nn.LayerNorm(embed_dim, eps=1e-5)
@@ -247,9 +255,11 @@ class SwinTransformer3d(nn.Module):
 
     def forward(self, x):
         h = self.patch_norm(self.patch_embed(x))
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for names, merge in self.stages:
             for name in names:
-                h = getattr(self, name)(h)
+                block = getattr(self, name)
+                h = checkpoint(block, h) if remat else block(h)
             if merge is not None:
                 h = getattr(self, merge)(h)
         return self.norm(h)
@@ -258,9 +268,11 @@ class SwinTransformer3d(nn.Module):
 class Swin3dTExtractor(nn.Module):
     """Headless swin3d_t: (B, T, H, W, 3) -> (B, 768) mean-pooled features."""
 
-    def __init__(self, gelu: str = "poly"):
+    def __init__(self, gelu: str = "poly", remat: bool = False,
+                 remat_policy="none"):
         super().__init__()
-        self.backbone = SwinTransformer3d(gelu=gelu)
+        self.backbone = SwinTransformer3d(gelu=gelu, remat=remat,
+                                          remat_policy=remat_policy)
 
     def forward(self, x):
         return self.backbone(x).mean(dim=(1, 2, 3))

@@ -7,11 +7,18 @@ signal with weight (F, C_out), giving (B, T, C_out), with an optional
 per-channel scale/shift epilogue (folded inference BatchNorm) and ReLU.
 The TPU-only lane-packing variant (`framed_conv1d_grouped`) is not ported:
 it is the same function with redundant FLOPs.
+
+`framed_conv1d_trainable` is the differentiable entry (the JAX custom VJP
+`framed_conv1d`): its forward is `framed_conv1d` with the bias only, and its
+backward the JAX package's XLA formula in torch ops
+(`framed_conv1d_backward`), as no TPU kernel computes it.  The epilogue
+(scale, shift, ReLU) is for inference only.
 """
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ...utils.kernels import check_status, launch_counts, load_library
 from ..framing import framed_matmul
@@ -96,3 +103,54 @@ def framed_conv1d(x, weight, bias, kernel_size: int, stride: int, pad: int = 0,
     check_status("framed_conv1d", status)
     launch_counts["framed_conv1d"] += 1
     return y
+
+
+def framed_conv1d_backward(x, weight, g, kernel_size: int, stride: int,
+                           pad: int = 0):
+    """Gradients (dx, dW, dbias) of framed_conv1d for output gradient g
+    (B, T, C_out).  With rows = pad(x) cut into (rows, hop) and the weight
+    cut into hop-row slabs W_k: d_rows[t+k] += g[t] W_k^T and
+    dW_k = rows[t+k]^T g; dx is d_rows cut back to the unpadded signal."""
+    b, length = x.shape
+    c_out = weight.shape[1]
+    t_out = g.shape[1]
+    n_shift = -(-kernel_size // stride)
+    rows_needed = t_out + n_shift - 1
+    total = rows_needed * stride
+    xp = F.pad(x, (pad, max(0, total - length - pad)))[:, :total]
+    rows = xp.reshape(b, rows_needed, stride)
+    w_slabs = F.pad(weight, (0, 0, 0, n_shift * stride - kernel_size)
+                    ).reshape(n_shift, stride, c_out)
+    d_rows = torch.zeros_like(rows)
+    dw_slabs = []
+    g2 = g.reshape(b * t_out, c_out)
+    for k in range(n_shift):
+        d_rows[:, k:k + t_out] += g @ w_slabs[k].T
+        dw_slabs.append(rows[:, k:k + t_out].reshape(b * t_out, stride).T
+                        @ g2)
+    d_weight = torch.cat(dw_slabs)[:kernel_size]
+    dx = d_rows.reshape(b, -1)[:, pad:pad + length]
+    if dx.shape[1] < length:  # the tail past the last frame got no gradient
+        dx = F.pad(dx, (0, length - dx.shape[1]))
+    return dx, d_weight, g.sum(dim=(0, 1))
+
+
+class _FramedConv1d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, kernel_size, stride, pad):
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (kernel_size, stride, pad)
+        return framed_conv1d(x, weight, bias, kernel_size, stride, pad)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        dx, dw, db = framed_conv1d_backward(x, weight, g, *ctx.conv)
+        return dx, dw, db, None, None, None
+
+
+def framed_conv1d_trainable(x, weight, bias, kernel_size: int, stride: int,
+                            pad: int = 0):
+    """Differentiable framed_conv1d (bias only): the kernel forward on CUDA,
+    the plain version on the CPU; the backward in torch ops."""
+    return _FramedConv1d.apply(x, weight, bias, kernel_size, stride, pad)

@@ -82,6 +82,23 @@ def test_batchnorm_eval_matches_jax():
 
 
 def test_max_pool_floors_and_training_mode_raises():
+    """Train mode: BatchNorm with batch statistics after each conv (the
+    stem through the framed-conv autograd Function), against JAX's
+    `train=True` with dropout 0, at 2e-3; only the eval mode folds, so
+    folding a training BatchNorm raises."""
     assert max_pool1d(torch.zeros(1, 2001, 3), 4).shape == (1, 500, 3)
-    with pytest.raises(NotImplementedError, match="eval"):
-        tc.CNN1DExtractor().train()(torch.zeros(1, 4000))
+    x = _wave(9)
+    jm = jc.CNN1DExtractor(dropout=0.0)
+    variables = randomize_norms(jax.jit(jm.init)(jax.random.PRNGKey(0),
+                                                 jnp.asarray(x)), seed=9)
+    want, upd = jm.apply(variables, jnp.asarray(x), train=True,
+                         mutable=["batch_stats"])
+    port = load_jax_variables(tc.CNN1DExtractor(dropout=0.0), variables)
+    got = port.train()(torch.from_numpy(x))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=2e-3)
+    np.testing.assert_allclose(port.bn8.running_var.numpy(),
+                               np.asarray(upd["batch_stats"]["bn8"]["var"]),
+                               rtol=1e-4)
+    with pytest.raises(RuntimeError, match="only the eval mode folds"):
+        port.bn0.folded_scale_shift()

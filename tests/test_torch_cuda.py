@@ -8,6 +8,8 @@ does import JAX, so run it there with
 Without a card every test skips.  Tolerance atol/rtol 1e-4: both sides are
 f32 (TF32 off) and only the summation order differs; the window-attention
 kernel at tests/test_pallas.py's small shapes is held to 1e-5, as there.
+Its backward (K3) is held to its plain version at 1e-4 of the largest
+gradient (the stage shapes sum over up to 2048 windows into dbias).
 """
 
 import pytest
@@ -16,9 +18,10 @@ import torch
 from multimodalaggressionrecognition_tpu_torch.models.swin3d import (
     _attention_mask)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
-    framed_conv1d, framed_conv1d_reference)
+    framed_conv1d, framed_conv1d_reference, framed_conv1d_trainable)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.window_attention import (
-    attention_core_reference, fused_window_attention)
+    attention_core_reference, fused_window_attention, window_attention,
+    window_attention_bwd, window_attention_bwd_reference)
 from multimodalaggressionrecognition_tpu_torch.utils.kernels import (
     launch_counts)
 
@@ -132,3 +135,60 @@ def test_window_attention_rejects_what_the_kernel_does_not_take(cuda):
     long, long_bias, _ = k2_inputs(1, 393, 1, 8, 0, cuda)  # N > 392
     with pytest.raises(ValueError, match="tokens"):
         fused_window_attention(long, long_bias, None, 1)
+
+
+@pytest.mark.cuda
+def test_framed_conv1d_autograd_on_the_card_matches_plain_autograd(cuda):
+    g = torch.Generator().manual_seed(3)
+    x, w, b = (torch.randn((2, 4000), generator=g),
+               torch.randn((160, 64), generator=g) * 0.05,
+               torch.randn((64,), generator=g))
+    out = {}
+    for name, dev, fn in (("kernel", cuda, framed_conv1d_trainable),
+                          ("plain", cuda, framed_conv1d_reference)):
+        args = [t.to(dev).requires_grad_() for t in (x, w, b)]
+        torch.sum(fn(*args, 160, 40, 80) ** 2).backward()
+        out[name] = [a.grad for a in args]
+    for got, ref in zip(out["kernel"], out["plain"]):
+        torch.testing.assert_close(got, ref, atol=2e-2, rtol=1e-4)
+
+
+# K3: (W, N, heads, d, nW_img): tests/test_pallas.py's gradient shapes, a
+# clamped N=64 window, then Swin3D-T's stage shapes trained at batch 8
+K3_SHAPES = [(6, 24, 3, 8, 0), (6, 24, 3, 8, 3), (4, 64, 2, 16, 2),
+             (16, 392, 3, 32, 4), (2048, 196, 3, 32, 16),
+             (2048, 196, 3, 32, 0), (512, 196, 6, 32, 4),
+             (128, 196, 12, 32, 0), (128, 64, 24, 32, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,n,heads,d,nw", K3_SHAPES)
+def test_window_attention_bwd_kernel_matches_plain(cuda, w, n, heads, d, nw):
+    qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=n + d)
+    g = torch.randn((w, n, heads * d), generator=torch.Generator().manual_seed(
+        w)).to(cuda)
+    before = launch_counts["window_attention_bwd"]
+    got = window_attention_bwd(qkv, bias, mask, g, heads)
+    torch.cuda.synchronize()
+    assert launch_counts["window_attention_bwd"] == before + 1
+    want = window_attention_bwd_reference(qkv, bias, mask, g, heads)
+    for x, y in zip(got, want):
+        tol = 1e-4 * y.abs().max().item()
+        torch.testing.assert_close(x, y, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw", [0, 3])
+def test_window_attention_function_on_the_card_matches_autograd(cuda, nw):
+    """The autograd Function (K2 forward, K3 backward) against autograd
+    through the plain forward, both on the card."""
+    qkv, bias, mask = k2_inputs(6, 49, 3, 32, nw, cuda, seed=11)
+    grads = {}
+    for name, fn in (("kernel", window_attention),
+                     ("plain", attention_core_reference)):
+        q = qkv.clone().requires_grad_()
+        b = bias.clone().requires_grad_()
+        torch.sum(fn(q, b, mask, 3) ** 2).backward()
+        grads[name] = (q.grad, b.grad)
+    for x, y in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)

@@ -3,10 +3,13 @@
 On the CPU the port's wrapper takes its plain version; the JAX side runs
 `framed_conv1d_pallas` in interpret mode (as tests/test_pallas.py does) and
 the grouped custom-VJP `framed_conv1d`.  Tolerance atol 1e-3, as in
-tests/test_pallas.py.  The CUDA kernel itself is held to the plain version
+tests/test_pallas.py; the autograd Function's gradients against the JAX
+custom VJP at atol 2e-2, rtol 1e-4, as tests/test_pallas.py holds that VJP.
+The CUDA kernel itself is held to the plain version
 on the card by tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,7 +18,7 @@ import torch
 from multimodalaggressionrecognition_tpu.ops.pallas.framed_conv import (
     framed_conv1d as jax_framed_conv1d, framed_conv1d_pallas)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
-    framed_conv1d, framed_conv1d_reference)
+    framed_conv1d, framed_conv1d_reference, framed_conv1d_trainable)
 from multimodalaggressionrecognition_tpu_torch.utils.kernels import (
     launch_counts)
 
@@ -57,6 +60,22 @@ def test_plain_matches_jax_grouped_custom_vjp(f, s, p, c):
                              f, s, p)
     np.testing.assert_allclose(_port(x, w, b, f, s, p), np.asarray(want),
                                atol=1e-3)
+
+
+@pytest.mark.parametrize("f,s,p,c", [(160, 40, 80, 64), (147, 40, 3, 24)])
+def test_autograd_backward_matches_jax_custom_vjp(f, s, p, c):
+    """dx, dW and dbias of sum(y ** 2), as tests/test_pallas.py checks the
+    JAX custom VJP against XLA's gradients."""
+    x, w, b = _inputs(11, f, c, length=4000)
+    want = jax.grad(lambda *a: jnp.sum(jax_framed_conv1d(*a, f, s, p) ** 2),
+                    argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w),
+                                       jnp.asarray(b))
+    args = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+    torch.sum(framed_conv1d_trainable(*args, f, s, p) ** 2).backward()
+    for got, ref in zip(args, want):
+        assert got.grad.shape == ref.shape
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref),
+                                   atol=2e-2, rtol=1e-4)
 
 
 def test_epilogue_matches_jax():

@@ -113,9 +113,14 @@ def test_parse_config_and_video_is_a_later_slice():
     cfg = parse_config(ServeConfig, ["--modalities", "audio,text,video",
                                      "--video_freeze", "false"])
     assert (cfg.modalities, cfg.video_freeze) == ("audio,text,video", False)
-    # the frozen video tower is served; fine-tuning it is a later slice
-    with pytest.raises(NotImplementedError, match="fine-tuning"):
-        build_model(cfg, ("audio", "text", "video"))
+    # --video_freeze false builds the trainable tower, remat on by default
+    video = build_model(cfg, ("audio", "text", "video")).extractors["video"]
+    assert not video.freeze and video.backbone.backbone.remat
+    assert all(p.requires_grad for p in video.parameters())
+    frozen = build_model(MultimodalConfig(modalities="audio,text,video"),
+                         ("video",)).extractors["video"]
+    assert not any(p.requires_grad for p in frozen.parameters())
+    assert not frozen.backbone.backbone.remat
     with pytest.raises(SystemExit, match="unknown modalities"):
         build_model(MultimodalConfig(), ("audio", "depth"))
 

@@ -19,6 +19,8 @@ from multimodalaggressionrecognition_tpu.ops.erf import gelu_exact
 from multimodalaggressionrecognition_tpu_torch.io.from_jax import (
     load_jax_variables)
 from multimodalaggressionrecognition_tpu_torch.models import swin3d as ts
+from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
+    set_generator)
 from multimodalaggressionrecognition_tpu_torch.ops.erf import gelu
 from multimodalaggressionrecognition_tpu_torch.ops.video import (
     unwindow_features, window_frames)
@@ -135,6 +137,27 @@ def test_window_frames_drops_trailing_frames():
 
 
 def test_train_mode_raises_until_fine_tuning():
-    block = ts.SwinBlock3d(8, 2, (2, 2, 2), sd_prob=0.1)
-    with pytest.raises(NotImplementedError, match="eval"):
-        block.train()(torch.zeros((1, 2, 2, 2, 8)))
+    """Fine-tuning is ported: a block in train mode runs its stochastic
+    depth from its generator (reproducible per seed; at rate 0 it is the
+    eval-mode block), and gradients reach the bias table.  What still
+    raises is the remat policy that is not ported."""
+    x = torch.randn((2, 2, 4, 4, 8),
+                    generator=torch.Generator().manual_seed(0))
+    block = ts.SwinBlock3d(8, 2, (2, 2, 2), sd_prob=0.5)
+
+    def run(seed):
+        return set_generator(block.train(),
+                             torch.Generator().manual_seed(seed))(x)
+
+    y = run(1)
+    assert y.shape == x.shape and torch.isfinite(y).all()
+    assert torch.equal(run(1), y)
+    y.sum().backward()
+    assert block.attn.relative_position_bias_table.grad.abs().max() > 0
+    for sd in (block.sd1, block.sd2):
+        sd.rate = 0.0
+    with torch.no_grad():
+        torch.testing.assert_close(block.train()(x), block.eval()(x))
+    with pytest.raises(NotImplementedError, match="dots"):
+        ts.SwinTransformer3d(embed_dim=8, depths=(2,), num_heads=(2,),
+                             remat=True, remat_policy="dots")

@@ -125,8 +125,13 @@ def test_video_tower_features_match_jax(pair):
 
 
 def test_build_model_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="fine-tuning"):
-        ttm.build_model(ttm.MultimodalConfig(**SIZES, video_freeze=False),
+    with pytest.raises(NotImplementedError, match="dots"):
+        ttm.build_model(ttm.MultimodalConfig(**SIZES, video_freeze=False,
+                                             video_remat_policy="dots"),
+                        MODALITIES)
+    with pytest.raises(ValueError, match="remat_policy"):
+        ttm.build_model(ttm.MultimodalConfig(**SIZES, video_freeze=False,
+                                             video_remat_policy="dot"),
                         MODALITIES)
     with pytest.raises(ValueError, match="hidden_size must be 768"):
         ttm.build_model(ttm.MultimodalConfig(**dict(SIZES, hidden_size=64)),
