@@ -9,20 +9,26 @@ Phases (any failure raises, and the script exits non-zero):
   1. device   - the card's name, `nvidia-smi` name and power limit, versions;
                 TF32 off for matmuls and cuDNN, so every f32 comparison below
                 means f32.
-  2. build    - nvcc for sm_90a of every kernel source, all started together.
+  2. build    - nvcc for sm_90a of every kernel source, all started together;
+                each kernel's registers, spills and static shared memory (from
+                ptxas), and K2's and K3's launch at stage 0 (threads, dynamic
+                shared memory, resident blocks per SM).
   3. kernels  - each kernel against its plain PyTorch version on the card:
                 K1 (framed conv1d) at the JAX tests' shapes and the CNN1D
                 stem's, atol/rtol 1e-4; K2 (window attention) at
-                tests/test_pallas.py's shapes, 1e-5 as there, and at the four
-                Swin3D-T stage shapes of the tri-modal b8 forward, masked and
-                unmasked, 1e-4 (longer f32 sums); K3 (window-attention
-                backward, dqkv and dbias) at tests/test_pallas.py's gradient
-                shapes, 1e-4, and at the stage shapes, 1e-4 of the largest
-                gradient.  At the main path's shape (K1: the stem at b32;
-                K2, K3: stage 0's shifted block) also the kernel's, the plain
-                version's and one library call's time (K3: SDPA's backward)
-                and the least time the card could take; K2's and K3's time
-                at every stage.
+                tests/test_pallas.py's shapes, 1e-5 as there, and at ragged
+                edge shapes (N in {1, 17, 392} x d in {8, 16, 32}, masked and
+                not) and the four Swin3D-T stage shapes of the tri-modal b8
+                forward, masked and unmasked, 1e-4 (longer f32 sums); K3
+                (window-attention backward, dqkv and dbias) at
+                tests/test_pallas.py's gradient shapes, 1e-4, and at the edge
+                and stage shapes, 1e-4 of the largest gradient; K3 twice on
+                the same inputs, bit for bit.  At the main path's shape (K1:
+                the stem at b32; K2, K3: stage 0's shifted block) also the
+                kernel's, the plain version's and one library call's time
+                (K3: SDPA's backward) and the least time the card could take
+                (K2, K3: on the tensor cores in 3xTF32, with the f32 FMA
+                pipe's bound beside it); K2's and K3's time at every stage.
   4. slices   - each served model at full width with seeded random weights:
                 audio,text (hidden 768, 80 000 samples, 48 tokens, 1 fusion
                 layer, 8 heads, batch 32), then audio,text,video (+ the frozen
@@ -61,6 +67,7 @@ import copy
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -86,8 +93,8 @@ from multimodalaggressionrecognition_tpu_torch.models.swin3d import (
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
     framed_conv1d, framed_conv1d_reference, out_length)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.window_attention import (
-    attention_core_reference, fused_window_attention, window_attention_bwd,
-    window_attention_bwd_reference)
+    attention_core_reference, fused_window_attention, launch_info,
+    window_attention_bwd, window_attention_bwd_reference)
 from multimodalaggressionrecognition_tpu_torch.train.steps import (
     LossSpec, head_losses_and_metrics)
 from multimodalaggressionrecognition_tpu_torch.utils import kernels
@@ -130,29 +137,121 @@ K2_GRIDS = {16: (4, 28, 28), 4: (4, 14, 14)}
 # K3: (W, N, heads, d, nW_img) of tests/test_pallas.py's gradient case,
 # masked and not, and a clamped N=64 window; then K2_STAGES
 K3_TEST_SHAPES = [(6, 24, 3, 8, 0), (6, 24, 3, 8, 3), (4, 64, 2, 16, 2)]
+# K2 and K3 at ragged 16- and 8-token tiles: (W, N, heads, d, nW_img) for
+# N in {1, 17, 392} x d in {8, 16, 32}, unmasked and with random masks
+EDGE_SHAPES = [(4, n, 2, d, nw) for n in (1, 17, 392) for d in (8, 16, 32)
+               for nw in (0, 2)]
 
 
 def peaks(name: str):
-    """(f32 non-tensor FLOP/s, HBM bytes/s) from NVIDIA's data sheets."""
+    """(f32 non-tensor FLOP/s, dense TF32 tensor-core FLOP/s, HBM bytes/s)
+    from NVIDIA's data sheets (TF32: half the figure with sparsity)."""
     if "PCIe" in name:
-        return 51.2e12, 2.0e12
+        return 51.2e12, 378e12, 2.0e12
     if "NVL" in name:
-        return 60.0e12, 3.9e12
-    return 67.0e12, 3.35e12  # H100 SXM
+        return 60.0e12, 417.5e12, 3.9e12
+    return 67.0e12, 495e12, 3.35e12  # H100 SXM
 
 
-def bound(card: str, flops: float, nbytes: float):
+# tensor-core passes per f32-accurate product (3xTF32: big*small,
+# small*big, big*big)
+TF32_PASSES = 3
+
+
+def bound(card: str, flops: float, nbytes: float, tensor: bool = False):
     """The least time the card could take: {bound_ms, bound_by, and both
-    terms}."""
-    peak_flops, peak_bw = peaks(card)
-    ops_ms, bytes_ms = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+    terms}.  `tensor`: the products run on the tensor cores in 3xTF32, so
+    the operations take TF32_PASSES * flops at the TF32 peak; the f32 FMA
+    pipe's bound (the only one before the tensor-core designs) is kept
+    beside it as fma_bound_ms."""
+    peak_fma, peak_tf32, peak_bw = peaks(card)
+    fma_ms = flops / peak_fma * 1e3
+    bytes_ms = nbytes / peak_bw * 1e3
+    ops_ms = TF32_PASSES * flops / peak_tf32 * 1e3 if tensor else fma_ms
+    out = {"bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+    if tensor:
+        out["fma_bound_ms"] = max(fma_ms, bytes_ms)
+    return out
+
+
+def bound_text(bd) -> str:
+    """'bound X ms (by: operations A ms, bytes B ms)[; FMA bound F ms]'."""
+    text = (f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: operations "
+            f"{bd['ops_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} ms)")
+    if "fma_bound_ms" in bd:
+        text = ("tensor-core " + text
+                + f"; f32 FMA bound {bd['fma_bound_ms']:.4f} ms")
+    return text
 
 
 def log(*parts):
     print(*parts, flush=True)
+
+
+def short_name(mangled: str) -> str:
+    """'_ZN12_GLOBAL__N_115name_kernelILi32EE...' -> 'name_kernel<32>': the
+    length-prefixed name ending in `_kernel` (every kernel of csrc/ is
+    named so) and its first int template argument."""
+    # a hash before the name may end in digits, so try every split of a
+    # digit run into the hash's tail and the length prefix
+    for m in re.finditer(r"\d+", mangled):
+        for start in range(m.start(), m.end()):
+            end = m.end() + int(mangled[start:m.end()])
+            name = mangled[m.end():end]
+            if re.fullmatch(r"[A-Za-z]\w*_kernel", name):
+                tmpl = re.match(r"ILi(\d+)E", mangled[end:])
+                return name + (f"<{tmpl.group(1)}>" if tmpl else "")
+    return mangled
+
+
+def ptxas_usage(text: str) -> dict:
+    """{kernel: {registers, spill_stores, spill_loads, stack, static_smem}}
+    from nvcc's `-Xptxas -v` output."""
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = short_name(m.group(1))
+            usage[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                usage[name].update(zip(("stack", "spill_stores",
+                                        "spill_loads"),
+                                       map(int, m.groups())))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                smem = re.search(r"(\d+) bytes smem", line)
+                usage[name].update(registers=int(m.group(1)),
+                                   static_smem=int(smem.group(1)) if smem
+                                   else 0)
+    return usage
+
+
+def resources_phase():
+    """Each kernel's registers, spills and static shared memory (ptxas),
+    and the window-attention launches at stage 0 (N=196, d=32): threads,
+    dynamic shared memory, resident blocks per SM."""
+    found = {}
+    for lib in kernels.kernel_sources():
+        for kernel, use in ptxas_usage(kernels.build_log(lib)).items():
+            found[kernel] = use
+            log(f"resources {lib}: {kernel}: {use.get('registers')} "
+                f"registers, spill stores {use.get('spill_stores')} B, spill "
+                f"loads {use.get('spill_loads')} B, stack {use.get('stack')} "
+                f"B, static smem {use.get('static_smem')} B")
+    launches = {}
+    for name in ("window_attention", "window_attention_bwd"):
+        info = launch_info(name, 196, 32)
+        launches[name] = {**info, **found.get(f"{name}_kernel<32>", {})}
+        log(f"resources {name} launch at N=196 d=32: {info['threads']} "
+            f"threads, {info['dynamic_smem_bytes']} B dynamic smem, "
+            f"{info['blocks_per_sm']} blocks per SM "
+            f"({info['blocks_per_sm'] * info['threads'] // 32} warps)")
+    return launches
 
 
 def cuda_ms(fn, reps: int = 30, warm: int = 3) -> float:
@@ -293,6 +392,8 @@ def k2_phase(card: str):
     worst = 0.0
     shapes = ([(f"test-{w}x{n}-d{d}", w, n, h, d, nw, 1e-5, False)
                for w, n, h, d, nw in K2_TEST_SHAPES]
+              + [(f"edge-N{n}-d{d}-nW{nw}", w, n, h, d, nw, 1e-4, False)
+                 for w, n, h, d, nw in EDGE_SHAPES]
               + [(name, w, n, h, d, nw, 1e-4, True)
                  for name, w, n, h, d, nw, _ in K2_STAGES])
     for name, w, n, heads, d, nw, tol, stage in shapes:
@@ -314,7 +415,7 @@ def k2_phase(card: str):
 
     # every stage: the kernel; at the main path's shape (stage 0's shifted
     # block) also the plain version, and there and at stage 2 SDPA
-    main, per_stage, fwd_ms, fwd_bound = {}, {}, 0.0, 0.0
+    main, per_stage, fwd_ms, fwd_bound, fwd_fma = {}, {}, 0.0, 0.0, 0.0
     for name, w, n, heads, d, nw, launches in K2_STAGES:
         def make(i):
             return k2_inputs(w, n, heads, d, nw, seed=7 + i, stage_mask=True)
@@ -329,22 +430,25 @@ def k2_phase(card: str):
             fns["library_ms"] = rotating(
                 lambda i: sdpa_args(*make(i), heads))(sdpa)
         times = in_turns(fns)
-        bd = bound(card, *k2_work(w, n, heads, d, nw))
+        bd = bound(card, *k2_work(w, n, heads, d, nw), tensor=True)
         if name == "stage0-shifted":
             main = {**times, "bound_ms": bd["bound_ms"],
-                    "bound_by": bd["bound_by"]}
+                    "bound_by": bd["bound_by"],
+                    "fma_bound_ms": bd["fma_bound_ms"]}
         per_stage[name] = times["ms"]
         fwd_ms += launches * times["ms"]
         fwd_bound += launches * bd["bound_ms"]
+        fwd_fma += launches * bd["fma_bound_ms"]
         labels = {"ms": "kernel", "plain_ms": "plain", "library_ms": "SDPA"}
         log(f"k2 {name} x{launches} per forward on {card}: "
             + ", ".join(f"{labels[k]} {v:.4f} ms" for k, v in times.items())
-            + f"; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
-            f"operations {bd['ops_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} "
-            f"ms); kernel at {bd['bound_ms'] / times['ms'] * 100:.1f}% of "
-            "the bound")
+            + f"; {bound_text(bd)}; kernel at "
+            f"{bd['bound_ms'] / times['ms'] * 100:.1f}% of the tensor-core "
+            f"bound, {bd['fma_bound_ms'] / times['ms'] * 100:.1f}% of the "
+            "FMA bound")
     log(f"k2 per tri-modal b8 forward (12 launches): kernel {fwd_ms:.4f} ms, "
-        f"bound {fwd_bound:.4f} ms ({fwd_bound / fwd_ms * 100:.1f}%)")
+        f"tensor-core bound {fwd_bound:.4f} ms "
+        f"({fwd_bound / fwd_ms * 100:.1f}%), FMA bound {fwd_fma:.4f} ms")
 
     # the yardstick computes the same function, and which kernel it takes
     name, w, n, heads, d, nw, _ = K2_STAGES[0]
@@ -362,7 +466,8 @@ def k2_phase(card: str):
         backend = "another kernel than the memory-efficient one"
     log(f"k2 SDPA at {name}: {backend}, max |d| vs plain {lib_err:.3e}")
     return {"max_abs_err": worst, **main, "ms_by_stage": per_stage,
-            "forward_ms": fwd_ms, "forward_bound_ms": fwd_bound}
+            "forward_ms": fwd_ms, "forward_bound_ms": fwd_bound,
+            "forward_fma_bound_ms": fwd_fma}
 
 
 def k3_work(w, n, heads, d, nw):
@@ -403,11 +508,14 @@ def k3_phase(card: str):
     the largest gradient); at stage 0's shifted block the kernel, plain and
     SDPA-backward times; the kernel's time per stage and per train step."""
     worst = 0.0
-    shapes = ([(f"test-{w}x{n}-d{d}", w, n, h, d, nw, False)
+    # (name, shape, stage mask, tolerance relative to the largest gradient)
+    shapes = ([(f"test-{w}x{n}-d{d}", w, n, h, d, nw, False, False)
                for w, n, h, d, nw in K3_TEST_SHAPES]
-              + [(name, w, n, h, d, nw, True)
+              + [(f"edge-N{n}-d{d}-nW{nw}", w, n, h, d, nw, False, True)
+                 for w, n, h, d, nw in EDGE_SHAPES]
+              + [(name, w, n, h, d, nw, True, True)
                  for name, w, n, h, d, nw, _ in K2_STAGES])
-    for name, w, n, heads, d, nw, stage in shapes:
+    for name, w, n, heads, d, nw, stage, relative in shapes:
         qkv, bias, mask, g = k3_inputs(w, n, heads, d, nw, seed=n + d,
                                        stage_mask=stage)
         got = window_attention_bwd(qkv, bias, mask, g, heads)
@@ -415,7 +523,7 @@ def k3_phase(card: str):
         want = window_attention_bwd_reference(qkv, bias, mask, g, heads)
         errs = []
         for part, x, y in zip(("dqkv", "dbias"), got, want):
-            tol = 1e-4 * (y.abs().max().item() if stage else 1.0)
+            tol = 1e-4 * (y.abs().max().item() if relative else 1.0)
             err = (x - y).abs().max().item()
             if not err <= tol:
                 raise AssertionError(f"k3 {name} {part}: max |d| {err:.3e} "
@@ -425,7 +533,20 @@ def k3_phase(card: str):
         log(f"k3 {name}: W={w} N={n} heads={heads} d={d} nW_img={nw} "
             + ", ".join(errs) + " ok")
 
-    main, per_stage, step_ms, step_bound = {}, {}, 0.0, 0.0
+    # deterministic: two launches on the same inputs agree bit for bit
+    name, w, n, heads, d, nw, _ = K2_STAGES[0]
+    args = k3_inputs(w, n, heads, d, nw, seed=5, stage_mask=True)
+    first = window_attention_bwd(*args, heads)
+    again = window_attention_bwd(*args, heads)
+    torch.cuda.synchronize()
+    for part, x, y in zip(("dqkv", "dbias"), first, again):
+        if not torch.equal(x, y):
+            raise AssertionError(f"k3 {name}: two launches differ in {part} "
+                                 f"(max |d| {(x - y).abs().max().item():.3e})")
+    log(f"k3 {name}: two launches bitwise equal (dqkv, dbias) ok")
+    del args, first, again
+
+    main, per_stage, step_ms, step_bound, step_fma = {}, {}, 0.0, 0.0, 0.0
     for name, w, n, heads, d, nw, launches in K2_STAGES:
         def make(i):
             return k3_inputs(w, n, heads, d, nw, seed=17 + i, stage_mask=True)
@@ -440,25 +561,29 @@ def k3_phase(card: str):
             fns["library_ms"] = rotating(
                 lambda i: (sdpa_backward(*make(i), heads),))(lambda f: f())
         times = in_turns(fns, reps=10)
-        bd = bound(card, *k3_work(w, n, heads, d, nw))
+        bd = bound(card, *k3_work(w, n, heads, d, nw), tensor=True)
         if name == "stage0-shifted":
             main = {**times, "bound_ms": bd["bound_ms"],
-                    "bound_by": bd["bound_by"]}
+                    "bound_by": bd["bound_by"],
+                    "fma_bound_ms": bd["fma_bound_ms"]}
         per_stage[name] = times["ms"]
         step_ms += launches * times["ms"]
         step_bound += launches * bd["bound_ms"]
+        step_fma += launches * bd["fma_bound_ms"]
         labels = {"ms": "kernel", "plain_ms": "plain",
                   "library_ms": "SDPA backward"}
         log(f"k3 {name} x{launches} per train step on {card}: "
             + ", ".join(f"{labels[k]} {v:.4f} ms" for k, v in times.items())
-            + f"; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
-            f"operations {bd['ops_ms']:.4f} ms, bytes {bd['bytes_ms']:.4f} "
-            f"ms); kernel at {bd['bound_ms'] / times['ms'] * 100:.1f}% of "
-            "the bound")
+            + f"; {bound_text(bd)}; kernel at "
+            f"{bd['bound_ms'] / times['ms'] * 100:.1f}% of the tensor-core "
+            f"bound, {bd['fma_bound_ms'] / times['ms'] * 100:.1f}% of the "
+            "FMA bound")
     log(f"k3 per tri-modal b8 train step (12 launches): kernel {step_ms:.4f} "
-        f"ms, bound {step_bound:.4f} ms ({step_bound / step_ms * 100:.1f}%)")
+        f"ms, tensor-core bound {step_bound:.4f} ms "
+        f"({step_bound / step_ms * 100:.1f}%), FMA bound {step_fma:.4f} ms")
     return {"max_abs_err": worst, **main, "ms_by_stage": per_stage,
-            "train_step_ms": step_ms, "train_step_bound_ms": step_bound}
+            "train_step_ms": step_ms, "train_step_bound_ms": step_bound,
+            "train_step_fma_bound_ms": step_fma}
 
 
 def kernel_breakdown(fn, reps: int = 5):
@@ -958,10 +1083,11 @@ def main():
     t0 = time.monotonic()
     libs = kernels.build_all()
     log(f"build: {sorted(libs)} in {time.monotonic() - t0:.1f} s (nvcc, sm_90a)")
+    resources = resources_phase()
 
     k1 = k1_phase(name)
-    k2 = k2_phase(name)
-    k3 = k3_phase(name)
+    k2 = {**k2_phase(name), "resources": resources["window_attention"]}
+    k3 = {**k3_phase(name), "resources": resources["window_attention_bwd"]}
     launches = {label: run_slice(label, cfg, bs, parity_n, per_forward,
                                  card_line)
                 for label, cfg, bs, parity_n, per_forward in SLICES}

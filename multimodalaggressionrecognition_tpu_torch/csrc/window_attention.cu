@@ -1,4 +1,5 @@
-// Fused (shifted-)window attention forward (kernel K2) for Hopper, f32.
+// Fused (shifted-)window attention forward (kernel K2) for Hopper, f32
+// accuracy on the tensor cores (3xTF32).
 //
 // Replaces `_fused_fwd` (with its body `_kernel`) in
 // multimodalaggressionrecognition_tpu/ops/pallas/window_attention.py: for
@@ -15,230 +16,193 @@
 //
 // Bound.  At Swin3D-T's stage 0 served at batch 8 (W=2048 windows of
 // N=196 tokens, C=96, 3 heads, d=32, shifted mask nW=16) one launch does
-// 4*W*heads*N^2*d = 30.2 GFLOP of f32 FMAs and moves
-// 4*(W*N*3C + heads*N^2 + nW*N^2 + W*N*C) = 619 MB: 0.451 ms at the
-// 67 TFLOP/s f32 (non-tensor-core) peak of an H100 SXM against 0.185 ms at
-// 3.35 TB/s, so the kernel is bound by operations.  The twelve launches of
-// one served forward come to 139 GFLOP, 2.08 ms.
+// 4*W*heads*N^2*d = 30.2 GFLOP and moves
+// 4*(W*N*3C + heads*N^2 + nW*N^2 + W*N*C) = 619 MB.  On an H100 SXM that is
+// 0.185 ms at 3.35 TB/s against 0.183 ms for the three TF32 passes of every
+// product at 495 TFLOP/s: bound by bytes (0.451 ms at the 67 TFLOP/s f32
+// FMA peak, which the earlier designs used).
 //
-// Design.  One block per (window, head), 8 warps.  The head's K and V
-// slices are staged once in shared memory (K rows padded to d+4 floats, so
-// the float4 loads of neighbouring keys by a quarter-warp hit distinct
-// banks).  Each warp then takes ROWS=2 query rows at a time, held in
-// registers and pre-scaled by 1/sqrt(d):
-//   - scores: lanes split the keys; per key a lane reads K's row once (d/4
-//     float4 loads) and feeds 2*d FMAs, then adds bias and mask read from
-//     global memory (coalesced; both stay in L2) and writes the row into
-//     the warp's slice of shared memory, tracking the row maxima;
-//   - softmax: max and sum with warp shuffles, exp in place; the division
-//     by the sum is postponed to the output (a d-wide instead of an N-wide
-//     divide);
-//   - p.v: lane e accumulates output dim e (d < 32: 32/d lane groups split
-//     the keys and combine with shuffles), reading four keys' p as one
-//     broadcast float4 and V's rows conflict-free.
-// Shared memory is 4*(Np*(d+4) + Np*d + 16*Np) bytes, Np = N rounded up to
-// 4: 66 KB at N=196 and 132 KB at the full N=392, so above 48 KB it is
-// dynamic shared memory, with the limit raised before each launch.
-// Measured, the kernel reaches about a fifth of the f32 peak: it is bound
-// by latency, not by the FMA units or the shared-memory pipe, and more
-// warps with fewer rows each (8 x 2) beat fewer with more (4 x 4).
-// Not yet done (later work): register tiling of both products (several
-// rows and keys or dims per thread, as an SGEMM does), and TF32 or bf16
-// tensor cores, which would change the numerics.
+// Design (FlashAttention-2's layout on mma.sync.m16n8k8, see tf32x3.cuh).
+// One block of 4 warps per (window, head).  The head's K and V slices are
+// copied to shared memory with 16-byte cp.async (unpadded, swizzled rows,
+// zero past N: 57 KB at N=196, so three blocks fit on an SM).  A warp owns
+// 16 query rows at a time, their q / sqrt(d) split into tf32 halves in
+// registers; for each step of 32 keys (four 8-key tiles, four independent
+// mma chains) it computes S = q K^T on the tensor cores, adds the bias and
+// mask[w mod nW] at the accumulator's positions (fetched through L2 one
+// step ahead), sets keys past N to -inf, updates the rows' running max and
+// sum (reduced over the lane quad that shares a row), rescales the output
+// accumulator and adds P V, with P taken straight from S's accumulator by
+// the permuted reduction index.  The division by the row sum happens once,
+// at the end.  The score tile never leaves registers.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;  // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int ROWS = 2;       // query rows per warp pass
-constexpr int MAX_N = 392;    // a full (8, 7, 7) window
-constexpr unsigned FULL_MASK = 0xffffffffu;
+using namespace tf32x3;
 
-int padded(int n) { return (n + 3) & ~3; }
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int MAX_N = 392;  // a full (8, 7, 7) window
 
+// 8-key tiles per step, each with its own score accumulator, so that a warp
+// keeps JT independent mma chains in flight (4 beat 2 and 1 at stage 0)
+constexpr int JT = 4;
+constexpr int STEP = 8 * JT;
+
+__host__ __device__ constexpr int keys_padded(int n) {
+  return (n + STEP - 1) / STEP * STEP;
+}
+
+// K and V tiles, N rounded up to STEP rows of d floats each
 size_t smem_bytes(int n, int d) {
-  const size_t np = static_cast<size_t>(padded(n));
-  return sizeof(float) * (np * (d + 4) + np * d + np * WARPS * ROWS);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
-  return v;
+  return sizeof(float) * 2 * static_cast<size_t>(keys_padded(n)) * d;
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 3)
 window_attention_kernel(const float* __restrict__ qkv,
                         const float* __restrict__ bias,
                         const float* __restrict__ mask, float* __restrict__ out,
                         int N, int heads, int nw_img, float scale) {
-  constexpr int KS = D + 4;  // K row stride (floats)
-  constexpr int D4 = D / 4;
-  constexpr int G = 32 / D;  // lane groups splitting the keys in p.v
+  constexpr int KT = D / 8;  // k-steps of q.k, n-tiles of p.v
   extern __shared__ __align__(16) float smem[];
-  const int NP = (N + 3) & ~3;
-  float* ks = smem;             // [NP][KS]
-  float* vs = ks + NP * KS;     // [NP][D]
-  float* ps = vs + NP * D;      // [WARPS][ROWS][NP]
+  const int NK = keys_padded(N);
+  float* ks = smem;       // [NK][D], swizzled
+  float* vs = ks + NK * D;
 
   const int C = heads * D;
   const int64_t C3 = 3 * static_cast<int64_t>(C);
   const int64_t w = blockIdx.x / heads;
   const int h = blockIdx.x % heads;
-  const float* win = qkv + w * N * C3;
+  const float* win = qkv + w * N * C3 + h * D;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const float neg_inf = __int_as_float(0xff800000);
 
-  // stage K and V of (w, h); rows N..NP-1 are zero so p.v may read them
-  for (int idx = threadIdx.x; idx < NP * D4; idx += THREADS) {
-    const int j = idx / D4;
-    const int c = (idx % D4) * 4;
-    float4 k4 = make_float4(0.f, 0.f, 0.f, 0.f);
-    float4 v4 = k4;
-    if (j < N) {
-      const float* row = win + j * C3 + h * D + c;
-      k4 = __ldg(reinterpret_cast<const float4*>(row + C));
-      v4 = __ldg(reinterpret_cast<const float4*>(row + 2 * C));
-    }
-    *reinterpret_cast<float4*>(ks + j * KS + c) = k4;
-    *reinterpret_cast<float4*>(vs + j * D + c) = v4;
-  }
+  stage<D>(ks, win + C, C3, N, NK);
+  stage<D>(vs, win + 2 * C, C3, N, NK);
+  cp_async_wait_all();
   __syncthreads();
 
   const float* bias_h = bias + static_cast<int64_t>(h) * N * N;
   const float* mask_w =
       mask ? mask + (w % nw_img) * static_cast<int64_t>(N) * N : nullptr;
-  float* prow = ps + warp * ROWS * NP;
-  const int g = lane / D;
-  const int e = lane % D;
 
-  for (int i0 = warp * ROWS; i0 < N; i0 += WARPS * ROWS) {
-    int row[ROWS];
-    float q[ROWS][D];
+  for (int r0 = warp * 16; r0 < N; r0 += WARPS * 16) {
+    // rows a = r0+g and b = r0+g+8; a row past N repeats row N-1 (discarded)
+    const int ra = min(r0 + g, N - 1), rb = min(r0 + g + 8, N - 1);
+    FragA qa[KT];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      row[r] = min(i0 + r, N - 1);  // a ragged last pass repeats row N-1
-      const float4* qr =
-          reinterpret_cast<const float4*>(win + row[r] * C3 + h * D);
-#pragma unroll
-      for (int c = 0; c < D4; ++c) {
-        const float4 q4 = __ldg(qr + c);
-        q[r][4 * c + 0] = q4.x * scale;
-        q[r][4 * c + 1] = q4.y * scale;
-        q[r][4 * c + 2] = q4.z * scale;
-        q[r][4 * c + 3] = q4.w * scale;
-      }
-    }
+    for (int kk = 0; kk < KT; ++kk)
+      qa[kk] = load_a_rows(win + ra * C3, win + rb * C3, kk * 8, lane, scale);
+    const RowBias<JT> rows(bias_h, mask_w, ra, rb, N, t);
 
-    // scores + bias + mask -> shared row, running maxima
-    float mx[ROWS];
+    float o[KT][4];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) mx[r] = __int_as_float(0xff800000);  // -inf
-    for (int j = lane; j < N; j += 32) {
-      float s[ROWS];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) s[r] = 0.f;
-      const float* kr = ks + j * KS;
-#pragma unroll
-      for (int c = 0; c < D; c += 4) {
-        const float4 k4 = *reinterpret_cast<const float4*>(kr + c);
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          s[r] = fmaf(q[r][c + 0], k4.x, s[r]);
-          s[r] = fmaf(q[r][c + 1], k4.y, s[r]);
-          s[r] = fmaf(q[r][c + 2], k4.z, s[r]);
-          s[r] = fmaf(q[r][c + 3], k4.w, s[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const int64_t at = static_cast<int64_t>(row[r]) * N + j;
-        float v = s[r] + __ldg(bias_h + at);
-        if (mask_w) v += __ldg(mask_w + at);
-        prow[r * NP + j] = v;
-        mx[r] = fmaxf(mx[r], v);
-      }
-    }
+    for (int nt = 0; nt < KT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+    float m0 = neg_inf, m1 = neg_inf, l0 = 0.f, l1 = 0.f;
+    float bv[JT][4], mv[JT][4];
+    rows.fetch(0, bv, mv);
 
-    // softmax numerators in place (zero past N), and their sums
-    float sum[ROWS];
+#pragma unroll 1
+    for (int j0 = 0; j0 < N; j0 += STEP) {
+      float s[JT][4];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      mx[r] = warp_max(mx[r]);
-      sum[r] = 0.f;
-    }
-    for (int j = lane; j < NP; j += 32) {
+      for (int u = 0; u < JT; ++u) s[u][0] = s[u][1] = s[u][2] = s[u][3] = 0.f;
 #pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        float p = 0.f;
-        if (j < N) p = __expf(prow[r * NP + j] - mx[r]);
-        prow[r * NP + j] = p;
-        sum[r] += p;
+      for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+        for (int u = 0; u < JT; ++u)
+          mma3(s[u], qa[kk], load_bt<D>(ks, j0 + 8 * u, kk * 8, lane));
+      float x0 = neg_inf, x1 = neg_inf;
+#pragma unroll
+      for (int u = 0; u < JT; ++u) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[u][e] = s[u][e] + bv[u][e] + mv[u][e];
+        x0 = fmaxf(x0, fmaxf(s[u][0], s[u][1]));
+        x1 = fmaxf(x1, fmaxf(s[u][2], s[u][3]));
+      }
+      rows.fetch(j0 + STEP, bv, mv);  // the next step's, in flight meanwhile
+      // key j0 < N is in every step, so the new maxima are finite
+      const float n0 = fmaxf(m0, quad_max(x0));
+      const float n1 = fmaxf(m1, quad_max(x1));
+      const float corr0 = __expf(m0 - n0), corr1 = __expf(m1 - n1);  // 0 first
+      m0 = n0;
+      m1 = n1;
+      l0 *= corr0;
+      l1 *= corr1;
+#pragma unroll
+      for (int nt = 0; nt < KT; ++nt) {
+        o[nt][0] *= corr0;
+        o[nt][1] *= corr0;
+        o[nt][2] *= corr1;
+        o[nt][3] *= corr1;
+      }
+#pragma unroll
+      for (int u = 0; u < JT; ++u) {
+        s[u][0] = __expf(s[u][0] - n0);
+        s[u][1] = __expf(s[u][1] - n0);
+        s[u][2] = __expf(s[u][2] - n1);
+        s[u][3] = __expf(s[u][3] - n1);
+        l0 += s[u][0] + s[u][1];
+        l1 += s[u][2] + s[u][3];
+        const FragA pa = acc_as_a(s[u]);
+#pragma unroll
+        for (int nt = 0; nt < KT; ++nt)
+          mma3(o[nt], pa, load_b_pairs<D>(vs, j0 + 8 * u, nt * 8, lane));
       }
     }
+    const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+    float* oa = out + (w * N + r0 + g) * C + h * D + 2 * t;
+    float* ob = oa + 8 * C;
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) sum[r] = warp_sum(sum[r]);
-    __syncwarp();
-
-    // p.v: lane group g takes keys 4g.., 4g+4G.., lane e output dim e
-    float acc[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-    for (int j = 4 * g; j < NP; j += 4 * G) {
-      const float v0 = vs[(j + 0) * D + e];
-      const float v1 = vs[(j + 1) * D + e];
-      const float v2 = vs[(j + 2) * D + e];
-      const float v3 = vs[(j + 3) * D + e];
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float4 p4 = *reinterpret_cast<const float4*>(prow + r * NP + j);
-        acc[r] = fmaf(p4.x, v0, acc[r]);
-        acc[r] = fmaf(p4.y, v1, acc[r]);
-        acc[r] = fmaf(p4.z, v2, acc[r]);
-        acc[r] = fmaf(p4.w, v3, acc[r]);
-      }
+    for (int nt = 0; nt < KT; ++nt) {
+      if (r0 + g < N)
+        *reinterpret_cast<float2*>(oa + nt * 8) =
+            make_float2(o[nt][0] * inv0, o[nt][1] * inv0);
+      if (r0 + g + 8 < N)
+        *reinterpret_cast<float2*>(ob + nt * 8) =
+            make_float2(o[nt][2] * inv1, o[nt][3] * inv1);
     }
-#pragma unroll
-    for (int o = D; o < 32; o <<= 1) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r)
-        acc[r] += __shfl_xor_sync(FULL_MASK, acc[r], o);
-    }
-    if (g == 0) {
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        if (i0 + r < N)
-          out[(w * N + i0 + r) * C + h * D + e] = acc[r] / sum[r];
-      }
-    }
-    __syncwarp();  // the next pass overwrites this warp's rows
   }
+}
+
+template <int D>
+cudaError_t raise_smem_limit() {
+  // per call, so that it holds on whichever device is current
+  return cudaFuncSetAttribute(window_attention_kernel<D>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem_bytes(MAX_N, D)));
 }
 
 template <int D>
 int launch(const float* qkv, const float* bias, const float* mask, float* out,
            int W, int N, int heads, int nw_img, float scale,
            cudaStream_t stream) {
-  // per call, so that it holds on whichever device is current
-  const cudaError_t err = cudaFuncSetAttribute(
-      window_attention_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes(MAX_N, D)));
+  const cudaError_t err = raise_smem_limit<D>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>(W) * static_cast<unsigned>(heads);
   window_attention_kernel<D><<<blocks, THREADS, smem_bytes(N, D), stream>>>(
       qkv, bias, mask, out, N, heads, nw_img, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int info(int N, int* out) {
+  cudaError_t err = raise_smem_limit<D>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[2], window_attention_kernel<D>, THREADS, smem_bytes(N, D));
+  out[0] = THREADS;
+  out[1] = static_cast<int>(smem_bytes(N, D));
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -266,6 +230,22 @@ extern "C" int window_attention_f32(const void* qkv, const void* bias,
       return launch<16>(q, b, m, o, W, N, heads, nw_img, scale, s);
     case 32:
       return launch<32>(q, b, m, o, W, N, heads, nw_img, scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The launch at (N, d): out = {threads per block, dynamic shared memory
+// bytes, resident blocks per SM}; returns a cudaError_t.
+extern "C" int window_attention_info(int N, int d, int* out) {
+  if (N < 1 || N > MAX_N) return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 8:
+      return info<8>(N, out);
+    case 16:
+      return info<16>(N, out);
+    case 32:
+      return info<32>(N, out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,4 +1,5 @@
-// Fused (shifted-)window attention backward (kernel K3) for Hopper, f32.
+// Fused (shifted-)window attention backward (kernel K3) for Hopper, f32
+// accuracy on the tensor cores (3xTF32).
 //
 // Replaces `_fused_bwd` (with its body `_bwd_kernel`) in
 // multimodalaggressionrecognition_tpu/ops/pallas/window_attention.py: the
@@ -20,185 +21,101 @@
 // Bound.  The JAX kernel's own count (its CostEstimate) is
 // 10*W*heads*N^2*d operations and 4*(2*W*N*3C + 2*heads*N^2 + W*N*C) bytes.
 // At Swin3D-T's stage 0 trained at batch 8 (W=2048, N=196, C=96, 3 heads,
-// d=32) that is 75.5 GFLOP, 1.127 ms at the 67 TFLOP/s f32 (non-tensor-core)
-// peak of an H100 SXM, against 1.08 GB, 0.322 ms at 3.35 TB/s: bound by
-// operations.
+// d=32) that is 75.5 GFLOP against 1.08 GB.  On an H100 SXM the three TF32
+// passes of every product take 0.458 ms at 495 TFLOP/s, the bytes 0.322 ms
+// at 3.35 TB/s: bound by tensor-core operations (1.127 ms at the 67 TFLOP/s
+// f32 FMA peak, which the earlier designs used).
 //
-// Design.  One block per (group of windows, head), one thread per token
-// (whole warps, at most 8; a larger N loops).  The block walks its group's
-// windows one at a time; for each it stages Q (pre-scaled by 1/sqrt(d)), K,
-// V and G in dynamic shared memory (4*N*d floats, row-major), then:
-//   - row pass: thread i owns query row i, its q_i and g_i in registers.
-//     A first sweep over the keys gives the row's logsumexp and
-//     D_i = sum_j p dP online (running max, rescaled sums); a second
-//     recomputes p and dS and accumulates dQ_i = sum_j dS k_j in registers.
-//   - column pass: thread j owns key j, its k_j and v_j in registers, and
-//     sweeps the query rows: p and dS from the stored logsumexp and D, then
-//     dV_j = sum_i p g_i and dK_j = sum_i dS q_i in registers.
-// Every lane of a warp reads the same shared-memory row at the same time (a
-// broadcast), and no sum crosses threads, so nothing needs atomics or
-// shuffles; the price is 9*d FMAs per (i, j) instead of the 5*d of one pass
-// (s and dP are computed three times).  The bias and mask, which stay in L2,
-// are loaded a step ahead of their use; the row pass reads them transposed
-// (the wrapper transposes both) so that, like the column pass's, its loads
-// coalesce.  A warp per token instead (lanes splitting the keys, the sums
-// over rows through shared-memory row buffers) moved ~5 times more
-// shared-memory bytes per (i, j) and ran 1.6 times slower on an H100.  Here
-// the registers (k, v, dK and dV are 4*d per thread) allow one block of at
-// most 8 warps per SM, too few to hide the latencies: the kernel runs at a
-// quarter of the FMA peak.
-//
+// Design.  Every product runs on mma.sync.m16n8k8 with the 3xTF32 split
+// (tf32x3.cuh); the unit of work is one warp per 16-token tile.  A block of
+// 4 warps per (group of windows, head) walks its group's windows, in two
+// passes per window, each with its own staging: the pass's B operands are
+// read from device memory, split once (big, small) and stored in two split
+// tiles in shared memory (zero past N; 106 KB at N=196, so two blocks share
+// an SM, and 205 KB at the full N=392), and its A operands come straight
+// from device memory into registers.
+//   - row pass (K and V staged), a warp per 16 query rows, their Q / sqrt(d)
+//     and G split in registers.  Sweep 1, 16 keys a step: S = Q K^T and
+//     dP = G V^T, then the online logsumexp and D = sum_j p dP in
+//     registers, reduced over the lane quad that shares a row.  Sweep 2: S
+//     and dP again, dS in the accumulator, dQ += dS K with dS taken as the
+//     A operand through the permuted reduction index.
+//   - column pass (Q / sqrt(d) and G staged), a warp per 16 keys, their K
+//     and V split in registers: for 16 queries a step S^T = K Q^T and
+//     dP^T = V G^T, p and dS from the stored logsumexp and D,
+//     dV += P^T G, dK += dS^T Q, and dS into the block's dbias partial.
+// dK and dV are sums over queries and dQ a sum over keys, so each pass
+// keeps its sums inside one warp's accumulators, with no atomics; the price
+// is computing S and dP three times (9*d multiply-adds per (i, j) where the
+// bound counts 5*d).  Two 8-wide tiles a step, and S and dP each in two
+// accumulators (mma3x), give a warp 8 independent mma chains; each step
+// fetches the next step's bias, mask and dbias partial (through L2, 8
+// consecutive keys per row of the tile in both passes) while its products
+// run.  What bounds it now is latency: ptxas gives the d=32 kernel ~250
+// registers, so an SM holds 2 blocks, 8 warps, and 13 tiles of 16 rows over
+// 4 warps leave a warp idle a quarter of each pass; a version of 8 warps a
+// block at 128 registers spilled and ran slower.
+
 // dbias is a sum over all W windows, which the TPU kernel accumulates in a
 // block revisited across its sequential grid.  A GPU grid has no order, so
 // the sum is split: each block adds its windows' dS into its own
 // (heads, N, N) slice of a partials array in device memory, and a second
 // small kernel sums the partials over the groups.  Every (i, j) of a block
-// belongs to a fixed thread (the owner of key j in the column pass) across
-// all its windows, so the read-modify-write needs no atomics, and the
-// result does not depend on scheduling: it is deterministic.  The number of
-// groups fills the card (blocks per SM from the occupancy API, times the SM
-// count, over the heads).
-// Not yet done (later work): register tiling over several rows or keys and
-// a slice of d per thread (fewer registers, so more warps, and each shared
-// load feeding several FMAs), and tensor cores.
+// belongs to a fixed lane of a fixed warp across all its windows, so the
+// read-modify-write needs no atomics and the result does not depend on
+// scheduling: it is deterministic.  The number of groups fills the card
+// (blocks per SM from the occupancy API, times the SM count, over the
+// heads).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int MAX_THREADS = 256;  // 8 warps
-// keys per step of the row pass and query rows per step of the column pass;
-// the column pass, which also holds k, v, dK and dV in registers, spills at 2
-constexpr int ROW_STEP = 4;
-constexpr int COL_STEP = 1;
+using namespace tf32x3;
+
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_N = 392;  // a full (8, 7, 7) window
 
-// one thread per token, in whole warps, at most MAX_THREADS
-int threads_for(int n) {
-  const int t = 32 * ((n + 31) / 32);
-  return t < MAX_THREADS ? t : MAX_THREADS;
+// 8-wide tiles per step of a sweep, each with its own accumulators, so that
+// a warp keeps 2 * JT independent mma chains in flight
+constexpr int JT = 2;
+constexpr int STEP = 8 * JT;
+static_assert(16 % STEP == 0, "a step must not run past the 16-row padding");
+
+__host__ __device__ constexpr int rows_padded(int n) {
+  return (n + 15) & ~15;
 }
 
-// Q, K, V, G tiles (N x d each) and the rows' logsumexp and D:
-// 203,840 bytes at N=392, d=32
+// two split tiles (N rounded up to 16 rows of d (big, small) pairs) and the
+// rows' logsumexp and D: 108,160 bytes at N=196, 208,000 at N=392 (d=32)
 size_t smem_bytes(int n, int d) {
-  return sizeof(float) * (4 * static_cast<size_t>(n) * d + 2 * static_cast<size_t>(n));
-}
-
-// r = src[0:D] * mul, from global memory (16-byte aligned)
-template <int D>
-__device__ __forceinline__ void load_row(const float* __restrict__ src,
-                                         float (&r)[D], float mul) {
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(src) + c);
-    r[4 * c + 0] = v.x * mul;
-    r[4 * c + 1] = v.y * mul;
-    r[4 * c + 2] = v.z * mul;
-    r[4 * c + 3] = v.w * mul;
-  }
+  const size_t np = static_cast<size_t>(rows_padded(n));
+  return sizeof(float2) * 2 * np * d + sizeof(float) * 2 * np;
 }
 
 template <int D>
-__device__ __forceinline__ void store_row(float* dst, const float (&r)[D],
-                                          float mul) {
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c)
-    reinterpret_cast<float4*>(dst)[c] =
-        make_float4(r[4 * c] * mul, r[4 * c + 1] * mul, r[4 * c + 2] * mul,
-                    r[4 * c + 3] * mul);
-}
-
-// the tile rows r0 .. r0+STEP-1, clamped to the last one (a row past the
-// end is read, and its result discarded by the caller)
-template <int S>
-__device__ __forceinline__ void step_rows(int r0, int n, int (&row)[S]) {
-#pragma unroll
-  for (int k = 0; k < S; ++k) row[k] = min(r0 + k, n - 1);
-}
-
-// sx[k] = x . a[row[k]], sy[k] = y . b[row[k]] over D-wide tile rows; every
-// lane reads the same rows, so each float4 load is a broadcast.  Each dot
-// runs as 4/S interleaved partial sums, so that a thread has at least eight
-// independent FMA chains in flight.
-template <int D, int S>
-__device__ __forceinline__ void dots(const float* a, const float* b,
-                                     const int (&row)[S],
-                                     const float (&x)[D], const float (&y)[D],
-                                     float (&sx)[S], float (&sy)[S]) {
-  constexpr int P = S >= 4 ? 1 : 4 / S;
-  float ax[S][P], ay[S][P];
-#pragma unroll
-  for (int k = 0; k < S; ++k)
-#pragma unroll
-    for (int t = 0; t < P; ++t) ax[k][t] = ay[k][t] = 0.f;
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      float& u_acc = ax[k][c % P];
-      const float4 u = *reinterpret_cast<const float4*>(a + row[k] * D + 4 * c);
-      u_acc = fmaf(x[4 * c + 0], u.x, u_acc);
-      u_acc = fmaf(x[4 * c + 1], u.y, u_acc);
-      u_acc = fmaf(x[4 * c + 2], u.z, u_acc);
-      u_acc = fmaf(x[4 * c + 3], u.w, u_acc);
-      float& v_acc = ay[k][c % P];
-      const float4 v = *reinterpret_cast<const float4*>(b + row[k] * D + 4 * c);
-      v_acc = fmaf(y[4 * c + 0], v.x, v_acc);
-      v_acc = fmaf(y[4 * c + 1], v.y, v_acc);
-      v_acc = fmaf(y[4 * c + 2], v.z, v_acc);
-      v_acc = fmaf(y[4 * c + 3], v.w, v_acc);
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    sx[k] = ax[k][0];
-    sy[k] = ay[k][0];
-#pragma unroll
-    for (int t = 1; t < P; ++t) {
-      sx[k] += ax[k][t];
-      sy[k] += ay[k][t];
-    }
-  }
-}
-
-// acc += sum_k f[k] * tile[row[k]] (broadcast loads, as in dots)
-template <int D, int S>
-__device__ __forceinline__ void axpy(const float* tile, const int (&row)[S],
-                                     const float (&f)[S], float (&acc)[D]) {
-#pragma unroll
-  for (int c = 0; c < D / 4; ++c) {
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      const float4 u = *reinterpret_cast<const float4*>(tile + row[k] * D + 4 * c);
-      acc[4 * c + 0] = fmaf(f[k], u.x, acc[4 * c + 0]);
-      acc[4 * c + 1] = fmaf(f[k], u.y, acc[4 * c + 1]);
-      acc[4 * c + 2] = fmaf(f[k], u.z, acc[4 * c + 2]);
-      acc[4 * c + 3] = fmaf(f[k], u.w, acc[4 * c + 3]);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(MAX_THREADS, 1)
+__global__ void __launch_bounds__(THREADS, 2)
 window_attention_bwd_kernel(const float* __restrict__ qkv,
                             const float* __restrict__ bias,
-                            const float* __restrict__ bias_t,
                             const float* __restrict__ mask,
-                            const float* __restrict__ mask_t,
                             const float* __restrict__ gout,
                             float* __restrict__ dqkv,
                             float* __restrict__ partial, int W, int N,
                             int heads, int nw_img, int groups, float scale) {
+  constexpr int KT = D / 8;  // k-steps over d, and n-tiles of d
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;        // [N][D], q / sqrt(d)
-  float* ks = qs + N * D;  // [N][D]
-  float* vs = ks + N * D;
-  float* gs = vs + N * D;
-  float* lse = gs + N * D;  // [N]
-  float* dsum = lse + N;    // [N]
+  const int NP = rows_padded(N);
+  // split tiles [NP][D]: K and V in the row pass, Q / sqrt(d) and G in the
+  // column pass
+  float2* xs = reinterpret_cast<float2*>(smem);
+  float2* ys = xs + NP * D;
+  float* lse = reinterpret_cast<float*>(ys + NP * D);  // [NP]
+  float* dsum = lse + NP;                               // [NP]
 
   const int C = heads * D;
   const int64_t C3 = 3 * static_cast<int64_t>(C);
@@ -207,156 +124,265 @@ window_attention_bwd_kernel(const float* __restrict__ qkv,
   const int grp = blockIdx.x / heads;
   const int64_t w0 = static_cast<int64_t>(W) * grp / groups;
   const int64_t w1 = static_cast<int64_t>(W) * (grp + 1) / groups;
-  const float* bias_h = bias + h * NN;
-  const float* bias_th = bias_t + h * NN;
   float* part = partial + (static_cast<int64_t>(grp) * heads + h) * NN;
+  const float* bias_h = bias + h * NN;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
   const float neg_inf = __int_as_float(0xff800000);
 
   for (int64_t w = w0; w < w1; ++w) {
-    const float* win = qkv + w * N * C3;
-    const float* gwin = gout + w * N * C;
-    float* dwin = dqkv + w * N * C3;
-    const int64_t m_off = mask ? (w % nw_img) * NN : 0;
-    const float* mask_w = mask ? mask + m_off : nullptr;
-    const float* mask_tw = mask ? mask_t + m_off : nullptr;
+    const float* win = qkv + w * N * C3 + h * D;
+    const float* gwin = gout + w * N * C + h * D;
+    float* dwin = dqkv + w * N * C3 + h * D;
+    const float* mask_w = mask ? mask + (w % nw_img) * NN : nullptr;
 
-    __syncthreads();  // the previous window's readers are done
-    for (int idx = threadIdx.x; idx < N * (D / 4); idx += blockDim.x) {
-      const int j = idx / (D / 4);
-      const int c = idx % (D / 4);
-      const float* row = win + j * C3 + h * D + 4 * c;
-      float4 q4 = __ldg(reinterpret_cast<const float4*>(row));
-      q4.x *= scale;
-      q4.y *= scale;
-      q4.z *= scale;
-      q4.w *= scale;
-      const int at = j * D + 4 * c;
-      *reinterpret_cast<float4*>(qs + at) = q4;
-      *reinterpret_cast<float4*>(ks + at) =
-          __ldg(reinterpret_cast<const float4*>(row + C));
-      *reinterpret_cast<float4*>(vs + at) =
-          __ldg(reinterpret_cast<const float4*>(row + 2 * C));
-      *reinterpret_cast<float4*>(gs + at) = __ldg(
-          reinterpret_cast<const float4*>(gwin + j * C + h * D + 4 * c));
-    }
+    __syncthreads();  // the previous window's column pass is done
+    stage_split<D>(xs, win + C, C3, N, NP, 1.f);
+    stage_split<D>(ys, win + 2 * C, C3, N, NP, 1.f);
     __syncthreads();
 
-    // row pass: thread i owns query row i; logsumexp, D and dQ
-    for (int i = threadIdx.x; i < N; i += blockDim.x) {
-      float q[D], g[D];
-      load_row<D>(win + i * C3 + h * D, q, scale);
-      load_row<D>(gwin + i * C + h * D, g, 1.f);
-      // bias[h][i][j] and mask[i][j] at column offset j * N of these
-      const float* bias_i = bias_th + i;
-      const float* mask_i = mask_tw ? mask_tw + i : nullptr;
-      // the bias (+ mask) of the keys of step j0, loaded one step ahead
-      auto load_bm = [&](int j0, float (&bm)[ROW_STEP]) {
+    // row pass: a warp per 16 query rows; logsumexp, D and dQ
+    for (int r0 = warp * 16; r0 < N; r0 += WARPS * 16) {
+      // rows a = r0+g and b = r0+g+8; a row past N repeats row N-1 (its
+      // results are discarded)
+      const int ra = min(r0 + g, N - 1), rb = min(r0 + g + 8, N - 1);
+      FragA qa[KT], ga[KT];
 #pragma unroll
-        for (int k = 0; k < ROW_STEP; ++k) {
-          const int at = min(j0 + k, N - 1) * N;
-          bm[k] = __ldg(bias_i + at) + (mask_i ? __ldg(mask_i + at) : 0.f);
-        }
+      for (int kk = 0; kk < KT; ++kk) {
+        qa[kk] = load_a_rows(win + ra * C3, win + rb * C3, kk * 8, lane,
+                             scale);
+        ga[kk] = load_a_rows(gwin + ra * C, gwin + rb * C, kk * 8, lane, 1.f);
+      }
+      const RowBias<JT> rows(bias_h, mask_w, ra, rb, N, t);
+      // S (with bias and mask) and dP of keys j0 .. j0+STEP-1
+      auto scores = [&](int j0, const float (&bv)[JT][4],
+                        const float (&mv)[JT][4], float (&s)[JT][4],
+                        float (&dp)[JT][4]) {
+        float s2[JT][4], dp2[JT][4];
+#pragma unroll
+        for (int u = 0; u < JT; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[u][e] = dp[u][e] = s2[u][e] = dp2[u][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+          for (int u = 0; u < JT; ++u) {
+            mma3x(s[u], s2[u], qa[kk],
+                  load_bt_split<D>(xs, j0 + 8 * u, kk * 8, lane));
+            mma3x(dp[u], dp2[u], ga[kk],
+                  load_bt_split<D>(ys, j0 + 8 * u, kk * 8, lane));
+          }
+#pragma unroll
+        for (int u = 0; u < JT; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[u][e] = (s[u][e] + s2[u][e]) + bv[u][e] + mv[u][e];
+            dp[u][e] += dp2[u][e];
+          }
       };
-      float mx = neg_inf, l = 0.f, acc = 0.f;
-      float bm[ROW_STEP], bm_next[ROW_STEP];
-      load_bm(0, bm_next);
-#pragma unroll 1
-      for (int j0 = 0; j0 < N; j0 += ROW_STEP) {
-#pragma unroll
-        for (int k = 0; k < ROW_STEP; ++k) bm[k] = bm_next[k];
-        load_bm(j0 + ROW_STEP, bm_next);
-        int row[ROW_STEP];
-        step_rows(j0, N, row);
-        float s[ROW_STEP], dp[ROW_STEP];
-        dots<D>(ks, vs, row, q, g, s, dp);
-        float m_new = mx;
-#pragma unroll
-        for (int k = 0; k < ROW_STEP; ++k) {
-          s[k] = j0 + k < N ? s[k] + bm[k] : neg_inf;
-          m_new = fmaxf(m_new, s[k]);
-        }
-        const float corr = expf(mx - m_new);  // 0 at the first step
-        l *= corr;
-        acc *= corr;
-#pragma unroll
-        for (int k = 0; k < ROW_STEP; ++k) {
-          const float e = expf(s[k] - m_new);
-          l += e;
-          acc = fmaf(e, dp[k], acc);
-        }
-        mx = m_new;
-      }
-      const float li = mx + logf(l);
-      const float di = acc / l;  // D_i = sum_j p dP
-      float dq[D];
-#pragma unroll
-      for (int e = 0; e < D; ++e) dq[e] = 0.f;
-      load_bm(0, bm_next);
-#pragma unroll 1
-      for (int j0 = 0; j0 < N; j0 += ROW_STEP) {
-#pragma unroll
-        for (int k = 0; k < ROW_STEP; ++k) bm[k] = bm_next[k];
-        load_bm(j0 + ROW_STEP, bm_next);
-        int row[ROW_STEP];
-        step_rows(j0, N, row);
-        float s[ROW_STEP], dp[ROW_STEP], ds[ROW_STEP];
-        dots<D>(ks, vs, row, q, g, s, dp);
-#pragma unroll
-        for (int k = 0; k < ROW_STEP; ++k)
-          ds[k] = j0 + k < N ? expf(s[k] + bm[k] - li) * (dp[k] - di) : 0.f;
-        axpy<D>(ks, row, ds, dq);
-      }
-      store_row<D>(dwin + i * C3 + h * D, dq, scale);
-      lse[i] = li;
-      dsum[i] = di;
-    }
-    __syncthreads();  // every row's logsumexp and D
 
-    // column pass: thread j owns key j; dK, dV and dS into the partials
-    const bool first = w == w0;
-    for (int j = threadIdx.x; j < N; j += blockDim.x) {
-      // the bias (+ mask) and the partial of the rows of step i0, loaded one
-      // step ahead (a row past the end reads the last row, and is unused)
-      auto load_step = [&](int i0, float (&bm)[COL_STEP],
-                           float (&old)[COL_STEP]) {
-#pragma unroll
-        for (int r = 0; r < COL_STEP; ++r) {
-          const int at = min(i0 + r, N - 1) * N + j;
-          bm[r] = __ldg(bias_h + at) + (mask_w ? __ldg(mask_w + at) : 0.f);
-          old[r] = first ? 0.f : part[at];
-        }
-      };
-      float k[D], v[D], dk[D], dv[D];
-      load_row<D>(win + j * C3 + C + h * D, k, 1.f);
-      load_row<D>(win + j * C3 + 2 * C + h * D, v, 1.f);
-#pragma unroll
-      for (int e = 0; e < D; ++e) dk[e] = dv[e] = 0.f;
-      float bm[COL_STEP], bm_next[COL_STEP], old[COL_STEP], old_next[COL_STEP];
-      load_step(0, bm_next, old_next);
+      // sweep 1: the rows' online logsumexp and D = sum_j p dP; each step
+      // fetches the next step's bias and mask while its products run
+      float bv[JT][4], mv[JT][4];
+      float m0 = neg_inf, m1 = neg_inf, l0 = 0.f, l1 = 0.f, a0 = 0.f, a1 = 0.f;
+      rows.fetch(0, bv, mv);
 #pragma unroll 1
-      for (int i0 = 0; i0 < N; i0 += COL_STEP) {
+      for (int j0 = 0; j0 < N; j0 += STEP) {
+        float s[JT][4], dp[JT][4];
+        scores(j0, bv, mv, s, dp);
+        rows.fetch(j0 + STEP, bv, mv);
+        float x0 = neg_inf, x1 = neg_inf;
 #pragma unroll
-        for (int r = 0; r < COL_STEP; ++r) {
-          bm[r] = bm_next[r];
-          old[r] = old_next[r];
+        for (int u = 0; u < JT; ++u) {
+          x0 = fmaxf(x0, fmaxf(s[u][0], s[u][1]));
+          x1 = fmaxf(x1, fmaxf(s[u][2], s[u][3]));
         }
-        load_step(i0 + COL_STEP, bm_next, old_next);
-        int row[COL_STEP];
-        step_rows(i0, N, row);
-        float s[COL_STEP], dp[COL_STEP], p[COL_STEP], ds[COL_STEP];
-        dots<D>(qs, gs, row, k, v, s, dp);
+        // key j0 < N is in every step, so the new maxima are finite
+        const float n0 = fmaxf(m0, quad_max(x0));
+        const float n1 = fmaxf(m1, quad_max(x1));
+        const float c0 = __expf(m0 - n0), c1 = __expf(m1 - n1);  // 0 first
+        m0 = n0;
+        m1 = n1;
+        l0 *= c0;
+        l1 *= c1;
+        a0 *= c0;
+        a1 *= c1;
 #pragma unroll
-        for (int r = 0; r < COL_STEP; ++r) {
-          const bool valid = i0 + r < N;
-          p[r] = valid ? expf(s[r] + bm[r] - lse[row[r]]) : 0.f;
-          ds[r] = p[r] * (dp[r] - dsum[row[r]]);
-          if (valid) part[row[r] * N + j] = old[r] + ds[r];
+        for (int u = 0; u < JT; ++u) {
+          const float e0 = __expf(s[u][0] - n0), e1 = __expf(s[u][1] - n0);
+          const float e2 = __expf(s[u][2] - n1), e3 = __expf(s[u][3] - n1);
+          l0 += e0 + e1;
+          l1 += e2 + e3;
+          a0 += e0 * dp[u][0] + e1 * dp[u][1];
+          a1 += e2 * dp[u][2] + e3 * dp[u][3];
         }
-        axpy<D>(gs, row, p, dv);
-        axpy<D>(qs, row, ds, dk);
       }
-      store_row<D>(dwin + j * C3 + C + h * D, dk, 1.f);
-      store_row<D>(dwin + j * C3 + 2 * C + h * D, dv, 1.f);
+      l0 = quad_sum(l0);
+      l1 = quad_sum(l1);
+      const float lse0 = m0 + __logf(l0), lse1 = m1 + __logf(l1);
+      const float d0 = quad_sum(a0) / l0, d1 = quad_sum(a1) / l1;
+
+      // sweep 2: S and dP again, dS in the accumulators, dQ += dS K
+      float dq[KT][4];
+#pragma unroll
+      for (int nt = 0; nt < KT; ++nt)
+        dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
+      rows.fetch(0, bv, mv);
+#pragma unroll 1
+      for (int j0 = 0; j0 < N; j0 += STEP) {
+        float s[JT][4], dp[JT][4];
+        scores(j0, bv, mv, s, dp);
+        rows.fetch(j0 + STEP, bv, mv);
+#pragma unroll
+        for (int u = 0; u < JT; ++u) {
+          s[u][0] = __expf(s[u][0] - lse0) * (dp[u][0] - d0);  // 0 past N
+          s[u][1] = __expf(s[u][1] - lse0) * (dp[u][1] - d0);
+          s[u][2] = __expf(s[u][2] - lse1) * (dp[u][2] - d1);
+          s[u][3] = __expf(s[u][3] - lse1) * (dp[u][3] - d1);
+          const FragA da = acc_as_a(s[u]);
+#pragma unroll
+          for (int nt = 0; nt < KT; ++nt)
+            mma3(dq[nt], da,
+                 load_b_pairs_split<D>(xs, j0 + 8 * u, nt * 8, lane));
+        }
+      }
+      float* qa_out = dwin + (r0 + g) * C3 + 2 * t;
+      float* qb_out = qa_out + 8 * C3;
+#pragma unroll
+      for (int nt = 0; nt < KT; ++nt) {
+        if (r0 + g < N)
+          *reinterpret_cast<float2*>(qa_out + nt * 8) =
+              make_float2(dq[nt][0] * scale, dq[nt][1] * scale);
+        if (r0 + g + 8 < N)
+          *reinterpret_cast<float2*>(qb_out + nt * 8) =
+              make_float2(dq[nt][2] * scale, dq[nt][3] * scale);
+      }
+      if (t == 0) {
+        lse[r0 + g] = lse0;
+        dsum[r0 + g] = d0;
+        lse[r0 + g + 8] = lse1;
+        dsum[r0 + g + 8] = d1;
+      }
+    }
+    __syncthreads();  // every row's logsumexp and D; K and V read
+    stage_split<D>(xs, win, C3, N, NP, scale);
+    stage_split<D>(ys, gwin, C, N, NP, 1.f);
+    __syncthreads();
+
+    // column pass: a warp per 16 keys; dK, dV and dS into the partials
+    const bool first = w == w0;
+    for (int j0 = warp * 16; j0 < N; j0 += WARPS * 16) {
+      // keys a = j0+g and b = j0+g+8; a key past N repeats key N-1 (its
+      // results are discarded)
+      const int ja = j0 + g, jb = j0 + g + 8;
+      const float* ka_row = win + C + min(ja, N - 1) * C3;
+      const float* kb_row = win + C + min(jb, N - 1) * C3;
+      FragA ka[KT], va[KT];
+#pragma unroll
+      for (int kk = 0; kk < KT; ++kk) {
+        ka[kk] = load_a_rows(ka_row, kb_row, kk * 8, lane, 1.f);
+        va[kk] = load_a_rows(ka_row + C, kb_row + C, kk * 8, lane, 1.f);
+      }
+      // bias, mask and the dbias partial at the accumulators' (u, e): key a
+      // (e < 2) or b, query i + 2t with i = i0 + 8u + (e & 1), at o0(i0) +
+      // (8u + (e & 1)) * N (+ 8 for key b), offsets the loop keeps; outside
+      // N x N the bias is -inf and the partial 0 (as it is at the group's
+      // first window)
+      const bool a_in = ja < N, b_in = jb < N;
+      auto o0 = [&](int i0) { return (i0 + 2 * t) * N + ja; };
+      auto off = [&](int u, int e) {
+        return (8 * u + (e & 1)) * N + (e < 2 ? 0 : 8);
+      };
+      auto inside = [&](int i0, int u, int e) {
+        return (e < 2 ? a_in : b_in) && i0 + 8 * u + (e & 1) + 2 * t < N;
+      };
+      auto fetch = [&](int i0, float (&bv)[JT][4], float (&mv)[JT][4],
+                       float (&pv)[JT][4]) {
+#pragma unroll
+        for (int u = 0; u < JT; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool in = inside(i0, u, e);
+            const int o = o0(i0) + off(u, e);
+            bv[u][e] = in ? __ldg(bias_h + o) : neg_inf;
+            mv[u][e] = in && mask_w ? __ldg(mask_w + o) : 0.f;
+            pv[u][e] = in && !first ? part[o] : 0.f;
+          }
+      };
+      float dk[KT][4], dv[KT][4];
+#pragma unroll
+      for (int nt = 0; nt < KT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk[nt][e] = dv[nt][e] = 0.f;
+      float bv[JT][4], mv[JT][4], pv[JT][4];
+      fetch(0, bv, mv, pv);
+#pragma unroll 1
+      for (int i0 = 0; i0 < N; i0 += STEP) {
+        float s[JT][4], dp[JT][4], s2[JT][4], dp2[JT][4];
+#pragma unroll
+        for (int u = 0; u < JT; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[u][e] = dp[u][e] = s2[u][e] = dp2[u][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+          for (int u = 0; u < JT; ++u) {
+            mma3x(s[u], s2[u], ka[kk],
+                  load_bt_split<D>(xs, i0 + 8 * u, kk * 8, lane));
+            mma3x(dp[u], dp2[u], va[kk],
+                  load_bt_split<D>(ys, i0 + 8 * u, kk * 8, lane));
+          }
+#pragma unroll
+        for (int u = 0; u < JT; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[u][e] += s2[u][e];
+            dp[u][e] += dp2[u][e];
+          }
+        // p and dS at (key, query); 0 outside N x N
+#pragma unroll
+        for (int u = 0; u < JT; ++u)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int query = i0 + 8 * u + (e & 1) + 2 * t;
+            const float p =
+                __expf(s[u][e] + bv[u][e] + mv[u][e] - lse[query]);
+            const float ds = p * (dp[u][e] - dsum[query]);
+            if (inside(i0, u, e)) part[o0(i0) + off(u, e)] = pv[u][e] + ds;
+            s[u][e] = p;
+            dp[u][e] = ds;
+          }
+        fetch(i0 + STEP, bv, mv, pv);
+#pragma unroll
+        for (int u = 0; u < JT; ++u) {
+          const FragA pa = acc_as_a(s[u]), da = acc_as_a(dp[u]);
+#pragma unroll
+          for (int nt = 0; nt < KT; ++nt) {
+            mma3(dv[nt], pa,
+                 load_b_pairs_split<D>(ys, i0 + 8 * u, nt * 8, lane));
+            mma3(dk[nt], da,
+                 load_b_pairs_split<D>(xs, i0 + 8 * u, nt * 8, lane));
+          }
+        }
+      }
+      float* ka_out = dwin + ja * C3 + C + 2 * t;
+      float* kb_out = ka_out + 8 * C3;
+#pragma unroll
+      for (int nt = 0; nt < KT; ++nt) {
+        if (ja < N) {
+          *reinterpret_cast<float2*>(ka_out + nt * 8) =
+              make_float2(dk[nt][0], dk[nt][1]);
+          *reinterpret_cast<float2*>(ka_out + C + nt * 8) =
+              make_float2(dv[nt][0], dv[nt][1]);
+        }
+        if (jb < N) {
+          *reinterpret_cast<float2*>(kb_out + nt * 8) =
+              make_float2(dk[nt][2], dk[nt][3]);
+          *reinterpret_cast<float2*>(kb_out + C + nt * 8) =
+              make_float2(dv[nt][2], dv[nt][3]);
+        }
+      }
     }
   }
 }
@@ -382,16 +408,21 @@ cudaError_t raise_smem_limit() {
 }
 
 template <int D>
-int groups_for(int W, int N, int heads) {
+cudaError_t blocks_per_sm(int N, int* per_sm) {
   cudaError_t err = raise_smem_limit<D>();
-  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, window_attention_bwd_kernel<D>, THREADS, smem_bytes(N, D));
+}
+
+template <int D>
+int groups_for(int W, int N, int heads) {
   int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+  cudaError_t err;
+  if ((err = blocks_per_sm<D>(N, &per_sm)) != cudaSuccess ||
+      (err = cudaGetDevice(&dev)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    dev)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, window_attention_bwd_kernel<D>, threads_for(N),
-           smem_bytes(N, D))) != cudaSuccess)
+                                    dev)) != cudaSuccess)
     return -static_cast<int>(err);
   if (per_sm < 1) return -static_cast<int>(cudaErrorInvalidConfiguration);
   const int64_t want = (static_cast<int64_t>(sms) * per_sm + heads - 1) / heads;
@@ -399,23 +430,30 @@ int groups_for(int W, int N, int heads) {
 }
 
 template <int D>
-int launch(const float* qkv, const float* bias, const float* bias_t,
-           const float* mask, const float* mask_t, const float* g, float* dqkv,
-           float* dbias, float* partial, int W, int N, int heads, int nw_img,
-           int groups, float scale, cudaStream_t stream) {
+int launch(const float* qkv, const float* bias, const float* mask,
+           const float* g, float* dqkv, float* dbias, float* partial, int W,
+           int N, int heads, int nw_img, int groups, float scale,
+           cudaStream_t stream) {
   cudaError_t err = raise_smem_limit<D>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>(groups) * static_cast<unsigned>(heads);
-  window_attention_bwd_kernel<D><<<blocks, threads_for(N), smem_bytes(N, D),
-                                   stream>>>(qkv, bias, bias_t, mask, mask_t, g,
-                                             dqkv, partial, W, N, heads,
-                                             nw_img, groups, scale);
+  window_attention_bwd_kernel<D><<<blocks, THREADS, smem_bytes(N, D),
+                                   stream>>>(qkv, bias, mask, g, dqkv, partial,
+                                             W, N, heads, nw_img, groups,
+                                             scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const int64_t count = static_cast<int64_t>(heads) * N * N;
   const int64_t want = (count + 255) / 256;
   sum_groups_kernel<<<static_cast<unsigned>(want < 4096 ? want : 4096), 256, 0,
                       stream>>>(partial, dbias, count, groups);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int info(int N, int* out) {
+  out[0] = THREADS;
+  out[1] = static_cast<int>(smem_bytes(N, D));
+  return static_cast<int>(blocks_per_sm<D>(N, &out[2]));
 }
 
 }  // namespace
@@ -439,26 +477,22 @@ extern "C" int window_attention_bwd_groups(int W, int N, int heads, int d) {
 }
 
 // Launches both kernels on `stream`; returns a cudaError_t (0 = launched).
-// bias_t and mask_t are bias and mask with their last two axes swapped;
-// `mask`/`mask_t` may be null (no shifted-window mask; `nw_img` is then
-// ignored).  `partial` holds groups * heads * N * N floats, groups from
+// `mask` may be null (no shifted-window mask; `nw_img` is then ignored).
+// `partial` holds groups * heads * N * N floats, groups from
 // window_attention_bwd_groups.  The caller checks dtypes, contiguity,
 // 16-byte alignment of qkv and g, W % nw_img == 0 and the grid size.
 extern "C" int window_attention_bwd_f32(const void* qkv, const void* bias,
-                                        const void* bias_t, const void* mask,
-                                        const void* mask_t, const void* g,
+                                        const void* mask, const void* g,
                                         void* dqkv, void* dbias, void* partial,
                                         int W, int N, int heads, int d,
                                         int nw_img, int groups, float scale,
                                         void* stream) {
   if (W < 1 || heads < 1 || N < 1 || N > MAX_N || groups < 1 || groups > W ||
-      (mask && (nw_img < 1 || !mask_t)))
+      (mask && nw_img < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* q = static_cast<const float*>(qkv);
   const auto* b = static_cast<const float*>(bias);
-  const auto* bt = static_cast<const float*>(bias_t);
   const auto* m = static_cast<const float*>(mask);
-  const auto* mt = static_cast<const float*>(mask_t);
   const auto* go = static_cast<const float*>(g);
   auto* dq = static_cast<float*>(dqkv);
   auto* db = static_cast<float*>(dbias);
@@ -466,14 +500,30 @@ extern "C" int window_attention_bwd_f32(const void* qkv, const void* bias,
   const auto s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 8:
-      return launch<8>(q, b, bt, m, mt, go, dq, db, pa, W, N, heads, nw_img,
-                       groups, scale, s);
+      return launch<8>(q, b, m, go, dq, db, pa, W, N, heads, nw_img, groups,
+                       scale, s);
     case 16:
-      return launch<16>(q, b, bt, m, mt, go, dq, db, pa, W, N, heads, nw_img,
-                        groups, scale, s);
+      return launch<16>(q, b, m, go, dq, db, pa, W, N, heads, nw_img, groups,
+                        scale, s);
     case 32:
-      return launch<32>(q, b, bt, m, mt, go, dq, db, pa, W, N, heads, nw_img,
-                        groups, scale, s);
+      return launch<32>(q, b, m, go, dq, db, pa, W, N, heads, nw_img, groups,
+                        scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The main kernel's launch at (N, d): out = {threads per block, dynamic
+// shared memory bytes, resident blocks per SM}; returns a cudaError_t.
+extern "C" int window_attention_bwd_info(int N, int d, int* out) {
+  if (N < 1 || N > MAX_N) return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 8:
+      return info<8>(N, out);
+    case 16:
+      return info<16>(N, out);
+    case 32:
+      return info<32>(N, out);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

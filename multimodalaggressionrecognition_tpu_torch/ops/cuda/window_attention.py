@@ -27,18 +27,35 @@ MAX_TOKENS = 392             # a full (8, 7, 7) window
 HEAD_DIMS = (8, 16, 32)      # the kernel's instantiations
 
 
+def _bind_info(fn):
+    fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], _I
+
+
 def _bind(lib):
     lib.window_attention_f32.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                          ctypes.c_float, _P]
     lib.window_attention_f32.restype = _I
+    _bind_info(lib.window_attention_info)
 
 
 def _bind_bwd(lib):
     lib.window_attention_bwd_groups.argtypes = [_I, _I, _I, _I]
     lib.window_attention_bwd_groups.restype = _I
-    lib.window_attention_bwd_f32.argtypes = [_P] * 9 + [_I] * 6 + [
+    lib.window_attention_bwd_f32.argtypes = [_P] * 7 + [_I] * 6 + [
         ctypes.c_float, _P]
     lib.window_attention_bwd_f32.restype = _I
+    _bind_info(lib.window_attention_bwd_info)
+
+
+def launch_info(name: str, n: int, d: int) -> dict:
+    """Kernel `name`'s ("window_attention" or "window_attention_bwd") launch
+    at (N, d) on the current card: threads per block, dynamic shared memory
+    bytes and resident blocks per SM."""
+    lib = load_library(name, {"window_attention": _bind,
+                              "window_attention_bwd": _bind_bwd}[name])
+    out = (_I * 3)()
+    check_status(name, getattr(lib, name + "_info")(n, d, out))
+    return dict(zip(("threads", "dynamic_smem_bytes", "blocks_per_sm"), out))
 
 
 def _split(qkv, heads: int):
@@ -175,18 +192,14 @@ def window_attention_bwd(qkv, bias, mask, g, heads: int):
     groups = lib.window_attention_bwd_groups(w, n, heads, d)
     if groups < 1:
         check_status("window_attention_bwd", -groups or 1)
-    # the column pass reads the bias and mask transposed, so coalesced
-    bias_t = bias.transpose(1, 2).contiguous()
-    mask_t = None if mask is None else mask.transpose(1, 2).contiguous()
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty_like(bias)
     partial = torch.empty((groups, heads, n, n), dtype=torch.float32,
                           device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     status = lib.window_attention_bwd_f32(
-        qkv.data_ptr(), bias.data_ptr(), bias_t.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        None if mask_t is None else mask_t.data_ptr(), g.data_ptr(),
+        qkv.data_ptr(), bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), g.data_ptr(),
         dqkv.data_ptr(), dbias.data_ptr(), partial.data_ptr(),
         w, n, heads, d, nw, groups, d ** -0.5, stream)
     check_status("window_attention_bwd", status)

@@ -28,7 +28,7 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts: collections.Counter = collections.Counter()
 
@@ -52,11 +52,22 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where `name`'s library lives: keyed by source + flags, so an edited
-    source or a changed flag never loads a stale build."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where `name`'s library lives: keyed by its source, the shared headers
+    of csrc/ and the flags, so an edit or a changed flag never loads a stale
+    build."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as src:
+            digest.update(src.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+
+
+def build_log(name: str) -> str:
+    """nvcc's output for `name`'s library (ptxas's registers, spills and
+    static shared memory per kernel), kept beside it."""
+    with open(library_path(name)[:-3] + ".log") as f:
+        return f.read()
 
 
 def _start_build(name: str):
@@ -81,6 +92,9 @@ def _finish_build(name: str, proc, tmp: str) -> str:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed building {name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", out[:-3] + ".log")
     os.replace(tmp, out)  # atomic: a concurrent build sees whole files
     return out
 

@@ -115,6 +115,23 @@ def test_window_attention_kernel_matches_plain(cuda, w, n, heads, d, nw, tol):
     torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
 
 
+# K2 and K3 at ragged 16- and 8-token tiles: (W, N, heads, d, nW_img) for
+# N in {1, 17, 392} x d in {8, 16, 32}, unmasked and with random masks
+EDGE_SHAPES = [(4, n, 2, d, nw) for n in (1, 17, 392) for d in (8, 16, 32)
+               for nw in (0, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,n,heads,d,nw", EDGE_SHAPES)
+def test_window_attention_kernel_matches_plain_at_edge_shapes(cuda, w, n,
+                                                              heads, d, nw):
+    qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=n * 100 + d)
+    got = fused_window_attention(qkv, bias, mask, heads)
+    torch.cuda.synchronize()
+    ref = attention_core_reference(qkv, bias, mask, heads)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
 @pytest.mark.cuda
 def test_window_attention_rejects_what_the_kernel_does_not_take(cuda):
     qkv, bias, mask = k2_inputs(8, 24, 3, 8, 4, cuda)
@@ -165,8 +182,7 @@ K3_SHAPES = [(6, 24, 3, 8, 0), (6, 24, 3, 8, 3), (4, 64, 2, 16, 2),
 @pytest.mark.parametrize("w,n,heads,d,nw", K3_SHAPES)
 def test_window_attention_bwd_kernel_matches_plain(cuda, w, n, heads, d, nw):
     qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=n + d)
-    g = torch.randn((w, n, heads * d), generator=torch.Generator().manual_seed(
-        w)).to(cuda)
+    g = k3_grad(w, n, heads, d, cuda)
     before = launch_counts["window_attention_bwd"]
     got = window_attention_bwd(qkv, bias, mask, g, heads)
     torch.cuda.synchronize()
@@ -192,3 +208,36 @@ def test_window_attention_function_on_the_card_matches_autograd(cuda, nw):
         grads[name] = (q.grad, b.grad)
     for x, y in zip(grads["kernel"], grads["plain"]):
         torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
+
+
+def k3_grad(w, n, heads, d, device):
+    return torch.randn((w, n, heads * d),
+                       generator=torch.Generator().manual_seed(w)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,n,heads,d,nw", EDGE_SHAPES)
+def test_window_attention_bwd_kernel_matches_plain_at_edge_shapes(
+        cuda, w, n, heads, d, nw):
+    qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=n + d)
+    g = k3_grad(w, n, heads, d, cuda)
+    got = window_attention_bwd(qkv, bias, mask, g, heads)
+    torch.cuda.synchronize()
+    want = window_attention_bwd_reference(qkv, bias, mask, g, heads)
+    for x, y in zip(got, want):
+        tol = 1e-4 * y.abs().max().item()
+        torch.testing.assert_close(x, y, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_window_attention_bwd_kernel_is_deterministic(cuda):
+    """Two launches on the same inputs (stage 0's shifted block) agree bit
+    for bit: dbias is summed in a fixed order, without atomics."""
+    w, n, heads, d, nw = 2048, 196, 3, 32, 16
+    qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=5)
+    g = k3_grad(w, n, heads, d, cuda)
+    first = window_attention_bwd(qkv, bias, mask, g, heads)
+    again = window_attention_bwd(qkv, bias, mask, g, heads)
+    torch.cuda.synchronize()
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
