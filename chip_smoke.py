@@ -11,11 +11,16 @@ Phases (any failure raises, and the script exits non-zero):
                 means f32.
   2. build    - nvcc for sm_90a of every kernel source, all started together;
                 each kernel's registers, spills and static shared memory (from
-                ptxas), and K2's and K3's launch at stage 0 (threads, dynamic
-                shared memory, resident blocks per SM).
+                ptxas), K1's launch for each of its two frame tiles (threads,
+                dynamic shared memory, resident blocks per SM) and their SASS
+                instruction mix (cuobjdump), and K2's and K3's launch at
+                stage 0.
   3. kernels  - each kernel against its plain PyTorch version on the card:
-                K1 (framed conv1d) at the JAX tests' shapes and the CNN1D
-                stem's, atol/rtol 1e-4; K2 (window attention) at
+                K1 (framed conv1d) at the JAX tests' shapes, its three routes
+                at full size (CNN1D stem at the served b32 and the trained
+                b8, STFT, 44.1 -> 16 kHz resample) and ragged edges (C=1, T < 128, F < 8, hops 3, 7 and 12, T=1),
+                atol/rtol 1e-4, and bit for bit over two launches at the
+                stem; K2 (window attention) at
                 tests/test_pallas.py's shapes, 1e-5 as there, and at ragged
                 edge shapes (N in {1, 17, 392} x d in {8, 16, 32}, masked and
                 not) and the four Swin3D-T stage shapes of the tri-modal b8
@@ -24,11 +29,16 @@ Phases (any failure raises, and the script exits non-zero):
                 tests/test_pallas.py's gradient shapes, 1e-4, and at the edge
                 and stage shapes, 1e-4 of the largest gradient; K3 twice on
                 the same inputs, bit for bit.  At the main path's shape (K1:
-                the stem at b32; K2, K3: stage 0's shifted block) also the
-                kernel's, the plain version's and one library call's time
-                (K3: SDPA's backward) and the least time the card could take
-                (K2, K3: on the tensor cores in 3xTF32, with the f32 FMA
-                pipe's bound beside it); K2's and K3's time at every stage.
+                the stem at b32 and b8, and the STFT's; K2, K3: stage 0's
+                shifted block) also the kernel's, the plain version's and one library
+                call's time (K1: F.conv1d, with the inputs evicted from L2
+                before each call, and warm from CUDA graphs, as one call is
+                shorter than Python's dispatch; K3: SDPA's backward) and the
+                least time the card could take (on the
+                tensor cores in 3xTF32, with the f32 FMA pipe's bound beside
+                it); K2's and K3's time at every stage.  K4 (pallas_roll, not
+                ported): torch.roll's time at its shape against its bound,
+                in a JSON line of its own (`not_ported`).
   4. slices   - each served model at full width with seeded random weights:
                 audio,text (hidden 768, 80 000 samples, 48 tokens, 1 fusion
                 layer, 8 heads, batch 32), then audio,text,video (+ the frozen
@@ -58,9 +68,9 @@ Phases (any failure raises, and the script exits non-zero):
                 (c) the median b8 step time with remat on and off, the peak
                     memory, the step's kernel time by family.
 Prints a `slice` JSON line per slice, a `train` JSON line, the `kernels`
-JSON line, the card's name and power limit, and last
-`{"ok": true, "device": {...}}`.  Without a CUDA device it exits non-zero
-and prints no result.
+JSON line, the `not_ported` JSON line, the card's name and power limit, and
+last `{"ok": true, "device": {...}}`.  Without a CUDA device it exits
+non-zero and prints no result.
 """
 
 import copy
@@ -92,6 +102,8 @@ from multimodalaggressionrecognition_tpu_torch.models.swin3d import (
     _attention_mask)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
     framed_conv1d, framed_conv1d_reference, out_length)
+from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
+    launch_info as framed_conv_launch_info)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.window_attention import (
     attention_core_reference, fused_window_attention, launch_info,
     window_attention_bwd, window_attention_bwd_reference)
@@ -113,14 +125,36 @@ SLICES = [("audio,text", FLAGSHIP, BATCH, BATCH, {"framed_conv1d": 1}),
           ("audio,text,video", TRIMODAL, 8, 2,
            {"framed_conv1d": 1, "window_attention": 12})]
 # (name, B, L, F, hop, pad, C, epilogue): tests/test_pallas.py's shapes, a
-# non-multiple F/hop, and the CNN1D stem as the served path calls it (its
-# BatchNorm and ReLU folded into the epilogue)
+# non-multiple F/hop; K1's three routes at full size: the CNN1D stem as the
+# served path calls it (its BatchNorm and ReLU folded into the epilogue) and
+# as the b8 train step does (bias only), the STFT of ops/stft.py (5 s at 16 kHz, reflect-padded, against the 514-wide
+# DFT basis) and the 44.1 -> 16 kHz polyphase resample of ops/resample.py;
+# then ragged edges: C=1, T under one 128-frame tile, F < 8 with hop 3, hops
+# 7 and 12 (not multiples of 8; 7 takes the 4-byte gathers) and T = 1
 K1_SHAPES = [("stem-2x8000", 2, 8000, 160, 40, 80, 64, False),
              ("stft-2x8000", 2, 8000, 512, 256, 0, 128, False),
              ("w2v-2x8000", 2, 8000, 10, 5, 0, 512, False),
              ("epilogue-1x4000", 1, 4000, 160, 40, 80, 64, True),
              ("f147-hop40", 2, 8000, 147, 40, 3, 24, False),
-             ("stem-32x80000", BATCH, 80000, 160, 40, 80, 64, True)]
+             ("stem-32x80000", BATCH, 80000, 160, 40, 80, 64, True),
+             ("stem-8x80000", 8, 80000, 160, 40, 80, 64, False),
+             ("stft-32x80512", BATCH, 80512, 512, 256, 0, 514, False),
+             ("resample-32x220975", BATCH, 220975, 475, 441, 0, 160, False),
+             ("c1", 3, 5000, 160, 40, 80, 1, True),
+             ("t26", 2, 1000, 160, 40, 80, 64, False),
+             ("f5-hop3", 2, 3001, 5, 3, 2, 33, True),
+             ("hop7-c70", 2, 4003, 64, 7, 1, 70, False),
+             ("hop12", 2, 4000, 48, 12, 4, 40, False),
+             ("t1", 3, 160, 160, 40, 0, 64, True)]
+# timed in turns with the plain version and F.conv1d, each under its key of
+# the kernels JSON: the served stem first (its numbers at the entry's top
+# level), the train step's stem (its grid takes the narrow frame tile), the
+# STFT's
+K1_TIMED = {"stem-32x80000": None, "stem-8x80000": "stem_b8",
+            "stft-32x80512": "stft"}
+# K4 (pallas_roll, not ported): Swin3D-T's shifted-window roll at stage 0 of
+# a b32 video batch, (B, T, H, W, C) by (-3, -3) over H and W
+K4_SHAPE, K4_SHIFT = (128, 4, 28, 28, 96), (-3, -3)
 # K2: (W, N, heads, d, nW_img) of tests/test_pallas.py, random masks
 K2_TEST_SHAPES = [(8, 24, 3, 8, 4), (6, 49, 3, 32, 3), (4, 12, 2, 16, 0)]
 # K2 as the tri-modal b8 forward calls it: 128 windows of 8 frames, patch
@@ -231,10 +265,45 @@ def ptxas_usage(text: str) -> dict:
     return usage
 
 
+SASS_OPS = ("HMMA", "FFMA", "FMUL", "FADD", "LDS", "LDGSTS", "LDG", "STS",
+            "STG", "BAR")
+
+
+def sass_counts(lib: str) -> dict:
+    """{kernel: {"total": {opcode: count}, "product_loop": {...}}} for each
+    kernel of `lib`'s library, from `cuobjdump -sass` (HMMA: tensor-core
+    mma; FFMA: f32 FMA pipe; LDGSTS: cp.async).  The product loop is the
+    longest run of instructions whose HMMAs lie fewer than 150 apart."""
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", kernels.library_path(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts = {}
+    for body in re.split(r"\n\s*Function : ", text)[1:]:
+        ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                         body, re.M)
+        runs, hmma = [], [i for i, op in enumerate(ops) if op == "HMMA"]
+        for i in hmma:
+            if runs and i - runs[-1][1] < 150:
+                runs[-1][1] = i
+            else:
+                runs.append([i, i])
+        a, b = max(runs, key=lambda r: r[1] - r[0], default=(0, -1))
+        loop = ops[a:b + 1]
+        counts[short_name(body.split()[0])] = {
+            "total": {k: ops.count(k) for k in SASS_OPS},
+            "product_loop": {"instructions": len(loop),
+                             **{k: loop.count(k) for k in SASS_OPS}}}
+    return counts
+
+
 def resources_phase():
-    """Each kernel's registers, spills and static shared memory (ptxas),
-    and the window-attention launches at stage 0 (N=196, d=32): threads,
-    dynamic shared memory, resident blocks per SM."""
+    """Each kernel's registers, spills and static shared memory (ptxas);
+    the framed conv's launch and SASS instruction mix for each frame tile
+    (m-tiles of 16 frames a warp: 2 where the taps are many and the grid
+    is full, as at the STFT, else 1, as at the stem); the
+    window-attention launches at stage 0 (N=196, d=32): threads, dynamic
+    shared memory, resident blocks per SM."""
     found = {}
     for lib in kernels.kernel_sources():
         for kernel, use in ptxas_usage(kernels.build_log(lib)).items():
@@ -243,7 +312,20 @@ def resources_phase():
                 f"registers, spill stores {use.get('spill_stores')} B, spill "
                 f"loads {use.get('spill_loads')} B, stack {use.get('stack')} "
                 f"B, static smem {use.get('static_smem')} B")
-    launches = {}
+    sass = sass_counts("framed_conv")
+    launches = {"framed_conv1d": {}}
+    for mt in (2, 1):
+        kernel = f"framed_conv1d_kernel<{mt}>"
+        info = framed_conv_launch_info(mt)
+        launches["framed_conv1d"][f"m_tiles_{mt}"] = {
+            **info, **found[kernel], "sass": sass[kernel]}
+        log(f"resources {kernel} launch: {info['threads']} threads, "
+            f"{info['dynamic_smem_bytes']} B dynamic smem, "
+            f"{info['blocks_per_sm']} blocks per SM "
+            f"({info['blocks_per_sm'] * info['threads'] // 32} warps); SASS "
+            + "; ".join(f"{part}: " + ", ".join(f"{k} {v}"
+                                                for k, v in n.items())
+                        for part, n in sass[kernel].items()))
     for name in ("window_attention", "window_attention_bwd"):
         info = launch_info(name, 196, 32)
         launches[name] = {**info, **found.get(f"{name}_kernel<32>", {})}
@@ -284,12 +366,65 @@ def rotating(make, n: int = 4):
     return call
 
 
-def in_turns(fns, reps: int = 30):
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Mean device time of fn() without the host's dispatch: `reps` calls
+    captured in one CUDA graph, replayed `replays` times (CUDA events).  For
+    work shorter than a Python call (K1 takes ~0.03 ms at the stem), where
+    timing back-to-back calls measures the host."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # a first call on the capture's side stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # relaxed: the kernels' launch raises their shared-memory limit
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+_FLUSH = []
+
+
+def cold_ms(fn, reps: int = 20) -> float:
+    """Mean device time of fn() finding its inputs outside the 50 MB L2,
+    as a served batch of fresh clips does: before each call a 256 MB copy
+    evicts them, long enough that fn's launches are queued before it ends,
+    and CUDA events time fn alone."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(2 ** 26, device=DEVICE))  # 256 MB
+        _FLUSH.append(torch.empty_like(_FLUSH[0]))
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        _FLUSH[1].copy_(_FLUSH[0])
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+def in_turns(fns, reps: int = 30, timer=cuda_ms):
     """{key: min ms} of each fn, timed in turns a, b, ..., ..., b, a."""
     order = list(fns) + list(fns)[::-1]
     times = {k: [] for k in fns}
     for key in order:
-        times[key].append(cuda_ms(fns[key], reps=reps))
+        times[key].append(timer(fns[key], reps=reps))
     return {k: min(v) for k, v in times.items()}
 
 
@@ -304,10 +439,24 @@ def k1_inputs(b, length, f, c, epilogue, seed):
             for t in (x, w, bias, scale, shift)]
 
 
+def k1_work(b, length, f, hop, pad, c):
+    """(operations, bytes) of one launch: 2*B*T*F*C; x, w, bias, scale and
+    shift read once, y written once."""
+    t = out_length(length, f, hop, pad)
+    return 2 * b * t * f * c, 4 * (b * length + f * c + 3 * c + b * t * c)
+
+
 def k1_phase(card: str):
-    """K1 against its plain version at every shape; times at the stem."""
-    worst = 0.0
+    """K1 against its plain version at every shape (1e-4), bit for bit over
+    two launches at the served stem; at each K1_TIMED shape the kernel's,
+    the plain version's and F.conv1d's device times, in turns on rotating
+    inputs, against the tensor-core bound (3xTF32) and the f32 FMA pipe's:
+    cold, the inputs evicted from L2 before each call as a batch of fresh
+    clips finds them (the JSON's times), and warm, back to back in a CUDA
+    graph."""
+    worst, shapes = 0.0, {}
     for name, b, length, f, hop, pad, c, epi in K1_SHAPES:
+        shapes[name] = (b, length, f, hop, pad, c, epi)
         x, w, bias, scale, shift = k1_inputs(b, length, f, c, epi, seed=f)
         got = framed_conv1d(x, w, bias, f, hop, pad, scale, shift, relu=epi)
         torch.cuda.synchronize()
@@ -318,35 +467,77 @@ def k1_phase(card: str):
         worst = max(worst, err)
         log(f"k1 {name}: B={b} L={length} F={f} hop={hop} pad={pad} C={c} "
             f"epilogue={epi} out={tuple(got.shape)} max_abs_err={err:.3e} ok")
+        if name == "stem-32x80000":  # deterministic: a fixed order, no atomics
+            again = framed_conv1d(x, w, bias, f, hop, pad, scale, shift,
+                                  relu=epi)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"k1 {name}: two launches differ by "
+                                     f"{(got - again).abs().max().item():.3e}")
+            log(f"k1 {name}: two launches bitwise equal ok")
+        del x, w, bias, scale, shift, got, ref
 
-    _, b, length, f, hop, pad, c, _ = K1_SHAPES[-1]
-    t = out_length(length, f, hop, pad)
+    out = {"max_abs_err": worst}
+    labels = {"ms": "kernel", "plain_ms": "plain", "library_ms": "F.conv1d"}
+    for name, key in K1_TIMED.items():
+        b, length, f, hop, pad, c, epi = shapes[name]
 
+        def make(i):
+            x, w, bi, sc, sh = k1_inputs(b, length, f, c, epi, seed=100 + i)
+            return x, w, bi, sc, sh, w.t().contiguous()[:, None, :]
+
+        def kernel(x, w, bi, sc, sh, _):
+            return framed_conv1d(x, w, bi, f, hop, pad, sc, sh, relu=epi)
+
+        call = rotating(make)
+        fns = {"ms": call(kernel),
+               "plain_ms": call(lambda x, w, bi, sc, sh, _:
+                                framed_conv1d_reference(x, w, bi, f, hop, pad,
+                                                        sc, sh, relu=epi)),
+               # yardstick only (the port never calls it): cuDNN's conv with
+               # bias, in the (B, C, T) layout, without the epilogue
+               "library_ms": call(lambda x, w, bi, sc, sh, w_conv: F.conv1d(
+                   x[:, None, :], w_conv, bi, stride=hop, padding=pad))}
+        times = in_turns(fns, reps=20, timer=cold_ms)
+        warm = in_turns(fns, reps=20, timer=graph_ms)
+        flops, nbytes = k1_work(b, length, f, hop, pad, c)
+        bd = bound(card, flops, nbytes, tensor=True)
+        for label, t in (("cold", times), ("warm", warm)):
+            log(f"k1 {name} timing ({label}) on {card}: "
+                + ", ".join(f"{labels[k]} {v:.4f} ms" for k, v in t.items())
+                + f"; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; "
+                f"{bound_text(bd)}; kernel at "
+                f"{bd['bound_ms'] / t['ms'] * 100:.1f}% of the tensor-core "
+                f"bound, {bd['fma_bound_ms'] / t['ms'] * 100:.1f}% of the "
+                "FMA bound")
+        numbers = {**times, "warm": warm, "bound_ms": bd["bound_ms"],
+                   "bound_by": bd["bound_by"],
+                   "fma_bound_ms": bd["fma_bound_ms"]}
+        if key is None:
+            out.update(numbers)
+        else:
+            out[key] = numbers
+        del call, fns
+    return out
+
+
+def k4_roll_phase(card: str):
+    """K4 (pallas_roll, not ported): torch.roll, the call the port's Swin
+    tower makes, at the prototype's shape, against its bound (bytes only:
+    read and write the tensor once)."""
     def make(i):
-        x, w, bi, sc, sh = k1_inputs(b, length, f, c, True, seed=100 + i)
-        return x, w, bi, sc, sh, w.t().contiguous()[:, None, :]
+        g = torch.Generator(device=DEVICE).manual_seed(200 + i)
+        return (torch.randn(K4_SHAPE, generator=g, device=DEVICE),)
 
-    call = rotating(make)
-    times = in_turns({
-        "ms": call(lambda x, w, bi, sc, sh, _: framed_conv1d(
-            x, w, bi, f, hop, pad, sc, sh, relu=True)),
-        "plain_ms": call(lambda x, w, bi, sc, sh, _: framed_conv1d_reference(
-            x, w, bi, f, hop, pad, sc, sh, relu=True)),
-        # yardstick only (the port never calls it): cuDNN's conv with bias,
-        # in the (B, C, T) layout, without the scale/shift/ReLU epilogue
-        "library_ms": call(lambda x, w, bi, sc, sh, w_conv: F.conv1d(
-            x[:, None, :], w_conv, bi, stride=hop, padding=pad))})
-    flops = 2 * b * t * f * c
-    nbytes = 4 * (b * length + f * c + 3 * c + b * t * c)
-    bd = bound(card, flops, nbytes)
-    log(f"k1 stem timing on {card}: kernel {times['ms']:.4f} ms, plain "
-        f"{times['plain_ms']:.4f} ms, F.conv1d {times['library_ms']:.4f} ms, "
-        f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}: "
-        f"{flops / 1e9:.3f} GFLOP = {bd['ops_ms']:.4f} ms, "
-        f"{nbytes / 1e6:.2f} MB = {bd['bytes_ms']:.4f} ms); kernel at "
-        f"{bd['bound_ms'] / times['ms'] * 100:.1f}% of the bound")
-    return {"max_abs_err": worst, **times, "bound_ms": bd["bound_ms"],
-            "bound_by": bd["bound_by"]}
+    times = in_turns({"library_ms": rotating(make)(
+        lambda x: torch.roll(x, shifts=K4_SHIFT, dims=(2, 3)))}, reps=20,
+        timer=graph_ms)
+    nbytes = 2 * 4 * int(np.prod(K4_SHAPE))
+    bd = bound(card, 0, nbytes)
+    log(f"k4 pallas_roll (not ported) at {K4_SHAPE} f32, shifts {K4_SHIFT} "
+        f"on {card}: torch.roll {times['library_ms']:.4f} ms; bound "
+        f"{bd['bound_ms']:.4f} ms (bytes: {nbytes / 1e6:.1f} MB)")
+    return {**times, "bound_ms": bd["bound_ms"], "bound_by": "bytes"}
 
 
 def k2_inputs(w, n, heads, d, nw, seed, stage_mask=False):
@@ -1085,7 +1276,8 @@ def main():
     log(f"build: {sorted(libs)} in {time.monotonic() - t0:.1f} s (nvcc, sm_90a)")
     resources = resources_phase()
 
-    k1 = k1_phase(name)
+    k1 = {**k1_phase(name), "resources": resources["framed_conv1d"]}
+    k4 = k4_roll_phase(name)
     k2 = {**k2_phase(name), "resources": resources["window_attention"]}
     k3 = {**k3_phase(name), "resources": resources["window_attention_bwd"]}
     launches = {label: run_slice(label, cfg, bs, parity_n, per_forward,
@@ -1111,6 +1303,10 @@ def main():
               "ops/pallas/window_attention.py:112", k2),
         entry("window_attention_bwd", "window_attention_bwd.cu",
               "ops/pallas/window_attention.py:224", k3)]}))
+    log(json.dumps({"not_ported": [{
+        "name": "pallas_roll", "route": None,
+        "replaces": "benchmarks/proto_swin_levers.py:48", "launches": 0,
+        "shape": list(K4_SHAPE), "shifts": list(K4_SHIFT), **k4}]}))
     log(card_line)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

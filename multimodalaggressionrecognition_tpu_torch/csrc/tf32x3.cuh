@@ -1,6 +1,7 @@
 // f32-accurate products on Hopper's tensor cores (3xTF32), and the
 // shared-memory tiles and bias reads of the window-attention kernels (K2,
-// window_attention.cu; K3, window_attention_bwd.cu).
+// window_attention.cu; K3, window_attention_bwd.cu).  The framed conv (K1,
+// framed_conv.cu) takes the split, the mma and the cp.async helpers.
 //
 // 3xTF32.  Each f32 operand x is split into big, x rounded to tf32, and
 // small = x - big (split below).  A product a*b is then big_a*small_b +
@@ -137,6 +138,24 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// cp.async of `bytes` (at most 16, or 4) from gmem, the rest of the 16 (4)
+// destination bytes zero-filled; with bytes == 0 nothing is read
+__device__ __forceinline__ void cp_async16_zfill(float* smem, const float* gmem,
+                                                 int bytes) {
+  const auto s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_zfill(float* smem, const float* gmem,
+                                                int bytes) {
+  const auto s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s),
+               "l"(gmem), "r"(bytes)
+               : "memory");
 }
 
 // Start copying rows [0, n) of a D-wide slice (row j at src + j * stride,

@@ -26,10 +26,17 @@ from multimodalaggressionrecognition_tpu_torch.utils.kernels import (
     launch_counts)
 
 # (B, L, F, hop, pad, C): tests/test_pallas.py's shapes, a non-multiple
-# F/hop with a ragged C tile, and a batch past one T tile per row
+# F/hop with a ragged C tile, and a batch past one T tile per row; the STFT's
+# width (C=514, F=512, hop 256) and ragged edges: C=1, T under one 128-frame
+# tile, F < 8 with hop 3, hops 7 and 12 (not multiples of 8) and T = 1; the
+# stem as the b8 train step calls it (a grid that takes the 64-frame tile)
 SHAPES = [(2, 8000, 160, 40, 80, 64), (2, 8000, 512, 256, 0, 128),
           (2, 8000, 10, 5, 0, 512), (2, 8000, 147, 40, 3, 24),
-          (3, 1000, 7, 3, 0, 70), (1, 160, 160, 40, 80, 64)]
+          (3, 1000, 7, 3, 0, 70), (1, 160, 160, 40, 80, 64),
+          (2, 8448, 512, 256, 0, 514), (3, 5000, 160, 40, 80, 1),
+          (2, 1000, 160, 40, 80, 64), (2, 3001, 5, 3, 2, 33),
+          (2, 4003, 64, 7, 1, 70), (2, 4000, 48, 12, 4, 40),
+          (3, 160, 160, 40, 0, 64), (8, 80000, 160, 40, 80, 64)]
 
 
 @pytest.fixture
@@ -58,6 +65,37 @@ def test_framed_conv1d_kernel_matches_plain(cuda, b, length, f, s, p, c,
     assert launch_counts["framed_conv1d"] == before + 1
     ref = framed_conv1d_reference(x, w, bias, f, s, p, scale, shift, epilogue)
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_framed_conv1d_kernel_is_deterministic(cuda):
+    """Two launches on the same inputs (the CNN1D stem at b32) agree bit for
+    bit: each output's sum runs in a fixed order, without atomics."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((32, 80000), generator=g).to(cuda)
+    w = (torch.randn((160, 64), generator=g) * 0.05).to(cuda)
+    bias = torch.randn((64,), generator=g).to(cuda)
+    first = framed_conv1d(x, w, bias, 160, 40, 80)
+    again = framed_conv1d(x, w, bias, 160, 40, 80)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length,f,s,p,c", [(80512, 512, 256, 0, 514),
+                                            (220975, 475, 441, 0, 160)])
+def test_framed_conv1d_frame_tiles_agree_bitwise(cuda, length, f, s, p, c):
+    """At b32 the STFT and the resample take the 128-frame tile, one clip
+    the 64-frame tile; each output's sum runs in the same order in both, so
+    the clip's frames agree bit for bit."""
+    g = torch.Generator().manual_seed(f + c)
+    x = torch.randn((32, length), generator=g).to(cuda)
+    w = (torch.randn((f, c), generator=g) * 0.05).to(cuda)
+    bias = torch.randn((c,), generator=g).to(cuda)
+    full = framed_conv1d(x, w, bias, f, s, p)
+    one = framed_conv1d(x[:1], w, bias, f, s, p)
+    torch.cuda.synchronize()
+    assert torch.equal(full[:1], one)
 
 
 @pytest.mark.cuda
