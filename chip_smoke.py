@@ -18,9 +18,12 @@ Phases (any failure raises, and the script exits non-zero):
   3. kernels  - each kernel against its plain PyTorch version on the card:
                 K1 (framed conv1d) at the JAX tests' shapes, its three routes
                 at full size (CNN1D stem at the served b32 and the trained
-                b8, STFT, 44.1 -> 16 kHz resample) and ragged edges (C=1, T < 128, F < 8, hops 3, 7 and 12, T=1),
-                atol/rtol 1e-4, and bit for bit over two launches at the
-                stem; K2 (window attention) at
+                b8, STFT at b32 and at the trained b16, 44.1 -> 16 kHz
+                resample) and ragged edges (C=1, T < 128, F < 8, hops 3, 7
+                and 12, T=1), atol/rtol 1e-4, and bit for bit over two
+                launches at the stem; the device resample_poly (K1's
+                resample route) on 32 clips of 220 500 samples against the
+                CPU, 1e-4; K2 (window attention) at
                 tests/test_pallas.py's shapes, 1e-5 as there, and at ragged
                 edge shapes (N in {1, 17, 392} x d in {8, 16, 32}, masked and
                 not) and the four Swin3D-T stage shapes of the tri-modal b8
@@ -30,7 +33,8 @@ Phases (any failure raises, and the script exits non-zero):
                 and stage shapes, 1e-4 of the largest gradient; K3 twice on
                 the same inputs, bit for bit.  At the main path's shape (K1:
                 the stem at b32 and b8, and the STFT's; K2, K3: stage 0's
-                shifted block) also the kernel's, the plain version's and one library
+                shifted block; K1 also the STFT's at b32 and b16) also the
+                kernel's, the plain version's and one library
                 call's time (K1: F.conv1d, with the inputs evicted from L2
                 before each call, and warm from CUDA graphs, as one call is
                 shorter than Python's dispatch; K3: SDPA's backward) and the
@@ -67,10 +71,32 @@ Phases (any failure raises, and the script exits non-zero):
                     K1 1; a verb batch: no K2, no K3);
                 (c) the median b8 step time with remat on and off, the peak
                     memory, the step's kernel time by family.
-Prints a `slice` JSON line per slice, a `train` JSON line, the `kernels`
-JSON line, the `not_ported` JSON line, the card's name and power limit, and
-last `{"ok": true, "device": {...}}`.  Without a CUDA device it exits
-non-zero and prints no result.
+  6. audio_vgg - the spectrogram VGG11-BN trained at full width (5 s at 16
+                kHz, n_fft 512: 257 x 313 spectrograms, masks 80/80):
+                (a) SpectrogramVGG at b2, eval mode, card against CPU: the
+                    spectrogram within 1e-4 of its largest value, the
+                    logits and the loss within 1e-3; every gradient of
+                    each within 1e-3 of that tensor's largest of a float64
+                    CPU run that takes the same ReLU and max-pool decisions
+                    (one flipped near tie moves a gradient by more, so the
+                    card's and the CPU's are reported side by side);
+                (b) cli.train_audio_transformer.main, batch 16, 2 epochs on
+                    64 + 16 synthetic tone clips, launch counts reset just
+                    before and read just after: K1 once per train and eval
+                    step, no other kernel; the logs and checkpoints;
+                (c) the median b16 step time, the peak memory, the step's
+                    kernel time by family, and K1's time in the step beside
+                    its cold and warm times and right after a cuDNN conv.
+  7. text     - the text transformer trained at full width (hidden 768, 2
+                layers, 8 heads, 48 tokens): logits at b2 on the card
+                against the CPU, 1e-3; cli.train_text_transformer.main,
+                batch 16, 2 epochs on a synthetic AVABOS table, no kernel
+                launched; the median step time and its kernel time.
+Prints a `slice` JSON line per slice, a `train` JSON line per train path,
+the `kernels` JSON line, the `not_ported` JSON line, the card's name and
+power limit, and last `{"ok": true, "device": {...}}`.  Every kernel
+entry's `launches` counts the tri-modal fine-tune; `launches_by_path` gives
+each path's.  Without a CUDA device it exits non-zero and prints no result.
 """
 
 import copy
@@ -107,6 +133,8 @@ from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.window_attention import (
     attention_core_reference, fused_window_attention, launch_info,
     window_attention_bwd, window_attention_bwd_reference)
+from multimodalaggressionrecognition_tpu_torch.ops.resample import (
+    resample_poly)
 from multimodalaggressionrecognition_tpu_torch.train.steps import (
     LossSpec, head_losses_and_metrics)
 from multimodalaggressionrecognition_tpu_torch.utils import kernels
@@ -129,6 +157,7 @@ SLICES = [("audio,text", FLAGSHIP, BATCH, BATCH, {"framed_conv1d": 1}),
 # served path calls it (its BatchNorm and ReLU folded into the epilogue) and
 # as the b8 train step does (bias only), the STFT of ops/stft.py (5 s at 16 kHz, reflect-padded, against the 514-wide
 # DFT basis) and the 44.1 -> 16 kHz polyphase resample of ops/resample.py;
+# (at b32, and at b16 as the spectrogram VGG's train step calls it);
 # then ragged edges: C=1, T under one 128-frame tile, F < 8 with hop 3, hops
 # 7 and 12 (not multiples of 8; 7 takes the 4-byte gathers) and T = 1
 K1_SHAPES = [("stem-2x8000", 2, 8000, 160, 40, 80, 64, False),
@@ -139,6 +168,7 @@ K1_SHAPES = [("stem-2x8000", 2, 8000, 160, 40, 80, 64, False),
              ("stem-32x80000", BATCH, 80000, 160, 40, 80, 64, True),
              ("stem-8x80000", 8, 80000, 160, 40, 80, 64, False),
              ("stft-32x80512", BATCH, 80512, 512, 256, 0, 514, False),
+             ("stft-16x80512", 16, 80512, 512, 256, 0, 514, False),
              ("resample-32x220975", BATCH, 220975, 475, 441, 0, 160, False),
              ("c1", 3, 5000, 160, 40, 80, 1, True),
              ("t26", 2, 1000, 160, 40, 80, 64, False),
@@ -149,9 +179,9 @@ K1_SHAPES = [("stem-2x8000", 2, 8000, 160, 40, 80, 64, False),
 # timed in turns with the plain version and F.conv1d, each under its key of
 # the kernels JSON: the served stem first (its numbers at the entry's top
 # level), the train step's stem (its grid takes the narrow frame tile), the
-# STFT's
+# STFT's at b32 and as the spectrogram VGG's b16 train step calls it
 K1_TIMED = {"stem-32x80000": None, "stem-8x80000": "stem_b8",
-            "stft-32x80512": "stft"}
+            "stft-32x80512": "stft", "stft-16x80512": "stft_b16"}
 # K4 (pallas_roll, not ported): Swin3D-T's shifted-window roll at stage 0 of
 # a b32 video batch, (B, T, H, W, C) by (-3, -3) over H and W
 K4_SHAPE, K4_SHIFT = (128, 4, 28, 28, 96), (-3, -3)
@@ -788,26 +818,38 @@ def kernel_breakdown(fn, reps: int = 5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    families = {}
+    families, top = {}, []
     for e in prof.key_averages():
-        if e.self_cpu_time_total > 0 or e.self_device_time_total <= 0:
-            continue  # host-side rows; kernels have device time only
+        if (e.self_cpu_time_total > 0 or e.self_device_time_total <= 0
+                or getattr(e, "is_user_annotation", False)):
+            continue  # host-side rows and ranges such as Optimizer.step's
         name = e.key.lower()
-        # cuDNN's implicit-GEMM convs are named "...fprop_implicit_gemm..."
+        # cuDNN's implicit-GEMM convs are named "...fprop_implicit_gemm...",
+        # their backward "...dgrad..." and "...wgrad..."; its Winograd and
+        # FFT convs run "winograd..." and "fft..." kernels and complex
+        # ("cf32") GEMMs
         family = ("framed_conv1d (K1)" if "framed_conv1d" in name
                   else "window_attention_bwd (K3)"
                   if "window_attention_bwd" in name or "sum_groups" in name
                   else "window_attention (K2)" if "window_attention" in name
                   else "Adam (multi-tensor)" if "multi_tensor" in name
-                  else "cuDNN conv (CNN1D trunk, patch embed)"
-                  if "fprop" in name or "conv" in name
+                  else "cuDNN conv"
+                  if any(k in name for k in ("fprop", "dgrad", "wgrad",
+                                             "conv", "winograd", "fft",
+                                             "cf32"))
                   else "gemm (Linear, fusion attention)" if "gemm" in name
+                  else "BatchNorm (cuDNN)" if "batch_norm" in name
+                  or "bn_" in name
+                  else "max pool" if "max_pool" in name
                   else "LayerNorm" if "layer_norm" in name
                   else "roll, copies, pads, concat" if any(
                       k in name for k in ("roll", "copy", "pad", "cat"))
                   else "other elementwise, GELU, reductions")
         families[family] = (families.get(family, 0.0)
                             + e.self_device_time_total / reps / 1e3)
+        top.append((e.self_device_time_total / reps / 1e3, e.key[:72]))
+    log("top kernels (ms per call): " + "; ".join(
+        f"{k} {v:.4f}" for v, k in sorted(top, reverse=True)[:8]))
     return families
 
 
@@ -1256,6 +1298,339 @@ def train_phase(card_line):
     return counts
 
 
+# the device resample on K1's resample route: 5 s clips at 44.1 kHz
+RESAMPLE_SHAPE, RESAMPLE_RATES = (BATCH, 220500), (44100, 16000)
+
+
+def resample_phase():
+    """ops/resample.resample_poly on the card against the same call on the
+    CPU (the kernel's plain version), 1e-4."""
+    x = torch.randn(RESAMPLE_SHAPE, generator=torch.Generator().manual_seed(
+        SEED + 7)) * 0.3
+    want = resample_poly(x, *RESAMPLE_RATES)
+    before = kernels.launch_counts["framed_conv1d"]
+    got = resample_poly(x.to(DEVICE), *RESAMPLE_RATES)
+    torch.cuda.synchronize()
+    if kernels.launch_counts["framed_conv1d"] != before + 1:
+        raise AssertionError("resample_poly did not launch K1 once")
+    err = (got.cpu() - want).abs().max().item()
+    if got.shape != want.shape or not err <= 1e-4:
+        raise AssertionError(f"resample_poly: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)}, max |d| {err:.3e}")
+    log(f"resample_poly {RESAMPLE_SHAPE} {RESAMPLE_RATES[0]} -> "
+        f"{RESAMPLE_RATES[1]} Hz: out {tuple(got.shape)}, cuda vs cpu max "
+        f"|d| {err:.3e} <= 1e-4 ok")
+    return err
+
+
+def run_cli(main_fn, args, card_line, label):
+    """One CLI train run with the launch counts reset just before and read
+    just after; checks the logs (2 epochs, finite losses) and checkpoints
+    of the single head 'main'.  Returns (trainer, counts, epoch clips/s)."""
+    import pandas as pd
+
+    torch.cuda.synchronize()
+    kernels.launch_counts.clear()  # count this path only
+    t0 = time.monotonic()
+    trainer = main_fn(args)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)  # read just after the main path
+    fit_s = time.monotonic() - t0
+    files = set(os.listdir(trainer.run_dir))
+    need = {"checkpoint_current", "checkpoint_best_main", "config.json",
+            "main_train_log.csv", "main_test_log.csv"}
+    if not need <= files:
+        raise AssertionError(f"{label}: missing {sorted(need - files)}")
+    for f in ("main_train_log.csv", "main_test_log.csv"):
+        df = pd.read_csv(os.path.join(trainer.run_dir, f))
+        if df["epoch"].tolist() != [0, 1] or not np.isfinite(df["loss"]).all():
+            raise AssertionError(f"{label}: {f} holds {df.to_dict()}")
+    clips_s = [float(v) for v in pd.read_csv(os.path.join(
+        trainer.run_dir, "main_train_log.csv"))["clips_per_sec"]]
+    log(f"{label} main path on {card_line}: 2 epochs, {trainer.state.step} "
+        f"train steps, launches {counts}, fit {fit_s:.1f} s; epoch clips/s "
+        f"{clips_s} (epoch 0 includes the first step's set-up)")
+    return trainer, counts, clips_s
+
+
+def after_ms(pre, fn, reps: int = 20) -> float:
+    """Mean device time of fn() launched right behind pre() on the stream
+    (CUDA events around fn alone): a kernel's time in place after another
+    kernel, as a train step gives it."""
+    pre()
+    fn()
+    torch.cuda.synchronize()
+    events = []
+    for _ in range(reps):
+        pre()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
+
+
+# the spectrogram VGG trained at full width (cli/train_audio_transformer.py
+# defaults: 5 s at 16 kHz, n_fft 512 -> 257 x 313, masks 80/80, batch 16)
+AUDIO_VGG = dict(batch_size=16, synthetic_files=64)
+
+
+def vgg_forward(vgg, x, decisions=None):
+    """VGG11BN's eval-mode forward, returning (logits, its decisions): every
+    ReLU's mask and every max pool's argmax.  Given `decisions` it takes
+    those instead of its own, and so computes the branch of this
+    piecewise-linear net that another run took."""
+    taken, given = [], iter(decisions or ())
+
+    def relu(y):
+        mask = next(given).to(y.device) if decisions else y > 0
+        taken.append(mask.cpu())
+        return y * mask.to(y.dtype)
+
+    for block in vgg.blocks:
+        if block != "M":
+            conv, bn = (getattr(vgg, f"{k}{block}") for k in ("conv", "bn"))
+            x = relu(bn(conv(x)))
+        elif decisions:
+            idx = next(given).to(x.device)
+            x = x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+            taken.append(idx.cpu())
+        else:
+            x, idx = F.max_pool2d(x, 2, return_indices=True)
+            taken.append(idx.cpu())
+    if x.shape[-2:] != (7, 7):
+        x = F.adaptive_avg_pool2d(x, 7)
+    x = relu(vgg.fc2(relu(vgg.fc1(x.flatten(1)))))
+    return vgg.fc3(x), taken
+
+
+def audio_vgg_parity(model, samples: int, n_fft: int):
+    """SpectrogramVGG (seeded, eval mode) at b2 on the card against the
+    CPU: (a) the spectrogram, within 1e-4 of its largest value; (b) the
+    logits and the loss of the whole path, within 1e-3; (c) every gradient
+    of each run, the card's and the CPU's, within 1e-3 * max|g| of that
+    tensor in a float64 CPU reference that takes the same ReLU and max-pool
+    decisions on the same spectrogram.  At full size a float32 run flips
+    about one of its millions of decisions against another (a near tie),
+    and one flip moves a gradient by up to a few percent of its largest,
+    so the card's and the CPU's gradients are only reported side by side,
+    with how many decisions they take differently."""
+    from multimodalaggressionrecognition_tpu_torch.ops.stft import (
+        spectrogram)
+
+    g = torch.Generator().manual_seed(SEED + 8)
+    wav = torch.randn((2, samples), generator=g) * 0.1
+    model = seeded_init_(model, SEED).eval()
+    with torch.no_grad():  # non-trivial running statistics for eval mode
+        for m in model.modules():
+            if isinstance(m, BatchNorm1d):
+                m.running_mean.copy_(torch.randn(m.running_mean.shape,
+                                                 generator=g) * 0.1)
+                m.running_var.copy_(torch.rand(m.running_var.shape,
+                                               generator=g) + 0.5)
+    runs = {"cpu": model, "card": copy.deepcopy(model).to(DEVICE)}
+    specs = {"main": LossSpec("ce")}
+    batch = {"modalities": {"audio": {"data": wav, "present": torch.ones(2)}},
+             "labels": {"main": torch.tensor([0, 1], dtype=torch.int32)},
+             "label_mask": {"main": torch.ones(2)}}
+    out = {}
+    for name, m in runs.items():
+        b = to_device(batch, next(m.parameters()).device)
+        spec = spectrogram(b["modalities"]["audio"]["data"], n_fft=n_fft,
+                           basis=m.basis)
+        logits = m(b["modalities"])["main"]
+        total, _ = head_losses_and_metrics({"main": logits}, b, specs, 2)
+        total.backward()
+        img = spec[:, None].expand(-1, 3, -1, -1)
+        with torch.no_grad():
+            _, decisions = vgg_forward(m.vgg, img)
+        # the float64 reference on this run's spectrogram and decisions
+        ref = copy.deepcopy(model.vgg).double()
+        ref.zero_grad()
+        ref_logits, _ = vgg_forward(ref, img.cpu().double(), decisions)
+        ref_total, _ = head_losses_and_metrics({"main": ref_logits}, batch,
+                                               specs, 2)
+        ref_total.backward()
+        grads = {n: p.grad.double().cpu() for n, p in m.vgg.named_parameters()}
+        ref_grads = {n: p.grad for n, p in ref.named_parameters()}
+        err, worst = max(((grads[n] - ref_grads[n]).abs().max().item()
+                          / ref_grads[n].abs().max().item(), n)
+                         for n in ref_grads)
+        branch = (logits.detach().cpu().double() - ref_logits).abs().max()
+        if not (err <= 1e-3 and branch.item() <= 1e-3):
+            raise AssertionError(
+                f"audio_vgg parity: the {name}'s {worst} gradient differs "
+                f"from float64 on its decisions by {err:.3e} of its largest "
+                f"(logits by {branch.item():.3e}) > 1e-3")
+        out[name] = dict(spec=spec.detach().cpu(),
+                         logits=logits.detach().cpu(), loss=total.item(),
+                         grads=grads, decisions=decisions, err=err,
+                         worst=worst)
+    cpu, card = out["cpu"], out["card"]
+    scale = cpu["spec"].abs().max().item()
+    spec_err = (card["spec"] - cpu["spec"]).abs().max().item()
+    logit_err = (card["logits"] - cpu["logits"]).abs().max().item()
+    loss_err = abs(card["loss"] - cpu["loss"])
+    if not (spec_err <= 1e-4 * scale and logit_err <= 1e-3
+            and loss_err <= 1e-3 * abs(cpu["loss"])):
+        raise AssertionError(f"audio_vgg parity: spectrogram max |d| "
+                             f"{spec_err:.3e} (max {scale:.3e}), logits "
+                             f"{logit_err:.3e}, loss {card['loss']} vs "
+                             f"{cpu['loss']}")
+    paths, paths_name = max(
+        ((card["grads"][n] - cpu["grads"][n]).abs().max().item()
+         / cpu["grads"][n].abs().max().item(), n) for n in cpu["grads"])
+    flips = sum((a != b).sum().item() for a, b in
+                zip(card["decisions"], cpu["decisions"]))
+    total = sum(d.numel() for d in cpu["decisions"])
+    log(f"audio_vgg parity b2 {tuple(cpu['spec'].shape)}: spectrogram card vs "
+        f"cpu max |d| {spec_err:.3e} <= 1e-4 * {scale:.3e}; logits "
+        f"{logit_err:.3e}, loss {card['loss']:.6f} vs {cpu['loss']:.6f} ok; "
+        f"{len(cpu['grads'])} gradients against float64 on each run's "
+        f"decisions: card {card['err']:.3e} ({card['worst']}), cpu "
+        f"{cpu['err']:.3e} ({cpu['worst']}) <= 1e-3 ok; card vs cpu "
+        f"{paths:.3e} ({paths_name}), {flips} of {total} decisions differ")
+    return {"spectrogram_err": spec_err, "logit_err": logit_err,
+            "loss_err": loss_err, "grad_rel_err": card["err"],
+            "cpu_grad_rel_err": cpu["err"],
+            "card_vs_cpu_grad_rel_err": paths, "decisions_differing": flips,
+            "decisions": total}
+
+
+def audio_vgg_phase(card_line, k1):
+    """(a) audio_vgg_parity; (b) cli.train_audio_transformer.main at full
+    width, b16, 2 epochs: K1 once per train and eval step, no other kernel;
+    (c) the b16 step's time, peak memory and kernel families, K1 in the
+    step beside its cold and warm times and right after a cuDNN conv."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        train_audio_transformer as cli)
+
+    cfg = cli.AudioTransformerConfig()
+    parity = audio_vgg_parity(cli.make_model(cfg),
+                              cfg.sample_rate * cfg.audio_seconds, cfg.n_fft)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--files_root", os.path.join(tmp, "wavs"), "--synthetic_wav",
+                "--synthetic_tones", "--saving_dir", os.path.join(tmp, "runs"),
+                "--run_name", "r", "--epoch_num", "2", "--device", DEVICE,
+                "--num_threads", "4",
+                "--synthetic_files", str(AUDIO_VGG["synthetic_files"]),
+                "--batch_size", str(AUDIO_VGG["batch_size"])]
+        trainer, counts, clips_s = run_cli(cli.main, args, card_line,
+                                           "train audio_vgg")
+        steps = trainer.state.step
+        eval_steps = 2 * len(trainer.test_loader)
+        want_counts = {"framed_conv1d": steps + eval_steps}
+        if counts != want_counts or steps < 6:
+            raise AssertionError(f"train audio_vgg: {steps} train and "
+                                 f"{eval_steps} eval steps launched {counts}, "
+                                 f"want {want_counts}")
+        batch = list(trainer.batches(trainer.train_loader))[0]
+        step_ms, peak_gb = median_step_ms(trainer, batch)
+        families = kernel_breakdown(lambda: trainer.train_step(batch), reps=3)
+        vgg = trainer.state.model.vgg
+        h = trainer.state.model.basis
+        x = batch["modalities"]["audio"]["data"]
+        xpad = F.pad(x, (cfg.n_fft // 2, cfg.n_fft // 2),
+                     mode="reflect").contiguous()
+        zeros = h.new_zeros(h.shape[1])
+        act = torch.randn((AUDIO_VGG["batch_size"], 512, 16, 19),
+                          device=DEVICE)
+
+        def stft_k1():
+            return framed_conv1d(xpad, h, zeros, cfg.n_fft, cfg.n_fft // 2)
+
+        with torch.no_grad():
+            k1_after_conv = after_ms(lambda: vgg.conv7(act), stft_k1)
+        del trainer
+    busy = sum(families.values())
+    k1_in_step = families.get("framed_conv1d (K1)", 0.0)
+    stft = k1["stft_b16"]
+    log(f"train audio_vgg step b{AUDIO_VGG['batch_size']} (257 x 313 "
+        f"spectrograms, f32 with TF32 off) on {card_line}: median "
+        f"{step_ms:.3f} ms, peak {peak_gb:.2f} GiB")
+    log("train audio_vgg step kernels by family (ms per step): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            families.items(), key=lambda kv: -kv[1]))
+        + f"; sum {busy:.4f} ms = {busy / step_ms * 100:.1f}% of the "
+        f"{step_ms:.3f} ms step")
+    log(f"k1 stft-16x80512 in place: {k1_in_step:.4f} ms in the train step "
+        f"(torch.profiler, 1 launch), {k1_after_conv:.4f} ms right after a "
+        f"cuDNN conv; alone {stft['ms']:.4f} ms cold, "
+        f"{stft['warm']['ms']:.4f} ms warm")
+    log(json.dumps({"train": "audio_vgg", "batch": AUDIO_VGG["batch_size"],
+                    "steps": steps, "eval_steps": eval_steps,
+                    "launches": counts, "step_ms": step_ms,
+                    "peak_gib": peak_gb, "epoch_clips_per_s": clips_s,
+                    "kernel_ms_by_family": families,
+                    "kernel_busy_pct": busy / step_ms * 100,
+                    "k1_in_step_ms": k1_in_step,
+                    "k1_after_conv_ms": k1_after_conv,
+                    "k1_cold_ms": stft["ms"], "k1_warm_ms": stft["warm"]["ms"],
+                    **parity}))
+    return counts
+
+
+# the text transformer trained at full width (cli/train_text_transformer.py
+# defaults: hidden 768, 2 layers, 8 heads, 48 tokens, batch 16) on the
+# intervals table of a synthetic AVABOS set
+TEXT_DATA = dict(num_clusters=4, samples_per_cluster=12, seed=SEED,
+                 text_len=48, audio_len=16000, video_frames=8, video_hw=32)
+
+
+def text_phase(card_line):
+    """(a) logits of the text model, card against CPU, b2; (b)
+    cli.train_text_transformer.main at full width, b16, 2 epochs, no
+    kernel launched; (c) the median step time."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        train_text_transformer as cli)
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        generate_synthetic_avabos)
+
+    cfg = cli.TextConfig()
+    model = seeded_init_(cli.make_model(cfg), SEED).eval()
+    tokens = torch.randn((2, cfg.text_tokens, cfg.hidden_size),
+                         generator=torch.Generator().manual_seed(SEED + 9))
+    data = {"text": {"data": tokens, "present": torch.ones(2)}}
+    with torch.inference_mode():
+        want = model(data)["main"]
+        got = copy.deepcopy(model).to(DEVICE)(to_device(data, DEVICE))["main"]
+    err = (got.cpu() - want).abs().max().item()
+    if got.shape != (2, 2) or not err <= 1e-3:
+        raise AssertionError(f"text parity: logits differ by {err:.3e}")
+    log(f"text parity: b2 full width, cuda vs cpu max |dlogit| {err:.3e} "
+        "<= 1e-3 ok")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "avabos")
+        generate_synthetic_avabos(root, **TEXT_DATA)
+        args = ["--dataset_root", root, "--saving_dir",
+                os.path.join(tmp, "runs"), "--run_name", "r", "--epoch_num",
+                "2", "--device", DEVICE, "--num_threads", "4",
+                "--batch_size", "16"]
+        trainer, counts, clips_s = run_cli(cli.main, args, card_line,
+                                           "train text")
+        if counts or trainer.state.step < 2:
+            raise AssertionError(f"train text: {trainer.state.step} steps "
+                                 f"launched {counts}, want no kernel")
+        steps = trainer.state.step
+        batch = list(trainer.batches(trainer.train_loader))[0]
+        step_ms, peak_gb = median_step_ms(trainer, batch)
+        families = kernel_breakdown(lambda: trainer.train_step(batch), reps=3)
+    busy = sum(families.values())
+    log(f"train text step b16 (48 x 768 tokens, 2 layers) on {card_line}: "
+        f"median {step_ms:.3f} ms, peak {peak_gb:.2f} GiB; kernels "
+        f"{busy:.4f} ms = {busy / step_ms * 100:.1f}% of the step")
+    log(json.dumps({"train": "text", "batch": 16, "steps": steps,
+                    "launches": counts, "step_ms": step_ms,
+                    "peak_gib": peak_gb, "epoch_clips_per_s": clips_s,
+                    "kernel_ms_by_family": families,
+                    "kernel_busy_pct": busy / step_ms * 100,
+                    "parity_max_abs_logit_err": err}))
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1277,14 +1652,17 @@ def main():
     resources = resources_phase()
 
     k1 = {**k1_phase(name), "resources": resources["framed_conv1d"]}
+    k1["resample_poly_max_abs_err"] = resample_phase()
     k4 = k4_roll_phase(name)
     k2 = {**k2_phase(name), "resources": resources["window_attention"]}
     k3 = {**k3_phase(name), "resources": resources["window_attention_bwd"]}
     launches = {label: run_slice(label, cfg, bs, parity_n, per_forward,
                                  card_line)
                 for label, cfg, bs, parity_n, per_forward in SLICES}
-    main_path = "train"  # this slice's path runs every kernel
+    main_path = "train"  # the tri-modal fine-tune runs every kernel
     launches[main_path] = train_phase(card_line)
+    launches["train_audio_vgg"] = audio_vgg_phase(card_line, k1)
+    launches["train_text"] = text_phase(card_line)
 
     def entry(kernel, source, replaces, numbers):
         return {"name": kernel, "route": "cuda",

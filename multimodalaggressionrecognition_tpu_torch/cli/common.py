@@ -42,6 +42,27 @@ class TrainConfig:
     device: str = "cuda"
 
 
+@dataclass
+class NamesPinConfig(TrainConfig):
+    """TrainConfig + the reference's train_names.txt order pin for the flat
+    filename-labelled dataset entries: `--train_names` / `--test_names`
+    name newline-separated file lists that fix a split's members and their
+    order (default: the directory's sorted listing)."""
+    train_names: str = ""
+    test_names: str = ""
+
+
+def pinned_files(cfg, split: str):
+    """`files=` for FilenameLabelSource from --{split}_names (None: the
+    sorted directory listing)."""
+    path = getattr(cfg, f"{split}_names", "")
+    if not path:
+        return None
+    from ..data.files import read_names_file
+
+    return read_names_file(path)
+
+
 def clip_shapes_from_config(cfg, modalities):
     """Per-modality single-clip shapes under this config's padding."""
     all_shapes = {"audio": (cfg.audio_samples,),

@@ -1,5 +1,6 @@
 """Synthetic AVABOS-shaped dataset generator (test/bench fixture; a copy of
-the JAX package's data/synthetic.py, which the port does not import).
+the JAX package's data/synthetic.py, which the port does not import), and
+the flat wav fixture of the single-modality audio entries.
 
 The real AVABOS dataset is private; every integration test and benchmark in
 this framework runs on this generator, which reproduces the reference's
@@ -85,3 +86,32 @@ def generate_synthetic_avabos(
     with open(os.path.join(root, "train_test_split.json"), "w") as f:
         json.dump(split, f)
     return df, split
+
+
+def make_synthetic_wavs(root, rate, n_train=32, n_test=8, seed=0,
+                        tones=False):
+    """Flat `root/{train,test}/clip{i}_{LABEL}.wav` fixture of 2 s int16
+    clips, labels alternating NOAGGR/AGGR (the JAX package's
+    cli/train_audio_rnn.py `_make_synthetic_wavs`, byte for byte).  Plain
+    clips are noise with a class-signed offset; `tones` clips carry a
+    class-coded carrier (AGGR 3 kHz, NOAGGR 440 Hz) at a random phase,
+    separable in a magnitude spectrogram."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    t = np.arange(rate * 2, dtype=np.float32) / rate
+    for sub, n in (("train", n_train), ("test", n_test)):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for i in range(n):
+            label = "AGGR" if i % 2 else "NOAGGR"
+            if tones:
+                freq = 3000.0 if label == "AGGR" else 440.0
+                phase = rng.uniform(0, 2 * np.pi)
+                wav = (0.4 * np.sin(2 * np.pi * freq * t + phase)
+                       + rng.standard_normal(rate * 2).astype(np.float32) * 0.05)
+            else:
+                shift = 0.02 if label == "AGGR" else -0.02
+                wav = (rng.standard_normal(rate * 2).astype(np.float32) * 0.1
+                       + shift)
+            wavfile.write(os.path.join(root, sub, f"clip{i}_{label}.wav"),
+                          rate, (wav * 32767).astype(np.int16))

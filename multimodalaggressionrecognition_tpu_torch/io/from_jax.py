@@ -9,6 +9,8 @@ the port module of the same architecture.  Layout rules:
 - Conv1d:     kernel (K*C_in, C_out)   -> weight (C_out, C_in, K); C_in is
               1 for `conv0` and the previous conv's C_out after it (the
               CNN1D trunk's chain)
+- Conv2d:     kernel (kh, kw, C_in, C_out) -> weight (C_out, C_in, kh, kw)
+              (told from a Conv1d by its rank: the VGG names it conv{i})
 - Conv3d:     kernel (kt, kh, kw, C_in, C_out)
                                        -> weight (C_out, C_in, kt, kh, kw)
 - Swin:       relative_position_bias_table (entries, heads) kept as it is
@@ -79,7 +81,11 @@ def from_jax_variables(variables) -> dict:
     sd = {}
     for path, value in _flatten(params):
         mod, leaf = _module_path(path[:-1]), path[-1]
-        if (leaf == "kernel" and len(path) > 1
+        # by the kernel's rank first: the VGG's 2-D convs are named conv{i}
+        # too, and must not take the CNN1D trunk's Conv1d rule
+        if leaf == "kernel" and value.ndim == 4:
+            sd[f"{mod}weight"] = value.transpose(3, 2, 0, 1)
+        elif (leaf == "kernel" and len(path) > 1
                 and re.fullmatch(r"conv\d+", path[-2])):
             c_in = _conv_in_channels(params_at, path[:-1])
             k = value.shape[0] // c_in

@@ -106,7 +106,7 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     the CPU, so a model built this way and moved to any device carries the
     same weights."""
     from .nn1d import BatchNorm1d, Conv1d
-    from .nn3d import Conv3d
+    from .nn3d import Conv2d, Conv3d
     from .swin3d import ShiftedWindowAttention3d
 
     g = torch.Generator().manual_seed(seed)
@@ -116,7 +116,7 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
         t.copy_(torch.rand(t.shape, generator=g) * (2 * bound) - bound)
 
     for m in model.modules():
-        if isinstance(m, (nn.Linear, Conv1d, Conv3d)):
+        if isinstance(m, (nn.Linear, Conv1d, Conv2d, Conv3d)):
             fan_in = m.weight[0].numel()
             fan_in_uniform_(m.weight, fan_in)
             if m.bias is not None:

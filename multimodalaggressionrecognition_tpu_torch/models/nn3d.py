@@ -1,9 +1,13 @@
-"""3-D convolution with torch semantics on the channels-last layout (the JAX
-package's models/nn3d.py).
+"""2-D and 3-D convolution with torch semantics (the JAX package's
+models/nn3d.py), as `F.conv2d` / `F.conv3d`: the JAX package leaves these
+convs to XLA.
 
-Video tensors are (B, T, H, W, C).  Only the unpadded (VALID) `Conv3d` with
-a bias, which Swin3D's patch embedding uses, is ported so far; it is
-`F.conv3d`, as the JAX package leaves this conv to XLA.
+Video tensors are (B, T, H, W, C), channels-last as in the JAX package;
+only the unpadded (VALID) `Conv3d` with a bias, which Swin3D's patch
+embedding uses, is ported.  Images run in torch's (B, C, H, W) layout
+(models/vgg.py): `Conv2d` with padding and a bias, and `BatchNorm2d`
+(nn1d.BatchNorm1d's parameters and semantics on the channel axis 1).  The
+JAX package's `max_pool_nd` (VALID, floor) is `F.max_pool2d` there.
 """
 
 import math
@@ -12,9 +16,44 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .nn1d import BatchNorm1d
+
 
 def _triple(v):
     return tuple(v) if isinstance(v, (tuple, list)) else (v,) * 3
+
+
+class Conv2d(nn.Module):
+    """(B, C_in, H, W) -> (B, C_out, H', W'), zero padding on both sides.
+
+    Weight (C_out, C_in, kh, kw) as torch's; the JAX package's (kh, kw,
+    C_in, C_out) kernel converts in io/from_jax.py."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(
+            torch.empty(features, in_channels, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(features))
+        bound = 1.0 / math.sqrt(in_channels * kernel_size ** 2)
+        nn.init.uniform_(self.weight, -bound, bound)
+        nn.init.uniform_(self.bias, -bound, bound)
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight, self.bias, stride=self.stride,
+                        padding=self.padding)
+
+
+class BatchNorm2d(BatchNorm1d):
+    """BatchNorm1d over the channel axis 1 of (B, C, H, W): batch
+    statistics (biased variance) in train mode, moving the running ones
+    with the unbiased variance, momentum 0.1; the running ones in eval."""
+
+    def forward(self, x):
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, training=self.training,
+                            momentum=self.momentum, eps=self.eps)
 
 
 class Conv3d(nn.Module):

@@ -1,10 +1,11 @@
 """Train-mode randomness with explicit generators: the dropouts, stochastic
 depth, and gradient checkpointing that replays their draws.
 
-Every stochastic module draws its keep mask from its own `generator`
-attribute (a `torch.Generator` on the input's device; None means torch's
-default generator), never from hidden global state, so a trainer seeds a
-run by handing one generator to the whole model (`set_generator`).  A kept
+Every random module (a `Random`: the dropouts, stochastic depth, the
+spectrogram masks of ops/stft.py) draws from its own `generator` attribute
+(a `torch.Generator` on the input's device; None means torch's default
+generator), never from hidden global state, so a trainer seeds a run by
+handing one generator to the whole model (`set_generator`).  A kept
 element is scaled by 1/keep and a dropped one is 0, as in the JAX package
 (`jnp.where(mask, x / keep, 0)`).  In eval mode, or at rate 0, each module
 is the identity.
@@ -22,14 +23,21 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
 
-class Stochastic(nn.Module):
+class Random(nn.Module):
+    """Base of the modules that draw in train mode, from `generator`."""
+
+    def __init__(self):
+        super().__init__()
+        self.generator = None
+
+
+class Stochastic(Random):
     """Base of the modules that draw a keep mask: `rate` is the drop
     probability, `noise_shape(x)` the mask's shape (broadcast over x)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
-        self.generator = None
 
     def noise_shape(self, x):
         return x.shape
@@ -48,9 +56,9 @@ class Dropout(Stochastic):
 
 
 def set_generator(model: nn.Module, generator) -> nn.Module:
-    """Make every stochastic module of `model` draw from `generator`."""
+    """Make every random module of `model` draw from `generator`."""
     for m in model.modules():
-        if isinstance(m, Stochastic):
+        if isinstance(m, Random):
             m.generator = generator
     return model
 
@@ -60,7 +68,7 @@ def checkpoint(module: nn.Module, *args):
     same masks from the explicit generators of module's stochastic
     submodules as the forward did."""
     gens = list({id(m.generator): m.generator for m in module.modules()
-                 if isinstance(m, Stochastic) and m.generator is not None
+                 if isinstance(m, Random) and m.generator is not None
                  }.values())
     before = []
 

@@ -17,6 +17,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+from torch import nn
 
 from ..ops import losses as L
 from ..ops.metrics import confusion_matrix
@@ -38,6 +39,18 @@ class LossSpec:
             return L.focal_loss(logits, labels, alpha=self.class_weights,
                                 gamma=self.gamma, row_mask=row_mask)
         raise ValueError(f"unknown loss kind {self.kind!r}")
+
+
+class SingleHeadAdapter(nn.Module):
+    """A single-input model `inner` (data -> logits) in the batch protocol:
+    modalities -> {head: inner(modalities[modality]['data'])}."""
+
+    def __init__(self, inner: nn.Module, modality: str, head: str = "main"):
+        super().__init__()
+        self.inner, self.modality, self.head = inner, modality, head
+
+    def forward(self, modalities):
+        return {self.head: self.inner(modalities[self.modality]["data"])}
 
 
 def head_losses_and_metrics(outputs, batch, loss_specs: Dict[str, LossSpec],

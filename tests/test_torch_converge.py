@@ -1,8 +1,9 @@
-"""Convergence of the port's trainer: the port's counterpart of
-tests/test_convergence.py::test_converge_trimodal, with the Swin tower
-fine-tuned (--video_freeze false).  On the class-separable synthetic AVABOS
-fixture both heads must reach a best test UAR of at least 0.9, the JAX
-entry's floor.  Slow (minutes on a CPU): not part of the fast lane.
+"""Convergence of the port's trainer: the port's counterparts of
+tests/test_convergence.py's runs of the tri-modal model (with the Swin
+tower fine-tuned, --video_freeze false), the spectrogram VGG and the text
+transformer.  On the class-separable synthetic fixtures every head must
+reach a best test UAR of at least 0.9, the JAX entries' floor.  Slow
+(minutes on a CPU): not part of the fast lane.
 """
 
 import glob
@@ -39,3 +40,40 @@ def test_converge_trimodal_fine_tuned(tmp_path):
         "--device", "cpu"])
     assert _best_uar(runs, "verb") >= 0.9
     assert _best_uar(runs, "phys") >= 0.9
+
+
+def test_converge_audio_vgg(tmp_path):
+    """tests/test_convergence.py::test_converge_audio_transformer's run: the
+    class-coded tones sit at distinct spectrogram bins, and the narrow
+    train-time frequency mask cannot wipe both carriers every step."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        train_audio_transformer)
+
+    runs = tmp_path / "runs"
+    train_audio_transformer.main([
+        "--files_root", str(tmp_path / "wavs"), "--saving_dir", str(runs),
+        "--epoch_num", "8", "--batch_size", "4", "--log_console", "false",
+        "--audio_seconds", "1", "--synthetic_files", "16", "--n_fft", "256",
+        "--freq_mask", "16", "--time_mask", "16", "--synthetic_wav",
+        "--synthetic_tones", "--device", "cpu"])
+    assert _best_uar(runs, "main") >= 0.9
+
+
+def test_converge_text_transformer(tmp_path):
+    """tests/test_convergence.py::test_converge_text_transformer's run on
+    the intervals table of the synthetic AVABOS fixture."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        train_text_transformer)
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        generate_synthetic_avabos)
+
+    root = str(tmp_path / "avabos")
+    generate_synthetic_avabos(root, num_clusters=3, samples_per_cluster=8,
+                              seed=7, audio_len=24000, video_frames=8,
+                              video_hw=32)
+    runs = tmp_path / "runs"
+    train_text_transformer.main([
+        "--dataset_root", root, "--saving_dir", str(runs), "--epoch_num",
+        "6", "--batch_size", "4", "--num_layers", "1", "--log_console",
+        "false", "--device", "cpu"])
+    assert _best_uar(runs, "main") >= 0.9

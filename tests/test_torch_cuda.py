@@ -22,6 +22,9 @@ from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.window_attention import (
     attention_core_reference, fused_window_attention, window_attention,
     window_attention_bwd, window_attention_bwd_reference)
+from multimodalaggressionrecognition_tpu_torch.ops.resample import (
+    resample_poly)
+from multimodalaggressionrecognition_tpu_torch.ops.stft import spectrogram
 from multimodalaggressionrecognition_tpu_torch.utils.kernels import (
     launch_counts)
 
@@ -29,14 +32,16 @@ from multimodalaggressionrecognition_tpu_torch.utils.kernels import (
 # F/hop with a ragged C tile, and a batch past one T tile per row; the STFT's
 # width (C=514, F=512, hop 256) and ragged edges: C=1, T under one 128-frame
 # tile, F < 8 with hop 3, hops 7 and 12 (not multiples of 8) and T = 1; the
-# stem as the b8 train step calls it (a grid that takes the 64-frame tile)
+# stem as the b8 train step calls it (a grid that takes the 64-frame tile);
+# the STFT as the spectrogram VGG's b16 train step calls it (5 s clips)
 SHAPES = [(2, 8000, 160, 40, 80, 64), (2, 8000, 512, 256, 0, 128),
           (2, 8000, 10, 5, 0, 512), (2, 8000, 147, 40, 3, 24),
           (3, 1000, 7, 3, 0, 70), (1, 160, 160, 40, 80, 64),
           (2, 8448, 512, 256, 0, 514), (3, 5000, 160, 40, 80, 1),
           (2, 1000, 160, 40, 80, 64), (2, 3001, 5, 3, 2, 33),
           (2, 4003, 64, 7, 1, 70), (2, 4000, 48, 12, 4, 40),
-          (3, 160, 160, 40, 0, 64), (8, 80000, 160, 40, 80, 64)]
+          (3, 160, 160, 40, 0, 64), (8, 80000, 160, 40, 80, 64),
+          (16, 80512, 512, 256, 0, 514)]
 
 
 @pytest.fixture
@@ -96,6 +101,41 @@ def test_framed_conv1d_frame_tiles_agree_bitwise(cuda, length, f, s, p, c):
     one = framed_conv1d(x[:1], w, bias, f, s, p)
     torch.cuda.synchronize()
     assert torch.equal(full[:1], one)
+
+
+@pytest.mark.cuda
+def test_spectrogram_on_the_card_matches_the_cpu(cuda):
+    """ops/stft.spectrogram of 5 s clips at 16 kHz (n_fft 512: 257 x 313),
+    the STFT through K1 on the card against the plain version on the CPU,
+    within 1e-4 of the largest power."""
+    g = torch.Generator().manual_seed(11)
+    wav = torch.randn((2, 80000), generator=g) * 0.1
+    want = spectrogram(wav, n_fft=512)
+    before = launch_counts["framed_conv1d"]
+    got = spectrogram(wav.to(cuda), n_fft=512)
+    torch.cuda.synchronize()
+    assert launch_counts["framed_conv1d"] == before + 1
+    assert got.shape == (2, 257, 313)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("orig,new,length", [(44100, 16000, 220500),
+                                             (48000, 16000, 3000),
+                                             (8000, 16000, 1001)])
+def test_resample_poly_on_the_card_matches_the_cpu(cuda, orig, new, length):
+    """ops/resample.resample_poly (K1's resample route) on the card against
+    the same call on the CPU, 1e-4."""
+    g = torch.Generator().manual_seed(length)
+    x = torch.randn((3, length), generator=g) * 0.3
+    want = resample_poly(x, orig, new)
+    before = launch_counts["framed_conv1d"]
+    got = resample_poly(x.to(cuda), orig, new)
+    torch.cuda.synchronize()
+    assert launch_counts["framed_conv1d"] == before + 1
+    assert got.shape == want.shape == (3, -(-new * length // orig))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
