@@ -17,8 +17,9 @@ Phases (any failure raises, and the script exits non-zero):
                 stage 0.
   3. kernels  - each kernel against its plain PyTorch version on the card:
                 K1 (framed conv1d) at the JAX tests' shapes, its three routes
-                at full size (CNN1D stem at the served b32 and the trained
-                b8, STFT at b32 and at the trained b16, 44.1 -> 16 kHz
+                at full size (CNN1D stem at the served b32, the trained
+                b8 and the audio,text trainer's b16 with and without its
+                epilogue, STFT at b32 and at the trained b16, 44.1 -> 16 kHz
                 resample) and ragged edges (C=1, T < 128, F < 8, hops 3, 7
                 and 12, T=1), atol/rtol 1e-4, and bit for bit over two
                 launches at the stem; the device resample_poly (K1's
@@ -40,9 +41,14 @@ Phases (any failure raises, and the script exits non-zero):
                 shorter than Python's dispatch; K3: SDPA's backward) and the
                 least time the card could take (on the
                 tensor cores in 3xTF32, with the f32 FMA pipe's bound beside
-                it); K2's and K3's time at every stage.  K4 (pallas_roll, not
-                ported): torch.roll's time at its shape against its bound,
-                in a JSON line of its own (`not_ported`).
+                it); K2's and K3's time at every stage.  K4 (the Swin
+                tower's shifted-window roll) bit for bit against torch.roll
+                at the tower's two shifted stages of the b8 forward, both
+                signs, and at ragged shapes (C = 3 and 5 on the scalar
+                path, odd H and W, a T shift, shift 0 on one axis, B = 1, a
+                misaligned view), twice bit for bit, its autograd backward
+                against the opposite roll; its time cold and warm at both
+                stages against its bound (bytes) and torch.roll.
   4. slices   - each served model at full width with seeded random weights:
                 audio,text (hidden 768, 80 000 samples, 48 tokens, 1 fusion
                 layer, 8 heads, batch 32), then audio,text,video (+ the frozen
@@ -55,7 +61,7 @@ Phases (any failure raises, and the script exits non-zero):
                     concurrent npz clips, with the kernels' launch counts
                     reset just before and read just after: every kernel of the
                     path launched its count per served forward (K1 once, K2
-                    12 times), no other kernel;
+                    12 times, K4 4 times), no other kernel;
                 (c) throughput of Predictor.predict at the served batch, the
                     forward's time by tower, its kernel time by family, and
                     MicroBatcher single-clip p50 latency.
@@ -67,8 +73,8 @@ Phases (any failure raises, and the script exits non-zero):
                     epochs on a synthetic set, launch counts reset just
                     before and read just after: finite logged losses, the
                     logs and checkpoints; then one step of each presence
-                    pattern with its launches (video: K2 24, K3 12; audio:
-                    K1 1; a verb batch: no K2, no K3);
+                    pattern with its launches (video: K2 24, K3 12, K4 12;
+                    audio: K1 1; a verb batch: no K2, no K3, no K4);
                 (c) the median b8 step time with remat on and off, the peak
                     memory, the step's kernel time by family.
   6. audio_vgg - the spectrogram VGG11-BN trained at full width (5 s at 16
@@ -92,9 +98,27 @@ Phases (any failure raises, and the script exits non-zero):
                 against the CPU, 1e-3; cli.train_text_transformer.main,
                 batch 16, 2 epochs on a synthetic AVABOS table, no kernel
                 launched; the median step time and its kernel time.
+  8. video_transformer - the frozen windowed Swin3D-T + a 2-layer
+                transformer head at full width (128 frames, window 8,
+                hidden 768, 8 heads): (a) the logits and, under the
+                class-weighted CE, every head gradient at b2 (16 frames at
+                128 px, resized to 112 on the device) on the card against
+                the CPU, 1e-3 (of each gradient's largest); (b)
+                cli.train_video_transformer.main at its defaults (b8, 112
+                px), 2 epochs on 8 + 4 synthetic clips of 128 frames at 128
+                px: K2 12 and K4 4 times per train and eval step, no K3;
+                the logs and checkpoints; (c) the median step time, the
+                peak memory and the step's kernel families.
+  9. audio_text - the CNN1D + text transformer two-tower model at full width
+                (80 000 samples, 48 tokens, hidden 768): (a) the loss and
+                every gradient at b2, eval mode, card against CPU, 1e-3 of
+                each tensor's largest; (b) cli.train_audio_text.main, b16, 2
+                epochs on a synthetic AVABOS table: K1 once per train and
+                eval step, no other kernel; (c) the median step time, the
+                peak memory and the step's kernel families.
 Prints a `slice` JSON line per slice, a `train` JSON line per train path,
-the `kernels` JSON line, the `not_ported` JSON line, the card's name and
-power limit, and last `{"ok": true, "device": {...}}`.  Every kernel
+the `kernels` JSON line, the card's name and power limit, and last
+`{"ok": true, "device": {...}}`.  Every kernel
 entry's `launches` counts the tri-modal fine-tune; `launches_by_path` gives
 each path's.  Without a CUDA device it exits non-zero and prints no result.
 """
@@ -133,6 +157,8 @@ from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.window_attention import (
     attention_core_reference, fused_window_attention, launch_info,
     window_attention_bwd, window_attention_bwd_reference)
+from multimodalaggressionrecognition_tpu_torch.ops.cuda.roll import (
+    circular_roll, roll, roll_reference)
 from multimodalaggressionrecognition_tpu_torch.ops.resample import (
     resample_poly)
 from multimodalaggressionrecognition_tpu_torch.train.steps import (
@@ -151,7 +177,7 @@ TRIMODAL = dict(FLAGSHIP, video_frames=128, video_size=112, video_window=8)
 BATCH = 32  # the flagship's served batch: K1's main-path shape
 SLICES = [("audio,text", FLAGSHIP, BATCH, BATCH, {"framed_conv1d": 1}),
           ("audio,text,video", TRIMODAL, 8, 2,
-           {"framed_conv1d": 1, "window_attention": 12})]
+           {"framed_conv1d": 1, "window_attention": 12, "roll": 4})]
 # (name, B, L, F, hop, pad, C, epilogue): tests/test_pallas.py's shapes, a
 # non-multiple F/hop; K1's three routes at full size: the CNN1D stem as the
 # served path calls it (its BatchNorm and ReLU folded into the epilogue) and
@@ -167,6 +193,10 @@ K1_SHAPES = [("stem-2x8000", 2, 8000, 160, 40, 80, 64, False),
              ("f147-hop40", 2, 8000, 147, 40, 3, 24, False),
              ("stem-32x80000", BATCH, 80000, 160, 40, 80, 64, True),
              ("stem-8x80000", 8, 80000, 160, 40, 80, 64, False),
+             # the audio,text trainer's stem: bias only in a train step,
+             # the folded BN/ReLU epilogue in an eval step
+             ("stem-16x80000", 16, 80000, 160, 40, 80, 64, False),
+             ("stem-16x80000-epilogue", 16, 80000, 160, 40, 80, 64, True),
              ("stft-32x80512", BATCH, 80512, 512, 256, 0, 514, False),
              ("stft-16x80512", 16, 80512, 512, 256, 0, 514, False),
              ("resample-32x220975", BATCH, 220975, 475, 441, 0, 160, False),
@@ -182,9 +212,21 @@ K1_SHAPES = [("stem-2x8000", 2, 8000, 160, 40, 80, 64, False),
 # STFT's at b32 and as the spectrogram VGG's b16 train step calls it
 K1_TIMED = {"stem-32x80000": None, "stem-8x80000": "stem_b8",
             "stft-32x80512": "stft", "stft-16x80512": "stft_b16"}
-# K4 (pallas_roll, not ported): Swin3D-T's shifted-window roll at stage 0 of
-# a b32 video batch, (B, T, H, W, C) by (-3, -3) over H and W
-K4_SHAPE, K4_SHIFT = (128, 4, 28, 28, 96), (-3, -3)
+# K4, Swin3D-T's shifted-window roll, as the b8 tri-modal forward calls it:
+# 128 windows of 8 frames, T = 4 after the patch embed (its shift clamped to
+# 0), rolled by (0, 3, 3) before the attention and back after it, at stage 0
+# (28 x 28, C = 96) and stage 1 (14 x 14, C = 192); stages 2 and 3 clamp
+# every axis (no roll).  (name, shape, shifts); then ragged shapes: C = 3
+# and 5 (the scalar path) with odd H and W and a T shift, shift 0 on one
+# axis, B = 1
+K4_STAGES = {"stage0": (128, 4, 28, 28, 96), "stage1": (128, 4, 14, 14, 192)}
+K4_CASES = ([(f"{k}{sign}", shape, (0, s, s)) for k, shape in K4_STAGES.items()
+             for sign, s in (("", 3), ("-back", -3))]
+            + [("c3-odd", (2, 4, 7, 9, 3), (0, 3, 4)),
+               ("c5-t-shift", (3, 5, 9, 11, 5), (2, -4, 6)),
+               ("w-only", (2, 4, 14, 14, 96), (0, 0, 3)),
+               ("b1", (1, 4, 28, 28, 96), (0, 3, 3)),
+               ("c8-t-shift", (2, 3, 9, 11, 8), (1, 4, 5))])
 # K2: (W, N, heads, d, nW_img) of tests/test_pallas.py, random masks
 K2_TEST_SHAPES = [(8, 24, 3, 8, 4), (6, 49, 3, 32, 3), (4, 12, 2, 16, 0)]
 # K2 as the tri-modal b8 forward calls it: 128 windows of 8 frames, patch
@@ -333,7 +375,8 @@ def resources_phase():
     (m-tiles of 16 frames a warp: 2 where the taps are many and the grid
     is full, as at the STFT, else 1, as at the stem); the
     window-attention launches at stage 0 (N=196, d=32): threads, dynamic
-    shared memory, resident blocks per SM."""
+    shared memory, resident blocks per SM; the roll's 16-byte and scalar
+    instantiations."""
     found = {}
     for lib in kernels.kernel_sources():
         for kernel, use in ptxas_usage(kernels.build_log(lib)).items():
@@ -356,6 +399,7 @@ def resources_phase():
             + "; ".join(f"{part}: " + ", ".join(f"{k} {v}"
                                                 for k, v in n.items())
                         for part, n in sass[kernel].items()))
+    launches["roll"] = {f"vec{v}": found[f"roll_kernel<{v}>"] for v in (4, 1)}
     for name in ("window_attention", "window_attention_bwd"):
         info = launch_info(name, 196, 32)
         launches[name] = {**info, **found.get(f"{name}_kernel<32>", {})}
@@ -551,23 +595,72 @@ def k1_phase(card: str):
     return out
 
 
-def k4_roll_phase(card: str):
-    """K4 (pallas_roll, not ported): torch.roll, the call the port's Swin
-    tower makes, at the prototype's shape, against its bound (bytes only:
-    read and write the tensor once)."""
-    def make(i):
-        g = torch.Generator(device=DEVICE).manual_seed(200 + i)
-        return (torch.randn(K4_SHAPE, generator=g, device=DEVICE),)
+def k4_phase(card: str):
+    """K4 against torch.roll (its plain version) bit for bit at every
+    K4_CASES shape and on a misaligned view (the scalar path); twice on the
+    same input, bit for bit; its autograd backward against the opposite
+    roll; at each stage the kernel's, the plain version's and torch.roll's
+    device times (the plain version is torch.roll, so the two time one
+    call), in turns on rotating inputs, cold (after an L2 flush, the JSON's
+    times) and warm (CUDA graphs), against the bound by bytes: x read and
+    the output written once."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    cases = [(name, torch.randn(shape, generator=g, device=DEVICE), shifts)
+             for name, shape, shifts in K4_CASES]
+    flat = torch.randn(1 + 2 * 4 * 6 * 6 * 8, generator=g, device=DEVICE)
+    cases.append(("misaligned-view", flat[1:].view(2, 4, 6, 6, 8), (0, 3, 3)))
+    for name, x, shifts in cases:
+        got = circular_roll(x, shifts)
+        torch.cuda.synchronize()
+        if not torch.equal(got, roll_reference(x, shifts)):
+            raise AssertionError(f"k4 {name} {tuple(x.shape)} {shifts}: "
+                                 "differs from torch.roll")
+        log(f"k4 {name}: {tuple(x.shape)} shifts {shifts} bitwise equal to "
+            "torch.roll ok")
+    x = cases[0][1]
+    if not torch.equal(circular_roll(x, (0, 3, 3)), circular_roll(x, (0, 3, 3))):
+        raise AssertionError("k4: two launches differ")
+    xg = x.clone().requires_grad_(True)
+    grad = torch.randn_like(x)
+    roll(xg, (0, 3, 3)).backward(grad)
+    if not torch.equal(xg.grad, roll_reference(grad, (0, -3, -3))):
+        raise AssertionError("k4: the backward is not the opposite roll")
+    log("k4 stage0: two launches bitwise equal, backward equals the "
+        "opposite roll ok")
+    del cases, flat, xg, grad
 
-    times = in_turns({"library_ms": rotating(make)(
-        lambda x: torch.roll(x, shifts=K4_SHIFT, dims=(2, 3)))}, reps=20,
-        timer=graph_ms)
-    nbytes = 2 * 4 * int(np.prod(K4_SHAPE))
-    bd = bound(card, 0, nbytes)
-    log(f"k4 pallas_roll (not ported) at {K4_SHAPE} f32, shifts {K4_SHIFT} "
-        f"on {card}: torch.roll {times['library_ms']:.4f} ms; bound "
-        f"{bd['bound_ms']:.4f} ms (bytes: {nbytes / 1e6:.1f} MB)")
-    return {**times, "bound_ms": bd["bound_ms"], "bound_by": "bytes"}
+    out = {"max_abs_err": 0.0}
+    labels = {"ms": "kernel", "plain_ms": "plain (torch.roll)",
+              "library_ms": "torch.roll"}
+    for stage, shape in K4_STAGES.items():
+        def make(i, shape=shape):
+            gi = torch.Generator(device=DEVICE).manual_seed(200 + i)
+            return (torch.randn(shape, generator=gi, device=DEVICE),)
+
+        call = rotating(make)
+        fns = {"ms": call(lambda x: circular_roll(x, (0, 3, 3))),
+               "plain_ms": call(lambda x: roll_reference(x, (0, 3, 3))),
+               # yardstick only: the one PyTorch call for the same function
+               "library_ms": call(lambda x: torch.roll(x, (-3, -3), (2, 3)))}
+        cold = in_turns(fns, reps=20, timer=cold_ms)
+        warm = in_turns(fns, reps=20, timer=graph_ms)
+        nbytes = 2 * 4 * int(np.prod(shape))
+        bd = bound(card, 0, nbytes)
+        for label, t in (("cold", cold), ("warm", warm)):
+            log(f"k4 {stage} {shape} timing ({label}) on {card}: "
+                + ", ".join(f"{labels[k]} {v:.4f} ms" for k, v in t.items())
+                + f"; {nbytes / 1e6:.1f} MB; bound {bd['bound_ms']:.4f} ms "
+                f"(bytes); kernel at {bd['bound_ms'] / t['ms'] * 100:.1f}% "
+                "of the bound")
+        numbers = {**cold, "warm": warm, "bound_ms": bd["bound_ms"],
+                   "bound_by": "bytes", "shape": list(shape),
+                   "shifts": [0, 3, 3]}
+        if stage == "stage0":
+            out.update(numbers)
+        else:
+            out[stage] = numbers
+        del call, fns
+    return out
 
 
 def k2_inputs(w, n, heads, d, nw, seed, stage_mask=False):
@@ -829,6 +922,7 @@ def kernel_breakdown(fn, reps: int = 5):
         # FFT convs run "winograd..." and "fft..." kernels and complex
         # ("cf32") GEMMs
         family = ("framed_conv1d (K1)" if "framed_conv1d" in name
+                  else "roll (K4)" if "roll_kernel<" in name
                   else "window_attention_bwd (K3)"
                   if "window_attention_bwd" in name or "sum_groups" in name
                   else "window_attention (K2)" if "window_attention" in name
@@ -883,13 +977,19 @@ def to_device(tree, device):
     return tree.to(device)
 
 
-@torch.no_grad()
 def seeded_model(cfg, modalities):
     """The seeded model with non-trivial BatchNorm statistics and LayerNorm
     parameters.  With the initial LayerNorm (weight 1, bias 0) every token
     of the Swin tower's mean-pooled output sums to ~1e-6, and the fusion
     masks a token whose features sum to exactly 0: rounding would decide."""
-    model = seeded_init_(build_model(MultimodalConfig(**cfg), modalities), SEED)
+    return randomize_norms(seeded_init_(
+        build_model(MultimodalConfig(**cfg), modalities), SEED))
+
+
+@torch.no_grad()
+def randomize_norms(model):
+    """Seeded random BatchNorm statistics and LayerNorm parameters, in
+    place; returns the model in eval mode."""
     g = torch.Generator().manual_seed(SEED + 1)
     for m in model.modules():
         if isinstance(m, BatchNorm1d):
@@ -1118,13 +1218,35 @@ TRAIN_DATA = dict(num_clusters=4, samples_per_cluster=12, seed=SEED,
                   video_hw=TRAIN["video_size"])
 # launches per train step, by presence pattern (remat on: K2 runs again in
 # each block's recompute)
-PER_PATTERN = {"video": {"window_attention": 24, "window_attention_bwd": 12},
+PER_PATTERN = {"video": {"window_attention": 24, "window_attention_bwd": 12,
+                         "roll": 12},
                "audio,text": {"framed_conv1d": 1},
                "audio,text,video": {"framed_conv1d": 1,
                                     "window_attention": 24,
-                                    "window_attention_bwd": 12}}
+                                    "window_attention_bwd": 12, "roll": 12}}
 SPECS = {"phys": LossSpec("focal", class_weights=(0.5, 0.5), gamma=2.0),
          "verb": LossSpec("ce")}
+
+
+def grad_parity(label, cpu, gpu):
+    """Every gradient of `gpu`'s trainable parameters against `cpu`'s,
+    each within 1e-3 * max|g| of that tensor; returns the worst ratio."""
+    worst, count = 0.0, 0
+    gpu_params = dict(gpu.named_parameters())
+    for name, p in cpu.named_parameters():
+        if not p.requires_grad:
+            continue
+        want, got = p.grad, gpu_params[name].grad
+        if want is None or got is None:
+            raise AssertionError(f"{label} parity: {name} has no gradient")
+        scale = want.abs().max().item()
+        err = (got.cpu() - want).abs().max().item()
+        if not err <= 1e-3 * scale:
+            raise AssertionError(f"{label} parity: {name} gradient differs by "
+                                 f"{err:.3e} > 1e-3 * {scale:.3e}")
+        worst = max(worst, err / scale if scale else 0.0)
+        count += 1
+    return worst, count
 
 
 def train_parity(n: int = 1, frames: int = 16):
@@ -1150,19 +1272,7 @@ def train_parity(n: int = 1, frames: int = 16):
     if not loss_err <= 1e-3 * abs(losses["cpu"]):
         raise AssertionError(f"train parity: loss cuda {losses['cuda']} vs "
                              f"cpu {losses['cpu']}")
-    worst, count = 0.0, 0
-    gpu_params = dict(gpu.named_parameters())
-    for name, p in cpu.named_parameters():
-        want, got = p.grad, gpu_params[name].grad
-        if want is None or got is None:
-            raise AssertionError(f"train parity: {name} has no gradient")
-        scale = want.abs().max().item()
-        err = (got.cpu() - want).abs().max().item()
-        if not err <= 1e-3 * scale:
-            raise AssertionError(f"train parity: {name} gradient differs by "
-                                 f"{err:.3e} > 1e-3 * {scale:.3e}")
-        worst = max(worst, err / scale if scale else 0.0)
-        count += 1
+    worst, count = grad_parity("train", cpu, gpu)
     log(f"train parity: b{n} {frames} frames full width, unfrozen, loss cuda "
         f"{losses['cuda']:.6f} vs cpu {losses['cpu']:.6f}; {count} "
         f"gradients, worst max |d| / max |g| {worst:.3e} <= 1e-3 ok")
@@ -1294,7 +1404,8 @@ def train_phase(card_line):
                     "peak_gib_remat": on_gb, "peak_gib_no_remat": off_gb,
                     "epoch_clips_per_s": clips_s,
                     "kernel_ms_by_family": families,
-                    "kernel_busy_pct": busy / on_ms * 100, **parity}))
+                    "kernel_busy_pct": busy / on_ms * 100,
+                    **parity}))
     return counts
 
 
@@ -1351,6 +1462,81 @@ def run_cli(main_fn, args, card_line, label):
         f"train steps, launches {counts}, fit {fit_s:.1f} s; epoch clips/s "
         f"{clips_s} (epoch 0 includes the first step's set-up)")
     return trainer, counts, clips_s
+
+
+def loss_parity(label, model, batch, spec):
+    """The loss, its gradients and the logits of `model` (eval mode) on
+    `batch`, on the CPU and on the card: the loss within 1e-3 of its size,
+    the logits within 1e-3, every gradient by grad_parity."""
+    gpu = copy.deepcopy(model).to(DEVICE)
+    out, losses = {}, {}
+    for name, m, b in (("cpu", model, batch),
+                       ("cuda", gpu, to_device(batch, DEVICE))):
+        logits = m(b["modalities"])
+        total, _ = head_losses_and_metrics(logits, b, {"main": spec}, 2)
+        total.backward()
+        losses[name], out[name] = total.item(), logits["main"].detach().cpu()
+    n = batch["labels"]["main"].shape[0]
+    if out["cuda"].shape != (n, 2) or not torch.isfinite(out["cuda"]).all():
+        raise AssertionError(f"{label} parity: bad logits {out['cuda']}")
+    logit_err = (out["cuda"] - out["cpu"]).abs().max().item()
+    loss_err = abs(losses["cuda"] - losses["cpu"])
+    if not (logit_err <= 1e-3 and loss_err <= 1e-3 * abs(losses["cpu"])):
+        raise AssertionError(f"{label} parity: logits differ by "
+                             f"{logit_err:.3e}, loss {losses}")
+    worst, count = grad_parity(label, model, gpu)
+    log(f"{label} parity: b{n} full width, eval mode, cuda vs cpu max "
+        f"|dlogit| {logit_err:.3e}, loss {losses['cuda']:.6f} vs "
+        f"{losses['cpu']:.6f}; {count} gradients, worst max |d| / max |g| "
+        f"{worst:.3e} <= 1e-3 ok")
+    return {"parity_max_abs_logit_err": logit_err, "loss_err": loss_err,
+            "grad_rel_err": worst}
+
+
+def labelled(modalities, n: int):
+    """A batch of `modalities` ({m: data}) with the single head 'main'
+    labelled 0, 1, 0, ..."""
+    mask = torch.ones(n)
+    return {"modalities": {m: {"data": d, "present": mask}
+                           for m, d in modalities.items()},
+            "labels": {"main": torch.arange(n, dtype=torch.int32) % 2},
+            "label_mask": {"main": mask}}
+
+
+def train_cli_phase(label, cli, args, card_line, per_step, parity):
+    """One train entry at full width through cli.main (run_cli), its
+    launches against `per_step` launches per train and eval step, then its
+    median step time, peak memory and kernel families; prints its `train`
+    JSON line and returns its launch counts."""
+    trainer, counts, clips_s = run_cli(cli.main, args, card_line,
+                                       f"train {label}")
+    steps = trainer.state.step
+    eval_steps = 2 * len(trainer.test_loader)
+    want = {k: v * (steps + eval_steps) for k, v in per_step.items()}
+    if counts != want or steps < 2:
+        raise AssertionError(f"train {label}: {steps} train and {eval_steps} "
+                             f"eval steps launched {counts}, want {want}")
+    batch = next(iter(trainer.batches(trainer.train_loader)))
+    one = step_counts(trainer, batch)
+    if one != per_step:
+        raise AssertionError(f"train {label}: a step launched {one}, want "
+                             f"{per_step}")
+    step_ms, peak_gb = median_step_ms(trainer, batch)
+    families = kernel_breakdown(lambda: trainer.train_step(batch), reps=3)
+    busy = sum(families.values())
+    b = batch["labels"]["main"].shape[0]
+    log(f"train {label} step b{b} on {card_line}: median {step_ms:.3f} ms, "
+        f"peak {peak_gb:.2f} GiB; launches per step {one}; kernels by family "
+        "(ms per step): " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            families.items(), key=lambda kv: -kv[1]))
+        + f"; sum {busy:.4f} ms = {busy / step_ms * 100:.1f}% of the step")
+    log(json.dumps({"train": label, "batch": b, "steps": steps,
+                    "eval_steps": eval_steps, "launches": counts,
+                    "launches_per_step": one, "step_ms": step_ms,
+                    "peak_gib": peak_gb, "epoch_clips_per_s": clips_s,
+                    "kernel_ms_by_family": families,
+                    "kernel_busy_pct": busy / step_ms * 100, **parity}))
+    return counts
 
 
 def after_ms(pre, fn, reps: int = 20) -> float:
@@ -1609,26 +1795,77 @@ def text_phase(card_line):
                 os.path.join(tmp, "runs"), "--run_name", "r", "--epoch_num",
                 "2", "--device", DEVICE, "--num_threads", "4",
                 "--batch_size", "16"]
-        trainer, counts, clips_s = run_cli(cli.main, args, card_line,
-                                           "train text")
-        if counts or trainer.state.step < 2:
-            raise AssertionError(f"train text: {trainer.state.step} steps "
-                                 f"launched {counts}, want no kernel")
-        steps = trainer.state.step
-        batch = list(trainer.batches(trainer.train_loader))[0]
-        step_ms, peak_gb = median_step_ms(trainer, batch)
-        families = kernel_breakdown(lambda: trainer.train_step(batch), reps=3)
-    busy = sum(families.values())
-    log(f"train text step b16 (48 x 768 tokens, 2 layers) on {card_line}: "
-        f"median {step_ms:.3f} ms, peak {peak_gb:.2f} GiB; kernels "
-        f"{busy:.4f} ms = {busy / step_ms * 100:.1f}% of the step")
-    log(json.dumps({"train": "text", "batch": 16, "steps": steps,
-                    "launches": counts, "step_ms": step_ms,
-                    "peak_gib": peak_gb, "epoch_clips_per_s": clips_s,
-                    "kernel_ms_by_family": families,
-                    "kernel_busy_pct": busy / step_ms * 100,
-                    "parity_max_abs_logit_err": err}))
-    return counts
+        return train_cli_phase("text", cli, args, card_line, {},
+                               {"parity_max_abs_logit_err": err})
+
+
+# the video transformer trained at its defaults (cli/train_video_transformer
+# .py: 128 frames at 112 px in 8-frame windows, hidden 768, 2 layers, 8
+# heads, batch 8) on clips of 128 frames at 128 px, as the reference's data
+# is, so the device resizes 128 -> 112
+VIDEO_CLIPS = dict(n_train=8, n_test=4, frames=128, hw=128)
+
+
+def video_transformer_phase(card_line):
+    """(a) logits and head gradients card against CPU at b2 (16 frames at
+    128 px); (b) cli.train_video_transformer.main at its defaults, 2 epochs:
+    K2 12 and K4 4 times per train and eval step, no K3; (c) step time."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        train_video_transformer as cli)
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        make_synthetic_videos)
+
+    cfg = cli.VideoTransformerConfig()
+    model = randomize_norms(seeded_init_(cli.make_model(cfg), SEED))
+    video = torch.randn((2, 16, VIDEO_CLIPS["hw"], VIDEO_CLIPS["hw"], 3),
+                        generator=torch.Generator().manual_seed(SEED + 11))
+    parity = loss_parity(
+        "video_transformer", model, labelled({"video": video}, 2),
+        LossSpec("weighted_ce",
+                 class_weights=(cfg.class_weight_0, cfg.class_weight_1)))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "vids")
+        make_synthetic_videos(root, seed=SEED, **VIDEO_CLIPS)
+        args = ["--files_root", root, "--saving_dir",
+                os.path.join(tmp, "runs"), "--run_name", "r", "--epoch_num",
+                "2", "--device", DEVICE, "--num_threads", "4"]
+        return train_cli_phase(
+            "video_transformer", cli, args, card_line,
+            {"window_attention": 12, "roll": 4}, parity)
+
+
+# the audio,text model trained at full width (cli/train_audio_text.py
+# defaults: 80 000 samples, 48 tokens, hidden 768, batch 16) on the
+# intervals table of a synthetic AVABOS set
+AUDIO_TEXT_DATA = dict(num_clusters=4, samples_per_cluster=12, seed=SEED,
+                       audio_len=80000, text_len=48, video_frames=8,
+                       video_hw=32)
+
+
+def audio_text_phase(card_line):
+    """(a) loss, logits and every gradient card against CPU at b2; (b)
+    cli.train_audio_text.main at full width, b16, 2 epochs: K1 once per
+    train and eval step, no other kernel; (c) the median step time."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        train_audio_text as cli)
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        generate_synthetic_avabos)
+
+    cfg = cli.AudioTextConfig()
+    model = randomize_norms(seeded_init_(cli.make_model(cfg), SEED))
+    g = torch.Generator().manual_seed(SEED + 12)
+    parity = loss_parity("audio_text", model, labelled({
+        "audio": torch.randn((2, cfg.audio_samples), generator=g) * 0.1,
+        "text": torch.randn((2, cfg.text_tokens, cfg.hidden_size),
+                            generator=g)}, 2), LossSpec("ce"))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "avabos")
+        generate_synthetic_avabos(root, **AUDIO_TEXT_DATA)
+        args = ["--dataset_root", root, "--saving_dir",
+                os.path.join(tmp, "runs"), "--run_name", "r", "--epoch_num",
+                "2", "--device", DEVICE, "--num_threads", "4"]
+        return train_cli_phase("audio_text", cli, args, card_line,
+                                {"framed_conv1d": 1}, parity)
 
 
 def main():
@@ -1653,7 +1890,7 @@ def main():
 
     k1 = {**k1_phase(name), "resources": resources["framed_conv1d"]}
     k1["resample_poly_max_abs_err"] = resample_phase()
-    k4 = k4_roll_phase(name)
+    k4 = {**k4_phase(name), "resources": resources["roll"]}
     k2 = {**k2_phase(name), "resources": resources["window_attention"]}
     k3 = {**k3_phase(name), "resources": resources["window_attention_bwd"]}
     launches = {label: run_slice(label, cfg, bs, parity_n, per_forward,
@@ -1663,28 +1900,29 @@ def main():
     launches[main_path] = train_phase(card_line)
     launches["train_audio_vgg"] = audio_vgg_phase(card_line, k1)
     launches["train_text"] = text_phase(card_line)
+    launches["train_video_transformer"] = video_transformer_phase(card_line)
+    launches["train_audio_text"] = audio_text_phase(card_line)
 
     def entry(kernel, source, replaces, numbers):
         return {"name": kernel, "route": "cuda",
                 "source": f"multimodalaggressionrecognition_tpu_torch/csrc/"
                           f"{source}",
-                "replaces": f"multimodalaggressionrecognition_tpu/{replaces}",
+                "replaces": replaces,
                 "launches": launches[main_path].get(kernel, 0),
                 "launches_by_path": {p: c.get(kernel, 0)
                                      for p, c in launches.items()},
                 **numbers, "status": "ok"}
 
+    jax_pkg = "multimodalaggressionrecognition_tpu/"
     log(json.dumps({"kernels": [
         entry("framed_conv1d", "framed_conv.cu",
-              "ops/pallas/framed_conv.py:54", k1),
+              jax_pkg + "ops/pallas/framed_conv.py:54", k1),
         entry("window_attention", "window_attention.cu",
-              "ops/pallas/window_attention.py:112", k2),
+              jax_pkg + "ops/pallas/window_attention.py:112", k2),
         entry("window_attention_bwd", "window_attention_bwd.cu",
-              "ops/pallas/window_attention.py:224", k3)]}))
-    log(json.dumps({"not_ported": [{
-        "name": "pallas_roll", "route": None,
-        "replaces": "benchmarks/proto_swin_levers.py:48", "launches": 0,
-        "shape": list(K4_SHAPE), "shifts": list(K4_SHIFT), **k4}]}))
+              jax_pkg + "ops/pallas/window_attention.py:224", k3),
+        entry("roll", "roll.cu", "benchmarks/proto_swin_levers.py:48",
+              k4)]}))
     log(card_line)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 """Synthetic AVABOS-shaped dataset generator (test/bench fixture; a copy of
 the JAX package's data/synthetic.py, which the port does not import), and
-the flat wav fixture of the single-modality audio entries.
+the flat wav and video fixtures of the single-modality entries.
 
 The real AVABOS dataset is private; every integration test and benchmark in
 this framework runs on this generator, which reproduces the reference's
@@ -115,3 +115,24 @@ def make_synthetic_wavs(root, rate, n_train=32, n_test=8, seed=0,
                        + shift)
             wavfile.write(os.path.join(root, sub, f"clip{i}_{label}.wav"),
                           rate, (wav * 32767).astype(np.int16))
+
+
+def make_synthetic_videos(root, n_train=8, n_test=4, frames=32, hw=64,
+                          seed=0):
+    """Flat `root/{train,test}/clip{i}_{LABEL}.pt` fixture of (frames, 3, hw,
+    hw) f32 clips, labels alternating NOAGGR/AGGR, each noise with a
+    class-signed brightness (the JAX package's
+    cli/train_video_transformer.py `_make_synthetic_videos`, byte for
+    byte)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    for sub, n in (("train", n_train), ("test", n_test)):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for i in range(n):
+            label = "AGGR" if i % 2 else "NOAGGR"
+            shift = 0.3 if label == "AGGR" else -0.3
+            vid = (rng.standard_normal((frames, 3, hw, hw)).astype(np.float32)
+                   * 0.2 + shift)
+            torch.save(torch.from_numpy(vid),
+                       os.path.join(root, sub, f"clip{i}_{label}.pt"))

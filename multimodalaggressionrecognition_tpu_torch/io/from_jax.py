@@ -21,6 +21,11 @@ the port module of the same architecture.  Layout rules:
               `layers.<i>` (ModuleDict / ModuleList); the tri-modal video
               tower's auto-named `Swin3dTExtractor_0` (its frozen backbone)
               -> `backbone`, the port's WindowedVideoExtractor attribute
+- Per model:  a port module whose JAX twin files a submodule elsewhere
+              declares `jax_renames`, (prefix, replacement) pairs applied to
+              the converted names' leading part; `load_jax_variables` reads
+              them from the module, `from_jax_variables` takes them as an
+              argument
 
 A leaf no rule consumes raises, and `load_jax_variables` loads with
 strict=True, so a port parameter or buffer left unfilled raises too.
@@ -65,8 +70,17 @@ def _conv_in_channels(params_at, path):
     return prev["kernel"].shape[1]
 
 
-def from_jax_variables(variables) -> dict:
-    """{"params", "batch_stats"} numpy tree -> {name: torch.Tensor}."""
+def _renamed(name, renames):
+    for prefix, repl in renames:
+        if name.startswith(prefix):
+            return repl + name[len(prefix):]
+    return name
+
+
+def from_jax_variables(variables, renames=()) -> dict:
+    """{"params", "batch_stats"} numpy tree -> {name: torch.Tensor}.
+
+    `renames`: the target module's `jax_renames` (see the module doc)."""
     extra = set(variables) - {"params", "batch_stats"}
     if extra:
         raise ValueError(f"unconsumed JAX collections {sorted(extra)}")
@@ -115,11 +129,13 @@ def from_jax_variables(variables) -> dict:
             raise ValueError(
                 f"unconsumed JAX leaf batch_stats/{'/'.join(path)}")
         sd[f"{_module_path(path[:-1])}{stat_names[path[-1]]}"] = value
-    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+    return {_renamed(k, renames): torch.from_numpy(np.array(v, np.float32))
+            for k, v in sd.items()}
 
 
 def load_jax_variables(model: torch.nn.Module, variables) -> torch.nn.Module:
     """Load JAX variables into `model` (strict: every parameter and buffer
     must be filled, and nothing may be left over)."""
-    model.load_state_dict(from_jax_variables(variables), strict=True)
+    model.load_state_dict(from_jax_variables(
+        variables, getattr(model, "jax_renames", ())), strict=True)
     return model

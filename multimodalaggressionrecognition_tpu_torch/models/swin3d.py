@@ -11,8 +11,10 @@ carried over exactly:
 
 - a window axis is clamped to the input size when the input is no larger
   than the window, and that axis is then not shifted;
-- the input is padded to window multiples and rolled by -shift; the
-  shifted-window mask (0 / -100) is built on the padded sizes;
+- the input is padded to window multiples and rolled by -shift (through
+  the roll kernel, ops/cuda/roll.py, and back by +shift after the
+  attention); the shifted-window mask (0 / -100) is built on the padded
+  sizes;
 - the bias table and position index are those of the FULL window, the
   index sliced to the clamped window's (n, n) block (checkpoint parity);
 - windows are ordered (b, t/wt, h/wh, w/ww), which the kernel's
@@ -33,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda.roll import roll
 from ..ops.cuda.window_attention import window_attention
 from ..ops.erf import check_gelu_mode, gelu
 from .nn3d import Conv3d
@@ -130,7 +133,7 @@ class ShiftedWindowAttention3d(nn.Module):
         xp = F.pad(x, (0, 0, 0, pad_w, 0, pad_h, 0, pad_t))
         pt, ph, pw = t + pad_t, h + pad_h, w + pad_w
         if any(shift):
-            xp = torch.roll(xp, (-shift[0], -shift[1], -shift[2]), (1, 2, 3))
+            xp = roll(xp, shift)  # xp[:, t + st, h + sh, w + sw]
 
         windows = _window_partition(xp, window)  # (B*nW, N, C)
         n = windows.shape[1]
@@ -151,7 +154,9 @@ class ShiftedWindowAttention3d(nn.Module):
 
         xp = _window_reverse(out, window, b, pt, ph, pw)
         if any(shift):
-            xp = torch.roll(xp, shift, (1, 2, 3))
+            # where the windows tile an axis in one piece the reverse can be
+            # a strided view; the kernel takes contiguous input
+            xp = roll(xp.contiguous(), tuple(-s for s in shift))
         return xp[:, :t, :h, :w]
 
 

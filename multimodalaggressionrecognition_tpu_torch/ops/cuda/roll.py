@@ -1,0 +1,99 @@
+"""Circular roll of a (B, T, H, W, C) tensor over T, H and W: Swin3D's
+shifted-window roll (csrc/roll.cu) and its plain PyTorch version.
+
+The port of `pallas_roll` (benchmarks/proto_swin_levers.py, the JAX
+package's Pallas prototype of the roll that its Swin3D makes with
+`jnp.roll`): for shifts (st, sh, sw),
+
+    out[b, t, h, w] = x[b, (t + st) mod T, (h + sh) mod H, (w + sw) mod W],
+
+which is `torch.roll(x, (-st, -sh, -sw), (1, 2, 3))`.  The prototype rolls
+H and W only; the kernel takes T too.  Each shift is reduced modulo its
+size, so negative shifts roll the other way.  Both the wrapper and the
+kernel take a contiguous f32 tensor of fewer than 2**31 elements and raise
+on anything else; nothing is copied quietly.
+
+`roll` is the differentiable entry (a `torch.autograd.Function`): the
+gradient of a roll is the roll of the gradient by the negated shifts, on a
+CUDA tensor the same kernel again.  JAX differentiates `jnp.roll` the same
+way; the prototype has no custom VJP.
+"""
+
+import ctypes
+
+import torch
+
+from ...utils.kernels import check_status, launch_counts, load_library
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _bind(lib):
+    lib.roll_f32.argtypes = [_P, _P] + [_I] * 9 + [_P]
+    lib.roll_f32.restype = _I
+
+
+def roll_reference(x, shifts):
+    """The plain version: torch.roll by the negated shifts over (T, H, W)."""
+    st, sh, sw = shifts
+    return torch.roll(x, (-st, -sh, -sw), (1, 2, 3))
+
+
+def _validate(x, shifts):
+    """Check what the kernel takes; returns the shifts reduced into
+    [0, size)."""
+    if x.dim() != 5:
+        raise ValueError(f"roll: x must be (B, T, H, W, C), got "
+                         f"{tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"roll: x must be float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("roll: x must be contiguous")
+    if not 0 < x.numel() < 2 ** 31:  # the kernel's indices are 32-bit ints
+        raise ValueError(f"roll: {x.numel()} elements; the kernel takes "
+                         "1 to 2**31 - 1")
+    if len(shifts) != 3:
+        raise ValueError(f"roll: shifts must be (st, sh, sw), got {shifts}")
+    return tuple(int(s) % n for s, n in zip(shifts, x.shape[1:4]))
+
+
+def circular_roll(x, shifts):
+    """x (B, T, H, W, C) f32, contiguous; shifts (st, sh, sw) -> out with
+    out[b, t, h, w] = x[b, (t+st) % T, (h+sh) % H, (w+sw) % W].
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    on the current stream or raises."""
+    shifts = _validate(x, shifts)
+    if x.device.type == "cpu":
+        return roll_reference(x, shifts)
+    if x.device.type != "cuda":
+        raise ValueError(f"roll: no kernel for device {x.device}")
+    b, t, h, w, c = x.shape
+    out = torch.empty_like(x)
+    vec4 = c % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    lib = load_library("roll", _bind)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    status = lib.roll_f32(x.data_ptr(), out.data_ptr(), b, t, h, w, c,
+                          *shifts, int(vec4), stream)
+    check_status("roll", status)
+    launch_counts["roll"] += 1
+    return out
+
+
+class _Roll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shifts):
+        ctx.shifts = shifts
+        return circular_roll(x, shifts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return circular_roll(g.contiguous(),
+                             tuple(-s for s in ctx.shifts)), None
+
+
+def roll(x, shifts):
+    """Differentiable circular_roll: the kernel (or, for a CPU tensor, the
+    plain version) forward, and the roll by the negated shifts backward."""
+    return _Roll.apply(x, tuple(shifts))

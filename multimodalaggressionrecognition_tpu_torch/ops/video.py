@@ -1,10 +1,83 @@
-"""Folding a clip's frame windows into the batch (the JAX package's
-ops/video.py `window_frames` / `unwindow_features`), so a frozen video
-backbone runs once over every window of every clip.
+"""Video preprocessing (the JAX package's ops/video.py): a bilinear resize
+as two matmuls, and folding a clip's frame windows into the batch
+(`window_frames` / `unwindow_features`), so a frozen video backbone runs
+once over every window of every clip.
 
-Resize, normalize and box rasterization are not ported yet: the served
-tri-modal path takes frames already at the model's size.
+`resize_bilinear` is `W_h @ image @ W_w^T` for precomputed interpolation
+matrices: `resize_matrix(..., antialias=True)` matches torch's
+F.interpolate(mode='bilinear', antialias=True) (torchvision's Resize, the
+reference's transform), `antialias=False` the plain bilinear one.  The
+JAX package leaves this to XLA, outside any Pallas kernel, so here it is
+two einsums.  Normalize, box rasterization and the adaptive pool are not
+ported yet (ROADMAP.md, queue 1, train3dcnn).
 """
+
+import functools
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_matrix_np(in_size: int, out_size: int,
+                      antialias: bool = True) -> np.ndarray:
+    scale = in_size / out_size
+    mat = np.zeros((out_size, in_size), np.float64)
+    if antialias and scale > 1.0:
+        support = scale  # bilinear filter support (1.0) * scale
+        for i in range(out_size):
+            center = (i + 0.5) * scale
+            lo = max(int(center - support + 0.5), 0)
+            hi = min(int(center + support + 0.5), in_size)
+            j = np.arange(lo, hi, dtype=np.float64)
+            w = np.clip(1.0 - np.abs((j + 0.5 - center) / scale), 0.0, None)
+            s = w.sum()
+            if s > 0:
+                mat[i, lo:hi] = w / s
+    else:
+        for i in range(out_size):
+            center = np.clip((i + 0.5) * scale - 0.5, 0.0, in_size - 1)
+            lo = int(np.floor(center))
+            hi = min(lo + 1, in_size - 1)
+            frac = center - lo
+            mat[i, lo] += 1.0 - frac
+            mat[i, hi] += frac
+    return mat.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_matrix_on(in_size: int, out_size: int, antialias: bool,
+                      device: torch.device) -> torch.Tensor:
+    # built once per device: a copy from pageable host memory synchronises
+    # the stream, which a per-forward build would pay twice each step.
+    # Outside inference mode, so a later autograd pass may use it too
+    with torch.inference_mode(False):
+        return torch.from_numpy(_resize_matrix_np(in_size, out_size,
+                                                  antialias)).to(device)
+
+
+def resize_matrix(in_size: int, out_size: int, antialias: bool = True,
+                  device="cpu") -> torch.Tensor:
+    """(out_size, in_size) row-stochastic bilinear interpolation matrix,
+    cached on `device` (shared: do not write into it).
+
+    antialias=True: the triangle filter's support scales with a downscale
+    ratio, and its window is truncated at the borders and renormalized (no
+    edge replication).  antialias=False (and every upscale): two taps
+    around (i + 0.5) * scale - 0.5, clamped at the borders
+    (align_corners=False)."""
+    return _resize_matrix_on(in_size, out_size, antialias,
+                             torch.device(device))
+
+
+def resize_bilinear(x, out_h: int, out_w: int, antialias: bool = True):
+    """Resize (..., H, W, C) images via two matmuls, contracting H, then
+    W."""
+    h, w = x.shape[-3], x.shape[-2]
+    wh = resize_matrix(h, out_h, antialias, x.device)
+    ww = resize_matrix(w, out_w, antialias, x.device)
+    y = torch.einsum("...hwc,oh->...owc", x, wh)
+    return torch.einsum("...hwc,ow->...hoc", y, ww)
 
 
 def window_frames(x, window: int):

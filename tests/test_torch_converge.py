@@ -1,7 +1,7 @@
 """Convergence of the port's trainer: the port's counterparts of
 tests/test_convergence.py's runs of the tri-modal model (with the Swin
-tower fine-tuned, --video_freeze false), the spectrogram VGG and the text
-transformer.  On the class-separable synthetic fixtures every head must
+tower fine-tuned, --video_freeze false), the spectrogram VGG, the text
+transformer, the audio,text two-tower model and the video transformer.  On the class-separable synthetic fixtures every head must
 reach a best test UAR of at least 0.9, the JAX entries' floor.  Slow
 (minutes on a CPU): not part of the fast lane.
 """
@@ -75,5 +75,39 @@ def test_converge_text_transformer(tmp_path):
     train_text_transformer.main([
         "--dataset_root", root, "--saving_dir", str(runs), "--epoch_num",
         "6", "--batch_size", "4", "--num_layers", "1", "--log_console",
+        "false", "--device", "cpu"])
+    assert _best_uar(runs, "main") >= 0.9
+
+
+def test_converge_audio_text(tmp_path):
+    """tests/test_convergence.py::test_converge_audio_text's run."""
+    from multimodalaggressionrecognition_tpu_torch.cli import train_audio_text
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        generate_synthetic_avabos)
+
+    root = str(tmp_path / "avabos")
+    generate_synthetic_avabos(root, num_clusters=3, samples_per_cluster=8,
+                              seed=7, audio_len=24000, video_frames=8,
+                              video_hw=32)
+    runs = tmp_path / "runs"
+    train_audio_text.main([
+        "--dataset_root", root, "--saving_dir", str(runs), "--epoch_num",
+        "8", "--batch_size", "4", "--audio_samples", "24000",
+        "--log_console", "false", "--device", "cpu"])
+    assert _best_uar(runs, "main") >= 0.9
+
+
+def test_converge_video_transformer(tmp_path):
+    """tests/test_convergence.py::test_converge_video_transformer's run: the
+    class brightness of the synthetic clips survives the frozen tower."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        train_video_transformer)
+
+    runs = tmp_path / "runs"
+    train_video_transformer.main([
+        "--files_root", str(tmp_path / "vids"), "--saving_dir", str(runs),
+        "--epoch_num", "6", "--batch_size", "4", "--video_frames", "8",
+        "--video_size", "64", "--video_window", "4", "--synthetic_files",
+        "8", "--num_layers", "1", "--synthetic_videos", "--log_console",
         "false", "--device", "cpu"])
     assert _best_uar(runs, "main") >= 0.9

@@ -9,12 +9,15 @@ Without a card every test skips.  Tolerance atol/rtol 1e-4: both sides are
 f32 (TF32 off) and only the summation order differs; the window-attention
 kernel at tests/test_pallas.py's small shapes is held to 1e-5, as there.
 Its backward (K3) is held to its plain version at 1e-4 of the largest
-gradient (the stage shapes sum over up to 2048 windows into dbias).
+gradient (the stage shapes sum over up to 2048 windows into dbias).  The
+roll (K4) only moves values, so it is held to torch.roll bit for bit, and a
+served tri-modal forward gives the same logits with it as with torch.roll.
 """
 
 import pytest
 import torch
 
+from multimodalaggressionrecognition_tpu_torch.models import swin3d
 from multimodalaggressionrecognition_tpu_torch.models.swin3d import (
     _attention_mask)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
@@ -22,6 +25,8 @@ from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.window_attention import (
     attention_core_reference, fused_window_attention, window_attention,
     window_attention_bwd, window_attention_bwd_reference)
+from multimodalaggressionrecognition_tpu_torch.ops.cuda.roll import (
+    circular_roll, roll, roll_reference)
 from multimodalaggressionrecognition_tpu_torch.ops.resample import (
     resample_poly)
 from multimodalaggressionrecognition_tpu_torch.ops.stft import spectrogram
@@ -319,3 +324,94 @@ def test_window_attention_bwd_kernel_is_deterministic(cuda):
     torch.cuda.synchronize()
     for x, y in zip(first, again):
         assert torch.equal(x, y)
+
+
+# (B, T, H, W, C, shifts): Swin3D-T's two shifted stages of the b8 tower,
+# both signs; the scalar path (C = 3, 5) with odd H and W and a T shift;
+# shift 0 on one axis; B = 1
+ROLL_CASES = [(128, 4, 28, 28, 96, (0, 3, 3)), (128, 4, 28, 28, 96, (0, -3, -3)),
+              (128, 4, 14, 14, 192, (0, 3, 3)),
+              (128, 4, 14, 14, 192, (0, -3, -3)),
+              (2, 4, 7, 9, 3, (0, 3, 4)), (3, 5, 9, 11, 5, (2, -4, 6)),
+              (2, 4, 14, 14, 96, (0, 0, 3)), (1, 4, 28, 28, 96, (0, 3, 3)),
+              (2, 3, 9, 11, 8, (1, 4, 5))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,w,c,shifts", ROLL_CASES)
+def test_roll_kernel_equals_torch_roll(cuda, b, t, h, w, c, shifts):
+    x = torch.randn((b, t, h, w, c), device=cuda)
+    before = launch_counts["roll"]
+    got = circular_roll(x, shifts)
+    torch.cuda.synchronize()
+    assert launch_counts["roll"] == before + 1
+    assert torch.equal(got, roll_reference(x, shifts))
+
+
+@pytest.mark.cuda
+def test_roll_kernel_takes_a_misaligned_view(cuda):
+    """A contiguous view 4 bytes off a 16-byte boundary takes the scalar
+    path."""
+    x = torch.randn(1 + 2 * 4 * 6 * 6 * 8, device=cuda)[1:].view(2, 4, 6, 6, 8)
+    assert torch.equal(circular_roll(x, (0, 3, 3)),
+                       roll_reference(x, (0, 3, 3)))
+
+
+@pytest.mark.cuda
+def test_roll_backward_is_the_opposite_roll(cuda):
+    x = torch.randn((128, 4, 28, 28, 96), device=cuda, requires_grad=True)
+    g = torch.randn_like(x)
+    before = launch_counts["roll"]
+    roll(x, (0, 3, 3)).backward(g)
+    torch.cuda.synchronize()
+    assert launch_counts["roll"] == before + 2
+    assert torch.equal(x.grad, roll_reference(g, (0, -3, -3)))
+
+
+@pytest.mark.cuda
+def test_roll_kernel_is_deterministic(cuda):
+    x = torch.randn((128, 4, 14, 14, 192), device=cuda)
+    assert torch.equal(circular_roll(x, (0, 3, 3)),
+                       circular_roll(x, (0, 3, 3)))
+
+
+@pytest.mark.cuda
+def test_roll_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.randn((2, 4, 6, 6, 8), device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        circular_roll(x.transpose(2, 3), (0, 1, 1))
+    with pytest.raises(TypeError, match="float32"):
+        circular_roll(x.half(), (0, 1, 1))
+
+
+@pytest.mark.cuda
+def test_trimodal_served_logits_are_unchanged_against_torch_roll(
+        cuda, monkeypatch):
+    """The tri-modal model at full width, served (eval mode) at b2 with 16
+    frames at 112 px: its shifted Swin blocks roll through K4 (4 launches a
+    forward) and give the logits of the same weights rolled by torch.roll."""
+    from multimodalaggressionrecognition_tpu_torch.cli.train_multimodal import (
+        MultimodalConfig, build_model)
+    from multimodalaggressionrecognition_tpu_torch.models.layers import (
+        seeded_init_)
+
+    cfg = MultimodalConfig(video_frames=16)
+    model = seeded_init_(build_model(cfg, ("audio", "text", "video")), 0)
+    model = model.to(cuda).eval()
+    g = torch.Generator().manual_seed(1)
+    present = torch.ones(2)
+    batch = {"audio": torch.randn((2, 80000), generator=g) * 0.1,
+             "text": torch.randn((2, 48, 768), generator=g),
+             "video": torch.randn((2, 16, 112, 112, 3), generator=g)}
+    batch = {m: {"data": d.to(cuda), "present": present.to(cuda)}
+             for m, d in batch.items()}
+    with torch.inference_mode():
+        before = launch_counts["roll"]
+        got = model(batch)
+        torch.cuda.synchronize()
+        assert launch_counts["roll"] == before + 4
+        monkeypatch.setattr(swin3d, "roll", roll_reference)
+        want = model(batch)
+    assert sorted(got) == sorted(want) == ["phys", "verb"]
+    for head in want:
+        assert torch.equal(got[head], want[head]), head
