@@ -18,8 +18,9 @@ Phases (any failure raises, and the script exits non-zero):
   3. kernels  - each kernel against its plain PyTorch version on the card:
                 K1 (framed conv1d) at the JAX tests' shapes, its three routes
                 at full size (CNN1D stem at the served b32, the trained
-                b8 and the audio,text trainer's b16 with and without its
-                epilogue, STFT at b32 and at the trained b16, 44.1 -> 16 kHz
+                b8, the audio,text trainer's b16 with and without its
+                epilogue and the audio RNN trainer's b16 on 10 s clips with
+                it, STFT at b32 and at the trained b16, 44.1 -> 16 kHz
                 resample) and ragged edges (C=1, T < 128, F < 8, hops 3, 7
                 and 12, T=1), atol/rtol 1e-4, and bit for bit over two
                 launches at the stem; the device resample_poly (K1's
@@ -34,7 +35,8 @@ Phases (any failure raises, and the script exits non-zero):
                 and stage shapes, 1e-4 of the largest gradient; K3 twice on
                 the same inputs, bit for bit.  At the main path's shape (K1:
                 the stem at b32 and b8, and the STFT's; K2, K3: stage 0's
-                shifted block; K1 also the STFT's at b32 and b16) also the
+                shifted block; K1 also the STFT's at b32 and b16 and the
+                stem's at b16 x 160 000 with its epilogue) also the
                 kernel's, the plain version's and one library
                 call's time (K1: F.conv1d, with the inputs evicted from L2
                 before each call, and warm from CUDA graphs, as one call is
@@ -116,6 +118,30 @@ Phases (any failure raises, and the script exits non-zero):
                 epochs on a synthetic AVABOS table: K1 once per train and
                 eval step, no other kernel; (c) the median step time, the
                 peak memory and the step's kernel families.
+ 10. audio_rnn - the audio RNN entry's three heads (LSTM_1_layer,
+                GRU_1_layer, Avg at hidden 512) over a frozen extractor on
+                10 s clips (160 000 samples): (a) the summed loss, every
+                head's logits and every gradient at b2, eval mode, card
+                against CPU, 1e-3 (of each gradient's largest), for each
+                extractor (wav2vec-1, wav2vec-2's conv stack, the whole
+                wav2vec-2, CNN1D); (b) cli.train_audio_rnn.main at its
+                defaults (wav2vec-1, b16), 2 epochs on 32 + 8 synthetic
+                tone clips: no kernel launched, each head's logs and best
+                checkpoint; (c) the same with --extractor cnn1d: K1 (the
+                stem, its BN and ReLU folded in) once per train and eval
+                step, no other kernel; (d) for both, the median step time,
+                the peak memory and the kernel families.  An RNN whose
+                weights are not one flat buffer (cuDNN's warning) fails
+                this phase and the next.
+ 11. video_rnn - the same three heads over 19 x 512 feature sequences:
+                parity at b2 as (a); cli.train_video_rnn.main at b16, 2
+                epochs with --epoch_dirs over train/0 and train/1 (the
+                second epoch reads train/1), no kernel; the step time.
+ 12. audio_transformer_w2v - cli.train_audio_transformer --arch
+                transformer: the frozen wav2vec-1 encoder on 5 s clips
+                (498 frames) and a 2-layer, 8-head transformer head:
+                parity at b2 as (a); 2 epochs at b16 on 32 + 8 tone clips,
+                no kernel; the step time.
 Prints a `slice` JSON line per slice, a `train` JSON line per train path,
 the `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Every kernel
@@ -134,6 +160,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -197,6 +224,9 @@ K1_SHAPES = [("stem-2x8000", 2, 8000, 160, 40, 80, 64, False),
              # the folded BN/ReLU epilogue in an eval step
              ("stem-16x80000", 16, 80000, 160, 40, 80, 64, False),
              ("stem-16x80000-epilogue", 16, 80000, 160, 40, 80, 64, True),
+             # the audio RNN trainer's frozen CNN1D stem (10 s clips): the
+             # folded BN/ReLU epilogue in train and eval steps alike
+             ("stem-16x160000-epilogue", 16, 160000, 160, 40, 80, 64, True),
              ("stft-32x80512", BATCH, 80512, 512, 256, 0, 514, False),
              ("stft-16x80512", 16, 80512, 512, 256, 0, 514, False),
              ("resample-32x220975", BATCH, 220975, 475, 441, 0, 160, False),
@@ -209,9 +239,11 @@ K1_SHAPES = [("stem-2x8000", 2, 8000, 160, 40, 80, 64, False),
 # timed in turns with the plain version and F.conv1d, each under its key of
 # the kernels JSON: the served stem first (its numbers at the entry's top
 # level), the train step's stem (its grid takes the narrow frame tile), the
-# STFT's at b32 and as the spectrogram VGG's b16 train step calls it
+# STFT's at b32 and as the spectrogram VGG's b16 train step calls it, and
+# the audio RNN trainer's stem on 10 s clips
 K1_TIMED = {"stem-32x80000": None, "stem-8x80000": "stem_b8",
-            "stft-32x80512": "stft", "stft-16x80512": "stft_b16"}
+            "stft-32x80512": "stft", "stft-16x80512": "stft_b16",
+            "stem-16x160000-epilogue": "stem_b16_10s"}
 # K4, Swin3D-T's shifted-window roll, as the b8 tri-modal forward calls it:
 # 128 windows of 8 frames, T = 4 after the patch embed (its shift clamped to
 # 0), rolled by (0, 3, 3) before the attention and back after it, at stage 0
@@ -927,6 +959,14 @@ def kernel_breakdown(fn, reps: int = 5):
                   if "window_attention_bwd" in name or "sum_groups" in name
                   else "window_attention (K2)" if "window_attention" in name
                   else "Adam (multi-tensor)" if "multi_tensor" in name
+                  # cuDNN's RNN kernels (RNN_blockPersist..., LSTM_/GRU_
+                  # elementWise..., elemWiseRNNcell); its recurrent GEMMs
+                  # land under gemm
+                  else "RNN cells (cuDNN)" if any(
+                      k in name for k in ("rnn", "lstm", "gru_"))
+                  else "GroupNorm" if any(k in name for k in (
+                      "group_norm", "groupnorm", "rowwisemoments",
+                      "computefusedparams"))
                   else "cuDNN conv"
                   if any(k in name for k in ("fprop", "dgrad", "wgrad",
                                              "conv", "winograd", "fft",
@@ -1434,10 +1474,10 @@ def resample_phase():
     return err
 
 
-def run_cli(main_fn, args, card_line, label):
+def run_cli(main_fn, args, card_line, label, heads=("main",)):
     """One CLI train run with the launch counts reset just before and read
-    just after; checks the logs (2 epochs, finite losses) and checkpoints
-    of the single head 'main'.  Returns (trainer, counts, epoch clips/s)."""
+    just after; checks each head's logs (2 epochs, finite losses) and its
+    best checkpoint.  Returns (trainer, counts, epoch clips/s)."""
     import pandas as pd
 
     torch.cuda.synchronize()
@@ -1448,36 +1488,46 @@ def run_cli(main_fn, args, card_line, label):
     counts = dict(kernels.launch_counts)  # read just after the main path
     fit_s = time.monotonic() - t0
     files = set(os.listdir(trainer.run_dir))
-    need = {"checkpoint_current", "checkpoint_best_main", "config.json",
-            "main_train_log.csv", "main_test_log.csv"}
+    logs = [f"{h}_{split}_log.csv" for h in heads for split in ("train",
+                                                                "test")]
+    need = {"checkpoint_current", "config.json", *logs,
+            *(f"checkpoint_best_{h}" for h in heads)}
     if not need <= files:
         raise AssertionError(f"{label}: missing {sorted(need - files)}")
-    for f in ("main_train_log.csv", "main_test_log.csv"):
+    for f in logs:
         df = pd.read_csv(os.path.join(trainer.run_dir, f))
         if df["epoch"].tolist() != [0, 1] or not np.isfinite(df["loss"]).all():
             raise AssertionError(f"{label}: {f} holds {df.to_dict()}")
     clips_s = [float(v) for v in pd.read_csv(os.path.join(
-        trainer.run_dir, "main_train_log.csv"))["clips_per_sec"]]
+        trainer.run_dir, logs[0]))["clips_per_sec"]]
     log(f"{label} main path on {card_line}: 2 epochs, {trainer.state.step} "
         f"train steps, launches {counts}, fit {fit_s:.1f} s; epoch clips/s "
         f"{clips_s} (epoch 0 includes the first step's set-up)")
     return trainer, counts, clips_s
 
 
-def loss_parity(label, model, batch, spec):
-    """The loss, its gradients and the logits of `model` (eval mode) on
-    `batch`, on the CPU and on the card: the loss within 1e-3 of its size,
-    the logits within 1e-3, every gradient by grad_parity."""
+def loss_parity(label, model, batch, specs):
+    """The summed loss of the heads of `specs` ({head: LossSpec}), its
+    gradients and every head's logits of `model` (eval mode) on `batch`,
+    on the CPU and on the card: the loss within 1e-3 of its size, the
+    logits within 1e-3, every gradient by grad_parity.  GRUs and LSTMs run
+    in train mode: cuDNN's RNN has a backward only there, and a one-layer
+    RNN without dropout computes the same in both modes."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.RNNBase):
+            m.train()
     gpu = copy.deepcopy(model).to(DEVICE)
     out, losses = {}, {}
     for name, m, b in (("cpu", model, batch),
                        ("cuda", gpu, to_device(batch, DEVICE))):
         logits = m(b["modalities"])
-        total, _ = head_losses_and_metrics(logits, b, {"main": spec}, 2)
+        total, _ = head_losses_and_metrics(logits, b, specs, 2)
         total.backward()
-        losses[name], out[name] = total.item(), logits["main"].detach().cpu()
-    n = batch["labels"]["main"].shape[0]
-    if out["cuda"].shape != (n, 2) or not torch.isfinite(out["cuda"]).all():
+        losses[name] = total.item()
+        out[name] = torch.cat([logits[h].detach().cpu() for h in specs])
+    n = batch["label_mask"][next(iter(specs))].shape[0]
+    if (out["cuda"].shape != (len(specs) * n, 2)
+            or not torch.isfinite(out["cuda"]).all()):
         raise AssertionError(f"{label} parity: bad logits {out['cuda']}")
     logit_err = (out["cuda"] - out["cpu"]).abs().max().item()
     loss_err = abs(losses["cuda"] - losses["cpu"])
@@ -1485,31 +1535,34 @@ def loss_parity(label, model, batch, spec):
         raise AssertionError(f"{label} parity: logits differ by "
                              f"{logit_err:.3e}, loss {losses}")
     worst, count = grad_parity(label, model, gpu)
-    log(f"{label} parity: b{n} full width, eval mode, cuda vs cpu max "
-        f"|dlogit| {logit_err:.3e}, loss {losses['cuda']:.6f} vs "
+    log(f"{label} parity: b{n} full width, eval mode, heads "
+        f"{list(specs)}, cuda vs cpu max |dlogit| {logit_err:.3e}, loss "
+        f"{losses['cuda']:.6f} vs "
         f"{losses['cpu']:.6f}; {count} gradients, worst max |d| / max |g| "
         f"{worst:.3e} <= 1e-3 ok")
     return {"parity_max_abs_logit_err": logit_err, "loss_err": loss_err,
             "grad_rel_err": worst}
 
 
-def labelled(modalities, n: int):
-    """A batch of `modalities` ({m: data}) with the single head 'main'
-    labelled 0, 1, 0, ..."""
+def labelled(modalities, n: int, heads=("main",)):
+    """A batch of `modalities` ({m: data}) with every head labelled 0, 1,
+    0, ..."""
     mask = torch.ones(n)
     return {"modalities": {m: {"data": d, "present": mask}
                            for m, d in modalities.items()},
-            "labels": {"main": torch.arange(n, dtype=torch.int32) % 2},
-            "label_mask": {"main": mask}}
+            "labels": {h: torch.arange(n, dtype=torch.int32) % 2
+                       for h in heads},
+            "label_mask": {h: mask for h in heads}}
 
 
-def train_cli_phase(label, cli, args, card_line, per_step, parity):
+def train_cli_phase(label, cli, args, card_line, per_step, parity,
+                    heads=("main",)):
     """One train entry at full width through cli.main (run_cli), its
     launches against `per_step` launches per train and eval step, then its
     median step time, peak memory and kernel families; prints its `train`
-    JSON line and returns its launch counts."""
+    JSON line and returns (its launch counts, the trainer)."""
     trainer, counts, clips_s = run_cli(cli.main, args, card_line,
-                                       f"train {label}")
+                                       f"train {label}", heads)
     steps = trainer.state.step
     eval_steps = 2 * len(trainer.test_loader)
     want = {k: v * (steps + eval_steps) for k, v in per_step.items()}
@@ -1524,7 +1577,7 @@ def train_cli_phase(label, cli, args, card_line, per_step, parity):
     step_ms, peak_gb = median_step_ms(trainer, batch)
     families = kernel_breakdown(lambda: trainer.train_step(batch), reps=3)
     busy = sum(families.values())
-    b = batch["labels"]["main"].shape[0]
+    b = batch["sample_mask"].shape[0]
     log(f"train {label} step b{b} on {card_line}: median {step_ms:.3f} ms, "
         f"peak {peak_gb:.2f} GiB; launches per step {one}; kernels by family "
         "(ms per step): " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
@@ -1536,7 +1589,7 @@ def train_cli_phase(label, cli, args, card_line, per_step, parity):
                     "peak_gib": peak_gb, "epoch_clips_per_s": clips_s,
                     "kernel_ms_by_family": families,
                     "kernel_busy_pct": busy / step_ms * 100, **parity}))
-    return counts
+    return counts, trainer
 
 
 def after_ms(pre, fn, reps: int = 20) -> float:
@@ -1796,7 +1849,7 @@ def text_phase(card_line):
                 "2", "--device", DEVICE, "--num_threads", "4",
                 "--batch_size", "16"]
         return train_cli_phase("text", cli, args, card_line, {},
-                               {"parity_max_abs_logit_err": err})
+                               {"parity_max_abs_logit_err": err})[0]
 
 
 # the video transformer trained at its defaults (cli/train_video_transformer
@@ -1821,8 +1874,8 @@ def video_transformer_phase(card_line):
                         generator=torch.Generator().manual_seed(SEED + 11))
     parity = loss_parity(
         "video_transformer", model, labelled({"video": video}, 2),
-        LossSpec("weighted_ce",
-                 class_weights=(cfg.class_weight_0, cfg.class_weight_1)))
+        {"main": LossSpec("weighted_ce", class_weights=(
+            cfg.class_weight_0, cfg.class_weight_1))})
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "vids")
         make_synthetic_videos(root, seed=SEED, **VIDEO_CLIPS)
@@ -1831,7 +1884,7 @@ def video_transformer_phase(card_line):
                 "2", "--device", DEVICE, "--num_threads", "4"]
         return train_cli_phase(
             "video_transformer", cli, args, card_line,
-            {"window_attention": 12, "roll": 4}, parity)
+            {"window_attention": 12, "roll": 4}, parity)[0]
 
 
 # the audio,text model trained at full width (cli/train_audio_text.py
@@ -1857,7 +1910,7 @@ def audio_text_phase(card_line):
     parity = loss_parity("audio_text", model, labelled({
         "audio": torch.randn((2, cfg.audio_samples), generator=g) * 0.1,
         "text": torch.randn((2, cfg.text_tokens, cfg.hidden_size),
-                            generator=g)}, 2), LossSpec("ce"))
+                            generator=g)}, 2), {"main": LossSpec("ce")})
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "avabos")
         generate_synthetic_avabos(root, **AUDIO_TEXT_DATA)
@@ -1865,7 +1918,249 @@ def audio_text_phase(card_line):
                 os.path.join(tmp, "runs"), "--run_name", "r", "--epoch_num",
                 "2", "--device", DEVICE, "--num_threads", "4"]
         return train_cli_phase("audio_text", cli, args, card_line,
-                                {"framed_conv1d": 1}, parity)
+                               {"framed_conv1d": 1}, parity)[0]
+
+
+# the audio RNN entry at its defaults (cli/train_audio_rnn.py: 10 s at 16
+# kHz, batch 16, three heads at hidden 512) on 32 + 8 synthetic tone clips
+AUDIO_RNN_HEADS = ("LSTM_1_layer", "GRU_1_layer", "Avg")
+AUDIO_RNN_EXTRACTORS = ("wav2vec1", "wav2vec2_conv", "wav2vec2", "cnn1d")
+# cuDNN warns, and compacts the weights on every call, when an RNN's
+# parameters are not one flat buffer; the RNN paths treat it as a failure
+UNFLATTENED_RNN = "RNN module weights are not part of single contiguous"
+
+
+def encoder_layers_ms(trainer):
+    """Device ms of each conv and each GroupNorm + ReLU of the trainer's
+    frozen wav2vec-1 encoder on a train batch (no gradient, as in the
+    step), and conv0's kernel families: the bias-free C_in = 1 conv that
+    F.conv1d takes."""
+    ext = trainer.state.model.inner.extractor
+    batch = next(iter(trainer.batches(trainer.train_loader)))
+    x = x0 = batch["modalities"]["audio"]["data"][..., None]
+    out = {}
+    with torch.no_grad():
+        for i in range(ext.num_convs):
+            conv, norm = getattr(ext, f"conv{i}"), getattr(ext, f"norm{i}")
+            out[f"conv{i}"] = cuda_ms(lambda: conv(x), reps=5)
+            y = conv(x)
+            out[f"norm{i}_relu"] = cuda_ms(lambda: torch.relu(norm(y)),
+                                           reps=5)
+            x = torch.relu(norm(y))
+        families = kernel_breakdown(lambda: ext.conv0(x0), reps=3)
+    log(f"train audio_rnn encoder on {tuple(x0.shape)}, ms per call: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+        + "; conv0 by family: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in families.items()))
+    return out
+
+
+def audio_rnn_phase(card_line):
+    """(a) the three heads' loss, logits and every gradient card against
+    CPU at b2 and 10 s, for each extractor; (b) cli.train_audio_rnn.main
+    at its defaults (wav2vec-1, b16), 2 epochs, no kernel; (c) the same
+    with --extractor cnn1d: K1 once per train and eval step, nothing else;
+    (d) each run's median step, peak memory and kernel families."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        train_audio_rnn as cli)
+
+    specs = {h: LossSpec("ce") for h in AUDIO_RNN_HEADS}
+    cfg = cli.AudioRnnConfig()
+    samples = cfg.sample_rate * cfg.audio_seconds
+    parity = {}
+    for extractor in AUDIO_RNN_EXTRACTORS:
+        model = randomize_norms(seeded_init_(cli.make_model(
+            cli.AudioRnnConfig(extractor=extractor)), SEED))
+        audio = torch.randn((2, samples), generator=torch.Generator(
+        ).manual_seed(SEED + 13)) * 0.1
+        parity[extractor] = loss_parity(
+            f"audio_rnn {extractor}", model,
+            labelled({"audio": audio}, 2, AUDIO_RNN_HEADS), specs)
+        del model
+    launches = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # (label, extractor, the other extractors' parity on its line,
+        #  launches per step)
+        for label, extractor, others, per_step in (
+                ("audio_rnn", "wav2vec1", ("wav2vec2_conv", "wav2vec2"), {}),
+                ("audio_rnn_cnn1d", "cnn1d", (), {"framed_conv1d": 1})):
+            args = ["--files_root", os.path.join(tmp, "wavs"),
+                    "--synthetic_wav", "--synthetic_tones", "--saving_dir",
+                    os.path.join(tmp, "runs"), "--run_name", label,
+                    "--epoch_num", "2", "--device", DEVICE, "--num_threads",
+                    "4", "--extractor", extractor]
+            line = dict(parity[extractor])
+            line.update({f"{e}_{k}": v for e in others
+                         for k, v in parity[e].items()})
+            counts, trainer = train_cli_phase(label, cli, args, card_line,
+                                              per_step, line, AUDIO_RNN_HEADS)
+            if extractor == "wav2vec1":
+                encoder_layers_ms(trainer)
+            launches.append(counts)
+            del trainer
+    return launches
+
+
+VIDEO_RNN_FEATURES = dict(n_train=32, n_test=8, seq=19)
+
+
+def video_rnn_phase(card_line):
+    """(a) the three heads' loss, logits and every gradient card against
+    CPU at b2 on 19 x 512 features; (b) cli.train_video_rnn.main at its
+    defaults (b16), 2 epochs with --epoch_dirs over train/0 and train/1: no
+    kernel, and the second epoch reads train/1; (c) the median step."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        train_video_rnn as cli)
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        make_synthetic_features)
+
+    cfg = cli.VideoRnnConfig()
+    model = seeded_init_(cli.make_model(cfg), SEED).eval()
+    feats = torch.randn((2, VIDEO_RNN_FEATURES["seq"], cfg.feature_dim),
+                        generator=torch.Generator().manual_seed(SEED + 14))
+    parity = loss_parity("video_rnn", model,
+                         labelled({"video": feats}, 2, AUDIO_RNN_HEADS),
+                         {h: LossSpec("ce") for h in AUDIO_RNN_HEADS})
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "feats")
+        make_synthetic_features(root, cfg.feature_dim, seed=SEED,
+                                **VIDEO_RNN_FEATURES)
+        # epoch 1's directory: the same clips, other draws
+        make_synthetic_features(os.path.join(tmp, "other"), cfg.feature_dim,
+                                seed=SEED + 1, **VIDEO_RNN_FEATURES)
+        os.rename(os.path.join(tmp, "other", "train", "0"),
+                  os.path.join(root, "train", "1"))
+        args = ["--files_root", root, "--saving_dir",
+                os.path.join(tmp, "runs"), "--run_name", "r", "--epoch_num",
+                "2", "--device", DEVICE, "--num_threads", "4",
+                "--epoch_dirs"]
+        counts, trainer = train_cli_phase("video_rnn", cli, args, card_line,
+                                          {}, parity, AUDIO_RNN_HEADS)
+        read = trainer.train_loader.source.root
+        if read != os.path.join(root, "train", "1"):
+            raise AssertionError(f"train video_rnn: epoch 1 read {read}")
+        log("train video_rnn: --epoch_dirs moved the train source to "
+            "train/1 ok")
+    return counts
+
+
+class relu_decisions:
+    """Within the block every `torch.relu` (the port's models call it by
+    that name) records its mask in `taken`; given `decisions` it takes
+    those masks instead of its own, and so computes the branch of the
+    piecewise-linear parts that another run took."""
+
+    def __init__(self, decisions=None):
+        self.taken, self.given = [], decisions
+        self._relu = torch.relu
+
+    def __enter__(self):
+        given = iter(self.given or ())
+
+        def relu(y):
+            mask = (next(given).to(y.device) if self.given is not None
+                    else y > 0)
+            self.taken.append(mask.cpu())
+            return y * mask.to(y.dtype)
+
+        torch.relu = relu
+        return self
+
+    def __exit__(self, *exc):
+        torch.relu = self._relu
+
+
+def replay_parity(label, model, batch, specs):
+    """loss_parity for a model with many ReLUs: the loss and the logits
+    card against CPU within 1e-3; every gradient of each run, the card's
+    and the CPU's, within 1e-3 * max|g| of a float64 CPU run that takes
+    that run's ReLU decisions (a float32 run flips a near tie among
+    millions against another, and one flip moves a gradient by more), with
+    the card-vs-CPU gradients and the decisions they take differently
+    reported beside."""
+    runs, out = {"cpu": model, "card": copy.deepcopy(model).to(DEVICE)}, {}
+    for name, m in runs.items():
+        b = to_device(batch, DEVICE if name == "card" else "cpu")
+        with relu_decisions() as rec:
+            logits = m(b["modalities"])
+        total, _ = head_losses_and_metrics(logits, b, specs, 2)
+        total.backward()
+        ref = copy.deepcopy(model).double()
+        ref.zero_grad(set_to_none=True)
+        ref_batch = {**batch, "modalities": {
+            k: {**v, "data": v["data"].double()}
+            for k, v in batch["modalities"].items()}}
+        with relu_decisions(rec.taken):
+            ref_logits = ref(ref_batch["modalities"])
+        ref_total, _ = head_losses_and_metrics(ref_logits, ref_batch, specs,
+                                               2)
+        ref_total.backward()
+        grads = {n: p.grad.double().cpu() for n, p in m.named_parameters()
+                 if p.requires_grad}
+        ref_grads = {n: p.grad for n, p in ref.named_parameters()
+                     if p.requires_grad}
+        err, worst = max(((grads[n] - ref_grads[n]).abs().max().item()
+                          / ref_grads[n].abs().max().item(), n)
+                         for n in ref_grads)
+        logits = torch.cat([logits[h].detach().cpu() for h in specs])
+        branch = (logits.double() - torch.cat(
+            [ref_logits[h].detach() for h in specs])).abs().max().item()
+        if not (err <= 1e-3 and branch <= 1e-3):
+            raise AssertionError(
+                f"{label} parity: the {name}'s {worst} gradient differs from "
+                f"float64 on its decisions by {err:.3e} of its largest "
+                f"(logits by {branch:.3e}) > 1e-3")
+        out[name] = dict(logits=logits, loss=total.item(), grads=grads,
+                         decisions=rec.taken, err=err, worst=worst)
+    cpu, card = out["cpu"], out["card"]
+    logit_err = (card["logits"] - cpu["logits"]).abs().max().item()
+    loss_err = abs(card["loss"] - cpu["loss"])
+    if not (logit_err <= 1e-3 and loss_err <= 1e-3 * abs(cpu["loss"])):
+        raise AssertionError(f"{label} parity: logits differ by "
+                             f"{logit_err:.3e}, loss {card['loss']} vs "
+                             f"{cpu['loss']}")
+    paths, paths_name = max(
+        ((card["grads"][n] - cpu["grads"][n]).abs().max().item()
+         / cpu["grads"][n].abs().max().item(), n) for n in cpu["grads"])
+    flips = sum((a != b).sum().item() for a, b in
+                zip(card["decisions"], cpu["decisions"]))
+    total = sum(d.numel() for d in cpu["decisions"])
+    log(f"{label} parity: b{len(cpu['logits']) // len(specs)} full width, "
+        f"eval mode, cuda vs cpu max |dlogit| {logit_err:.3e}, loss "
+        f"{card['loss']:.6f} vs {cpu['loss']:.6f} ok; {len(cpu['grads'])} "
+        f"gradients against float64 on each run's ReLU decisions: card "
+        f"{card['err']:.3e} ({card['worst']}), cpu {cpu['err']:.3e} "
+        f"({cpu['worst']}) <= 1e-3 ok; card vs cpu {paths:.3e} "
+        f"({paths_name}), {flips} of {total} decisions differ")
+    return {"parity_max_abs_logit_err": logit_err, "loss_err": loss_err,
+            "grad_rel_err": card["err"], "cpu_grad_rel_err": cpu["err"],
+            "card_vs_cpu_grad_rel_err": paths, "decisions_differing": flips,
+            "decisions": total}
+
+
+def audio_transformer_w2v_phase(card_line):
+    """(a) loss, logits and every gradient of the head card against CPU at
+    b2 on 5 s clips; (b) cli.train_audio_transformer.main --arch
+    transformer at b16, 2 epochs on 32 + 8 synthetic tone clips: no
+    kernel; (c) the median step."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        train_audio_transformer as cli)
+
+    cfg = cli.AudioTransformerConfig(arch="transformer")
+    model = randomize_norms(seeded_init_(cli.make_model(cfg), SEED))
+    audio = torch.randn((2, cfg.sample_rate * cfg.audio_seconds),
+                        generator=torch.Generator().manual_seed(SEED + 15))
+    parity = replay_parity("audio_transformer_w2v", model,
+                           labelled({"audio": audio * 0.1}, 2),
+                           {"main": LossSpec("ce")})
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ["--files_root", os.path.join(tmp, "wavs"), "--synthetic_wav",
+                "--synthetic_tones", "--saving_dir",
+                os.path.join(tmp, "runs"), "--run_name", "r", "--epoch_num",
+                "2", "--device", DEVICE, "--num_threads", "4", "--arch",
+                "transformer", "--batch_size", "16"]
+        return train_cli_phase("audio_transformer_w2v", cli, args, card_line,
+                               {}, parity)[0]
 
 
 def main():
@@ -1902,6 +2197,13 @@ def main():
     launches["train_text"] = text_phase(card_line)
     launches["train_video_transformer"] = video_transformer_phase(card_line)
     launches["train_audio_text"] = audio_text_phase(card_line)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=UNFLATTENED_RNN)
+        (launches["train_audio_rnn"],
+         launches["train_audio_rnn_cnn1d"]) = audio_rnn_phase(card_line)
+        launches["train_video_rnn"] = video_rnn_phase(card_line)
+    launches["train_audio_transformer_w2v"] = audio_transformer_w2v_phase(
+        card_line)
 
     def entry(kernel, source, replaces, numbers):
         return {"name": kernel, "route": "cuda",

@@ -153,7 +153,7 @@ def make_optimizer(cfg: TrainConfig) -> float:
 
 
 def build_trainer(cfg: TrainConfig, model, loss_specs, train_loader,
-                  test_loader, num_classes: int = 2):
+                  test_loader, num_classes: int = 2, on_epoch_start=None):
     from ..serve import resolve_device
     from ..train.loop import Trainer
 
@@ -165,7 +165,8 @@ def build_trainer(cfg: TrainConfig, model, loss_specs, train_loader,
         num_classes=num_classes, saving_dir=cfg.saving_dir,
         model_name=cfg.model_name, device=resolve_device(cfg.device),
         checkpoint_criterion=cfg.checkpoint_criterion, seed=cfg.seed,
-        log_console=cfg.log_console, run_dir=run_dir)
+        log_console=cfg.log_console, run_dir=run_dir,
+        on_epoch_start=on_epoch_start)
     save_run_config(cfg, trainer.run_dir)
     return trainer
 

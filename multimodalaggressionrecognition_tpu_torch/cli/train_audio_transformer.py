@@ -1,8 +1,9 @@
-"""Spectrogram VGG training (the JAX package's cli/train_audio_transformer.py,
-`--arch vgg`, its default and the reference's live path).
+"""Audio training on spectrograms or wav2vec features (the JAX package's
+cli/train_audio_transformer.py).
 
-A flat directory of `*_LABEL.wav` clips (resampled to 16 kHz and padded to
-`audio_seconds` on the host) -> a power spectrogram on the device, the STFT
+`--arch vgg` (the default and the reference's live path): a flat directory
+of `*_LABEL.wav` clips (resampled to 16 kHz and padded to `audio_seconds`
+on the host) -> a power spectrogram on the device, the STFT
 through the framed-conv kernel (n_fft 512: 257 bins x 313 frames for 5 s)
 -> in train mode one frequency and one time mask per batch -> the
 spectrogram repeated into 3 channels -> VGG11-BN -> CE on the single head
@@ -11,8 +12,10 @@ spectrogram repeated into 3 channels -> VGG11-BN -> CE on the single head
   python -m multimodalaggressionrecognition_tpu_torch.cli.train_audio_transformer \
       --files_root wavs --synthetic_wav --synthetic_tones
 
-`--arch transformer` (wav2vec conv features -> a transformer head) is not
-ported: ROADMAP.md, queue 1 item 5.
+`--arch transformer` (the reference's commented-out alternative): the
+frozen wav2vec-1 conv encoder (no gradient; 5 s -> 498 frames x 512) -> a
+2-layer, 8-head transformer encoder, mean-pooled, and an MLP -> CE on
+'main'.  No kernel runs: the encoder's bias-free conv0 is `F.conv1d`.
 """
 
 import os
@@ -20,8 +23,10 @@ from dataclasses import dataclass
 
 from torch import nn
 
+from ..models.heads import MultiHeadModel, TransformerSequenceClassifier
 from ..models.stochastic import Random
 from ..models.vgg import VGG11BN
+from ..models.wav2vec import Wav2Vec1ConvEncoder
 from ..ops.stft import dft_basis, freq_mask, spectrogram, time_mask
 from .common import (NamesPinConfig, build_trainer, parse_config,
                      pinned_files, run_training)
@@ -31,7 +36,7 @@ from .common import (NamesPinConfig, build_trainer, parse_config,
 class AudioTransformerConfig(NamesPinConfig):
     model_name: str = "audio_vgg"
     files_root: str = ""
-    arch: str = "vgg"              # vgg; transformer is not ported
+    arch: str = "vgg"              # vgg | transformer
     audio_seconds: int = 5
     sample_rate: int = 16000
     n_fft: int = 512
@@ -81,12 +86,29 @@ class SpectrogramVGG(nn.Module):
         return {"main": self.vgg(img)}
 
 
+class W2VTransformer(MultiHeadModel):
+    """Waveform (B, L) -> {'main': logits (B, 2)}: the frozen wav2vec-1
+    conv encoder (no gradient, eval mode), then a
+    TransformerSequenceClassifier, the single head 'main'."""
+
+    # flax names the classifier `head`, beside the root's `extractor`
+    jax_renames = (("head.", "heads.main."),)
+
+    def __init__(self, hidden_size: int):
+        super().__init__({"main": TransformerSequenceClassifier(
+            class_num=2, hidden_size=hidden_size, num_layers=2, num_heads=8)},
+            Wav2Vec1ConvEncoder())
+
+    def forward(self, modalities):
+        return super().forward(modalities["audio"]["data"])
+
+
 def make_model(cfg):
-    if cfg.arch != "vgg":
-        raise SystemExit(
-            f"--arch {cfg.arch} is not ported: only vgg is; the wav2vec "
-            "transformer arrives with ROADMAP.md queue 1 item 5")
-    return SpectrogramVGG(cfg.n_fft, cfg.freq_mask, cfg.time_mask)
+    if cfg.arch == "vgg":
+        return SpectrogramVGG(cfg.n_fft, cfg.freq_mask, cfg.time_mask)
+    if cfg.arch == "transformer":
+        return W2VTransformer(cfg.hidden_size)
+    raise SystemExit(f"--arch must be vgg or transformer, got {cfg.arch!r}")
 
 
 def make_loaders(cfg):

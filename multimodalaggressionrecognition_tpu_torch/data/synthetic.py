@@ -1,6 +1,7 @@
 """Synthetic AVABOS-shaped dataset generator (test/bench fixture; a copy of
 the JAX package's data/synthetic.py, which the port does not import), and
-the flat wav and video fixtures of the single-modality entries.
+the flat wav, video and feature-sequence fixtures of the single-modality
+entries.
 
 The real AVABOS dataset is private; every integration test and benchmark in
 this framework runs on this generator, which reproduces the reference's
@@ -136,3 +137,18 @@ def make_synthetic_videos(root, n_train=8, n_test=4, frames=32, hw=64,
                    * 0.2 + shift)
             torch.save(torch.from_numpy(vid),
                        os.path.join(root, sub, f"clip{i}_{label}.pt"))
+
+
+def make_synthetic_features(root, dim, n_train=32, n_test=8, seq=19, seed=0):
+    """`root/train/0/` and `root/test/` fixtures of (seq, dim) f32 `.npy`
+    feature sequences, labels alternating NOAGGR/AGGR, each noise with a
+    class-signed offset (the JAX package's cli/train_video_rnn.py
+    `_make_synthetic_features`, byte for byte)."""
+    rng = np.random.default_rng(seed)
+    for sub, n in (("train/0", n_train), ("test", n_test)):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        for i in range(n):
+            label = "AGGR" if i % 2 else "NOAGGR"
+            shift = 0.3 if label == "AGGR" else -0.3
+            feats = rng.standard_normal((seq, dim)).astype(np.float32) + shift
+            np.save(os.path.join(root, sub, f"clip{i}_{label}.npy"), feats)

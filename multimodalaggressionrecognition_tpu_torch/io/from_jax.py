@@ -13,12 +13,17 @@ the port module of the same architecture.  Layout rules:
               (told from a Conv1d by its rank: the VGG names it conv{i})
 - Conv3d:     kernel (kt, kh, kw, C_in, C_out)
                                        -> weight (C_out, C_in, kt, kh, kw)
+- Pos. conv:  pos_conv/kernel (K, E/g, E) -> weight (E, E/g, K)
+- GRU, LSTM:  kernel_ih (E, 3H|4H), kernel_hh (H, 3H|4H)
+                                       -> weight_ih_l0, weight_hh_l0
+              (transposed); bias_ih, bias_hh -> bias_ih_l0, bias_hh_l0
 - Swin:       relative_position_bias_table (entries, heads) kept as it is
 - MHA:        in_proj_kernel (E, 3E)   -> in_proj_weight (3E, E);
               out_proj_kernel/_bias    -> out_proj.weight (transposed)/.bias
 - Norms:      scale -> weight; BN batch_stats mean/var -> running_mean/_var
-- Names:      flax's `extractors_<m>` and `layers_<i>` -> `extractors.<m>`,
-              `layers.<i>` (ModuleDict / ModuleList); the tri-modal video
+- Names:      flax's `extractors_<m>`, `heads_<name>` and `layers_<i>` ->
+              `extractors.<m>`, `heads.<name>`, `layers.<i>` (ModuleDict /
+              ModuleList); the tri-modal video
               tower's auto-named `Swin3dTExtractor_0` (its frozen backbone)
               -> `backbone`, the port's WindowedVideoExtractor attribute
 - Per model:  a port module whose JAX twin files a submodule elsewhere
@@ -38,6 +43,7 @@ import numpy as np
 import torch
 
 _RENAMES = ((re.compile(r"^extractors_(\w+)$"), r"extractors.\1"),
+            (re.compile(r"^heads_(\w+)$"), r"heads.\1"),
             (re.compile(r"^layers_(\d+)$"), r"layers.\1"),
             (re.compile(r"^Swin3dTExtractor_\d+$"), "backbone"))
 
@@ -107,6 +113,12 @@ def from_jax_variables(variables, renames=()) -> dict:
                 raise ValueError(f"{'/'.join(path)}: kernel rows "
                                  f"{value.shape[0]} not a multiple of C_in {c_in}")
             sd[f"{mod}weight"] = value.reshape(k, c_in, -1).transpose(2, 1, 0)
+        elif leaf == "kernel" and path[-2:-1] == ("pos_conv",):
+            sd[f"{mod}weight"] = value.transpose(2, 1, 0)
+        elif leaf in ("kernel_ih", "kernel_hh"):
+            sd[f"{mod}weight_{leaf[-2:]}_l0"] = value.T
+        elif leaf in ("bias_ih", "bias_hh"):
+            sd[f"{mod}{leaf}_l0"] = value
         elif leaf == "kernel" and value.ndim == 5:
             sd[f"{mod}weight"] = value.transpose(4, 3, 0, 1, 2)
         elif leaf == "kernel":

@@ -22,7 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.erf import gelu
 from .stochastic import Dropout
+
 
 class MultiheadSelfAttention(nn.Module):
     """torch nn.MultiheadAttention (self-attention, batch_first) equivalent."""
@@ -57,11 +59,18 @@ class MultiheadSelfAttention(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-LN encoder layer with ReLU: torch's nn.TransformerEncoderLayer."""
+    """torch's nn.TransformerEncoderLayer: post-LN with ReLU by default;
+    `activation` 'gelu' (the exact GELU) and `norm_first` (pre-LN) are the
+    wav2vec-2 and HuBERT variants."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, activation: str = "relu",
+                 norm_first: bool = False):
         super().__init__()
+        if activation not in ("relu", "gelu"):
+            raise ValueError(f"activation must be 'relu' or 'gelu', got "
+                             f"{activation!r}")
+        self.activation, self.norm_first = activation, norm_first
         self.self_attn = MultiheadSelfAttention(d_model, nhead, dropout)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
@@ -69,10 +78,18 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.dropout = Dropout(dropout)
 
+    def _ff(self, x):
+        h = self.linear1(x)
+        h = gelu(h, "erf") if self.activation == "gelu" else torch.relu(h)
+        return self.dropout(self.linear2(self.dropout(h)))
+
     def forward(self, x, key_padding_mask=None):
+        if self.norm_first:
+            x = x + self.dropout(self.self_attn(self.norm1(x),
+                                                key_padding_mask))
+            return x + self._ff(self.norm2(x))
         x = self.norm1(x + self.dropout(self.self_attn(x, key_padding_mask)))
-        ff = self.linear2(self.dropout(torch.relu(self.linear1(x))))
-        return self.norm2(x + self.dropout(ff))
+        return self.norm2(x + self._ff(x))
 
 
 class TransformerEncoder(nn.Module):
@@ -102,12 +119,15 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     biases (torch's defaults), Xavier-uniform packed qkv with zero biases,
     ones/zeros for norms, identity BatchNorm statistics, and Swin's
     relative-position bias tables from a normal with std 0.02 truncated at
-    two standard deviations.  Deterministic on
+    two standard deviations; GRU and LSTM weights and biases from
+    U(+-1/sqrt(H)); wav2vec's positional conv from a normal with std
+    sqrt(4 / (K * E)) and a zero bias.  Deterministic on
     the CPU, so a model built this way and moved to any device carries the
     same weights."""
     from .nn1d import BatchNorm1d, Conv1d
     from .nn3d import Conv2d, Conv3d
     from .swin3d import ShiftedWindowAttention3d
+    from .wav2vec import ConvPositionalEmbedding
 
     g = torch.Generator().manual_seed(seed)
 
@@ -128,7 +148,15 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
                 torch.rand(m.in_proj_weight.shape, generator=g) * (2 * bound)
                 - bound)
             m.in_proj_bias.zero_()
-        elif isinstance(m, (nn.LayerNorm, BatchNorm1d)):
+        elif isinstance(m, nn.RNNBase):
+            for p in m.parameters(recurse=False):
+                fan_in_uniform_(p, m.hidden_size)
+        elif isinstance(m, ConvPositionalEmbedding):
+            k, e = m.weight.shape[-1], m.weight.shape[0]
+            m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                           * math.sqrt(4.0 / (k * e)))
+            m.bias.zero_()
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, BatchNorm1d)):
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, ShiftedWindowAttention3d):

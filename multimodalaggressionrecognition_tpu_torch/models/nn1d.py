@@ -1,11 +1,13 @@
 """1-D conv-net building blocks with torch semantics, channels-last layout.
 
 Sequence tensors are (B, L, C), as in the JAX package (models/nn1d.py).
-The waveform stem (C_in = 1) runs through the framed-conv CUDA kernel
-(ops/cuda/framed_conv.py): for inference with an eval BatchNorm and ReLU
-folded into its epilogue, and where a gradient is needed through its
-autograd Function with the bias only.  Every other convolution is
-`F.conv1d`, as the JAX package leaves those to XLA.
+A waveform stem (C_in = 1) with a bias runs through the framed-conv CUDA
+kernel (ops/cuda/framed_conv.py), as the JAX package takes its Pallas
+kernel only there: for inference with an eval BatchNorm and ReLU folded
+into its epilogue, and where a gradient is needed through its autograd
+Function with the bias only.  Every other convolution, the bias-free
+C_in = 1 conv0 of the wav2vec encoders included, is `F.conv1d`, as the JAX
+package leaves those to XLA.
 
 BatchNorm follows torch.nn.BatchNorm1d: in train mode it normalizes with the
 biased batch variance and moves the running statistics (momentum 0.1) with
@@ -25,23 +27,24 @@ class Conv1d(nn.Module):
     """Strided 1-D convolution on (B, L, C_in) -> (B, L_out, C_out).
 
     Weight (C_out, C_in, K) as torch's; the JAX package's frame-major
-    (K*C_in, C_out) kernel converts in io/from_jax.py.  `scale`, `shift` and
-    `relu` apply `act(y * scale + shift)` per output channel after the bias:
-    fused into the kernel on the stem, plain ops elsewhere.
+    (K*C_in, C_out) kernel converts in io/from_jax.py.  `bias=False` has no
+    bias parameter, as the JAX `use_bias=False` has no leaf.  `scale`,
+    `shift` and `relu` apply `act(y * scale + shift)` per output channel
+    after the bias: fused into the kernel on the stem, plain ops elsewhere.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0):
+                 stride: int = 1, padding: int = 0, bias: bool = True):
         super().__init__()
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         self.weight = nn.Parameter(
             torch.empty(features, in_channels, kernel_size))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
         bound = (in_channels * kernel_size) ** -0.5
         nn.init.uniform_(self.weight, -bound, bound)
 
     def forward(self, x, scale=None, shift=None, relu: bool = False):
-        if x.shape[-1] == 1:
+        if x.shape[-1] == 1 and self.bias is not None:
             # (C_out, 1, K) -> (K, C_out): the kernel's (F, C_out) layout
             w = self.weight[:, 0, :].t().contiguous()
             args = (x[..., 0].contiguous(), w, self.bias, self.kernel_size,
@@ -116,3 +119,12 @@ class SampleDropout(Stochastic):
 
     def noise_shape(self, x):
         return (x.shape[0], 1)
+
+
+class GroupNorm(nn.GroupNorm):
+    """torch nn.GroupNorm on (B, L, C): normalizes over L and each group of
+    C / num_groups channels (one group: wav2vec-1; C groups: wav2vec-2's
+    norm0), eps 1e-5."""
+
+    def forward(self, x):
+        return super().forward(x.transpose(1, 2)).transpose(1, 2)

@@ -9,6 +9,9 @@ package's train/loop.py).
   for training;
 - `checkpoint_current` after every epoch and `checkpoint_best_{head}` on an
   improvement of `1 - criterion` (or of the loss);
+- `on_epoch_start(epoch)`, when given, is called at the top of each epoch,
+  before the sampler's `set_epoch` (`train_video_rnn --epoch_dirs` moves
+  the train source to that epoch's directory);
 - resume from a checkpoint (`load_checkpoint`) or from the run dir's
   `checkpoint_current` (`resume_latest`); every epoch's shuffling and
   dropout draws are keyed by the epoch, so a resumed run continues as the
@@ -25,7 +28,7 @@ TensorBoard, the profiler, early stopping and multi-process training.
 import os
 import time
 from collections import deque
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -96,8 +99,10 @@ class Trainer:
                  test_loader, num_classes: int, saving_dir: str,
                  model_name: str, device, checkpoint_criterion: str = "UAR",
                  seed: int = 0, log_console: bool = True,
-                 run_dir: Optional[str] = None, inflight_steps: int = 4):
+                 run_dir: Optional[str] = None, inflight_steps: int = 4,
+                 on_epoch_start: Optional[Callable[[int], None]] = None):
         self.model = model
+        self.on_epoch_start = on_epoch_start
         self.loss_specs = loss_specs
         self.learning_rate = learning_rate
         self.train_loader = train_loader
@@ -271,6 +276,8 @@ class Trainer:
     def fit(self, epochs: int):
         for epoch in range(self.start_epoch, epochs):
             t0 = time.time()
+            if self.on_epoch_start is not None:
+                self.on_epoch_start(epoch)
             sampler = getattr(self.train_loader, "sampler", None)
             if sampler is not None and hasattr(sampler, "set_epoch"):
                 sampler.set_epoch(epoch)

@@ -53,6 +53,18 @@ class SingleHeadAdapter(nn.Module):
         return {self.head: self.inner(modalities[self.modality]["data"])}
 
 
+class MultiHeadAdapter(nn.Module):
+    """A single-input model `inner` (data -> {head: logits}) in the batch
+    protocol: modalities -> inner(modalities[modality]['data'])."""
+
+    def __init__(self, inner: nn.Module, modality: str):
+        super().__init__()
+        self.inner, self.modality = inner, modality
+
+    def forward(self, modalities):
+        return self.inner(modalities[self.modality]["data"])
+
+
 def head_losses_and_metrics(outputs, batch, loss_specs: Dict[str, LossSpec],
                             num_classes: int):
     """(summed loss, {head: {'loss', 'valid', 'confusion'}}) over the heads

@@ -218,9 +218,21 @@ def test_cli_trains_and_writes_logs_and_checkpoints(tmp_path):
 
 
 def test_cli_transformer_arch_is_a_later_slice(tmp_path):
-    with pytest.raises(SystemExit, match="queue 1 item 5"):
-        tcli.main(_cli_args(tmp_path, "--arch", "transformer"))
+    """`--arch transformer` arrived with the wav2vec slice: it trains on
+    the CPU and writes the head 'main''s logs and checkpoints
+    (tests/test_torch_w2v_transformer.py holds its model to JAX's); an
+    unknown arch still fails before any data work."""
+    with pytest.raises(SystemExit, match="--arch must be vgg or transformer"):
+        tcli.main(_cli_args(tmp_path, "--arch", "lstm"))
     assert not (tmp_path / "wavs").exists()
+    trainer = tcli.main(_cli_args(tmp_path, "--arch", "transformer"))
+    files = set(os.listdir(trainer.run_dir))
+    assert {"checkpoint_current", "checkpoint_best_main",
+            "main_train_log.csv", "main_test_log.csv"} <= files
+    df = pd.read_csv(os.path.join(trainer.run_dir, "main_train_log.csv"))
+    assert df["epoch"].tolist() == [0] and np.isfinite(df["loss"]).all()
+    assert trainer.state.step == 2
+    assert isinstance(trainer.state.model, tcli.W2VTransformer)
 
 
 def test_cli_cuda_default_raises_without_a_card(tmp_path):

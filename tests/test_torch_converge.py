@@ -1,9 +1,13 @@
 """Convergence of the port's trainer: the port's counterparts of
 tests/test_convergence.py's runs of the tri-modal model (with the Swin
 tower fine-tuned, --video_freeze false), the spectrogram VGG, the text
-transformer, the audio,text two-tower model and the video transformer.  On the class-separable synthetic fixtures every head must
-reach a best test UAR of at least 0.9, the JAX entries' floor.  Slow
-(minutes on a CPU): not part of the fast lane.
+transformer, the audio,text two-tower model, the video transformer, and
+the multi-head RNN entries over wav2vec-1 audio features and over video
+feature sequences.  On the class-separable synthetic fixtures every head
+of the single-head entries, and the best head of the multi-head ones (the
+reference's model selection), must reach a best test UAR of at least
+0.9, the JAX entries' floor.  Slow (minutes on a CPU): not part of the
+fast lane.
 """
 
 import glob
@@ -14,7 +18,8 @@ import pytest
 pytestmark = [pytest.mark.slow, pytest.mark.converge]
 
 
-def _best_uar(saving_dir, head):
+def _best_uar(saving_dir, head="*"):
+    """The best test UAR of `head`, or of any head."""
     files = glob.glob(f"{saving_dir}/*/{head}_test_log.csv")
     assert files, f"no '{head}' test logs under {saving_dir}"
     return max(float(pd.read_csv(f)["UAR"].max()) for f in files)
@@ -111,3 +116,31 @@ def test_converge_video_transformer(tmp_path):
         "8", "--num_layers", "1", "--synthetic_videos", "--log_console",
         "false", "--device", "cpu"])
     assert _best_uar(runs, "main") >= 0.9
+
+
+def test_converge_audio_rnn(tmp_path):
+    """tests/test_convergence.py::test_converge_audio_rnn's run: the
+    class-coded tones survive the wav2vec-1 encoder's group norms."""
+    from multimodalaggressionrecognition_tpu_torch.cli import train_audio_rnn
+
+    runs = tmp_path / "runs"
+    train_audio_rnn.main([
+        "--files_root", str(tmp_path / "wavs"), "--saving_dir", str(runs),
+        "--epoch_num", "5", "--batch_size", "4", "--audio_seconds", "1",
+        "--extractor", "wav2vec1", "--synthetic_files", "16",
+        "--synthetic_wav", "--synthetic_tones", "--log_console", "false",
+        "--device", "cpu"])
+    assert _best_uar(runs) >= 0.9
+
+
+def test_converge_video_rnn(tmp_path):
+    """tests/test_convergence.py::test_converge_video_rnn's run."""
+    from multimodalaggressionrecognition_tpu_torch.cli import train_video_rnn
+
+    runs = tmp_path / "runs"
+    train_video_rnn.main([
+        "--files_root", str(tmp_path / "feats"), "--saving_dir", str(runs),
+        "--epoch_num", "6", "--batch_size", "4", "--feature_dim", "64",
+        "--hidden_size", "32", "--synthetic_features", "--log_console",
+        "false", "--device", "cpu"])
+    assert _best_uar(runs) >= 0.9
