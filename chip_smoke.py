@@ -50,7 +50,16 @@ Phases (any failure raises, and the script exits non-zero):
                 path, odd H and W, a T shift, shift 0 on one axis, B = 1, a
                 misaligned view), twice bit for bit, its autograd backward
                 against the opposite roll; its time cold and warm at both
-                stages against its bound (bytes) and torch.roll.
+                stages against its bound (bytes) and torch.roll.  K2 and K4
+                also at the shapes of the extraction forward
+                (extract_features --backbone swin3d_t, b4 x 304 frames, 76
+                16-frame windows, the full (8, 7, 7) window): K2 at every
+                stage (stage 0: W = 1216, N = 392, its real mask), 1e-4,
+                with stage 0's times cold and warm, plain and SDPA, against
+                its bound, and its launch (threads, shared memory, blocks
+                per SM) at N = 392; K4 at (76, 8, 28, 28, 96) and
+                (76, 8, 14, 14, 192), both signs, bit for bit, cold and
+                warm against its bound and torch.roll.
   4. slices   - each served model at full width with seeded random weights:
                 audio,text (hidden 768, 80 000 samples, 48 tokens, 1 fusion
                 layer, 8 heads, batch 32), then audio,text,video (+ the frozen
@@ -142,7 +151,35 @@ Phases (any failure raises, and the script exits non-zero):
                 (498 frames) and a 2-layer, 8-head transformer head:
                 parity at b2 as (a); 2 epochs at b16 on 32 + 8 tone clips,
                 no kernel; the step time.
+ 13. train3dcnn - the bbox-masked R3D-18 at cli/train3dcnn.py's defaults
+                (b8, 32 frames at 112 px, 4 classes, alpha 0.4): (a) its
+                loss, logits and every gradient at b2, eval mode, card
+                against CPU, each run held to float64 on its own ReLU
+                decisions (the differing decisions counted); (b)
+                cli.train3dcnn.main, 2 epochs on 16 + 8 synthetic clip dirs
+                written at 112 px (the paired augmentation on every train
+                clip, no resize): no kernel launched; the logs and
+                checkpoints; (c) the median step time, the peak memory,
+                the kernel families with cuDNN's conv forward, dgrad and
+                wgrad apart, the busy share.
+ 14. extract   - cli.extract_features.main at its defaults (b4, 304
+                frames, 16-frame windows, --swin_gelu poly, --num_epochs 1)
+                on 4 + 4 clips of 304 frames at 112 px, for each backbone:
+                (a) one clip's features card against CPU, 1e-3 of the
+                largest; (b) the CLI with the launch counts reset just
+                before and read just after: K2 12 and K4 4 per Swin
+                forward, none for R3D-18 and S3D; the files test/,
+                train/0/, train/1/ with (19, D) arrays; (c) the device ms
+                and kernel families of one b4 forward, and the host-clock
+                ms per batch and clips/s of a 3-batch split with the lag-1
+                readback and with MAR_EXTRACT_PIPELINE=0, in turns.
+ 15. generate_features - cli.generate_features.main on the tri-modal model
+                at TRAIN's config (b8) over a synthetic table: the fused
+                tokens card against CPU at b2 (1e-3), launches per batch
+                by the modalities present (K1 once with audio, K2 12 and
+                K4 4 times with video), the files and manifest.
 Prints a `slice` JSON line per slice, a `train` JSON line per train path,
+an `extract` JSON line per backbone,
 the `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Every kernel
 entry's `launches` counts the tri-modal fine-tune; `launches_by_path` gives
@@ -695,8 +732,11 @@ def k4_phase(card: str):
     return out
 
 
-def k2_inputs(w, n, heads, d, nw, seed, stage_mask=False):
-    """qkv, bias and mask on the card, drawn there from `seed`."""
+def k2_inputs(w, n, heads, d, nw, seed, stage_mask=False, window=(4, 7, 7),
+              grids=K2_GRIDS):
+    """qkv, bias and mask on the card, drawn there from `seed`; a stage's
+    mask is the real one of its padded grid (`grids[nW_img]`) for
+    `window` shifted by (0, 3, 3)."""
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     c = heads * d
     qkv = torch.randn((w, n, 3 * c), generator=g, device=DEVICE)
@@ -704,7 +744,7 @@ def k2_inputs(w, n, heads, d, nw, seed, stage_mask=False):
     mask = None
     if nw and stage_mask:
         mask = torch.from_numpy(_attention_mask(
-            *K2_GRIDS[nw], (4, 7, 7), (0, 3, 3))).to(DEVICE)
+            *grids[nw], window, (0, 3, 3))).to(DEVICE)
     elif nw:
         mask = torch.where(torch.rand((nw, n, n), generator=g,
                                       device=DEVICE) > 0.7, -100.0, 0.0)
@@ -755,9 +795,6 @@ def k2_phase(card: str):
             f"out={tuple(got.shape)} max_abs_err={err:.3e} <= {tol:g} ok")
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    def sdpa(q, k, v, am):
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=am)
 
     # every stage: the kernel; at the main path's shape (stage 0's shifted
     # block) also the plain version, and there and at stage 2 SDPA
@@ -932,8 +969,9 @@ def k3_phase(card: str):
             "train_step_fma_bound_ms": step_fma}
 
 
-def kernel_breakdown(fn, reps: int = 5):
-    """Device time per call of fn() by kernel family (torch.profiler)."""
+def kernel_breakdown(fn, reps: int = 5, split_conv: bool = False):
+    """Device time per call of fn() by kernel family (torch.profiler);
+    `split_conv` files cuDNN's convs under forward, dgrad and wgrad."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -979,6 +1017,10 @@ def kernel_breakdown(fn, reps: int = 5):
                   else "roll, copies, pads, concat" if any(
                       k in name for k in ("roll", "copy", "pad", "cat"))
                   else "other elementwise, GELU, reductions")
+        if split_conv and family == "cuDNN conv":
+            family = ("cuDNN conv dgrad" if "dgrad" in name
+                      else "cuDNN conv wgrad" if "wgrad" in name
+                      else "cuDNN conv forward")
         families[family] = (families.get(family, 0.0)
                             + e.self_device_time_total / reps / 1e3)
         top.append((e.self_device_time_total / reps / 1e3, e.key[:72]))
@@ -1556,7 +1598,7 @@ def labelled(modalities, n: int, heads=("main",)):
 
 
 def train_cli_phase(label, cli, args, card_line, per_step, parity,
-                    heads=("main",)):
+                    heads=("main",), split_conv=False):
     """One train entry at full width through cli.main (run_cli), its
     launches against `per_step` launches per train and eval step, then its
     median step time, peak memory and kernel families; prints its `train`
@@ -1575,7 +1617,8 @@ def train_cli_phase(label, cli, args, card_line, per_step, parity,
         raise AssertionError(f"train {label}: a step launched {one}, want "
                              f"{per_step}")
     step_ms, peak_gb = median_step_ms(trainer, batch)
-    families = kernel_breakdown(lambda: trainer.train_step(batch), reps=3)
+    families = kernel_breakdown(lambda: trainer.train_step(batch), reps=3,
+                                split_conv=split_conv)
     busy = sum(families.values())
     b = batch["sample_mask"].shape[0]
     log(f"train {label} step b{b} on {card_line}: median {step_ms:.3f} ms, "
@@ -2070,7 +2113,7 @@ class relu_decisions:
         torch.relu = self._relu
 
 
-def replay_parity(label, model, batch, specs):
+def replay_parity(label, model, batch, specs, num_classes=2):
     """loss_parity for a model with many ReLUs: the loss and the logits
     card against CPU within 1e-3; every gradient of each run, the card's
     and the CPU's, within 1e-3 * max|g| of a float64 CPU run that takes
@@ -2083,7 +2126,7 @@ def replay_parity(label, model, batch, specs):
         b = to_device(batch, DEVICE if name == "card" else "cpu")
         with relu_decisions() as rec:
             logits = m(b["modalities"])
-        total, _ = head_losses_and_metrics(logits, b, specs, 2)
+        total, _ = head_losses_and_metrics(logits, b, specs, num_classes)
         total.backward()
         ref = copy.deepcopy(model).double()
         ref.zero_grad(set_to_none=True)
@@ -2093,7 +2136,7 @@ def replay_parity(label, model, batch, specs):
         with relu_decisions(rec.taken):
             ref_logits = ref(ref_batch["modalities"])
         ref_total, _ = head_losses_and_metrics(ref_logits, ref_batch, specs,
-                                               2)
+                                               num_classes)
         ref_total.backward()
         grads = {n: p.grad.double().cpu() for n, p in m.named_parameters()
                  if p.requires_grad}
@@ -2162,6 +2205,430 @@ def audio_transformer_w2v_phase(card_line):
         return train_cli_phase("audio_transformer_w2v", cli, args, card_line,
                                {}, parity)[0]
 
+# extract_features at its CLI defaults (b4 clips of 304 frames at 112 px,
+# 16-frame windows): 19 windows a clip, 76 a batch.  The Swin's patch grid
+# is 8 x 28 x 28, its window the full (8, 7, 7) (N = 392; T' = 8 fills one
+# window, so T is not shifted).  K2 per forward, (name, W, N, heads, d,
+# nW_img, launches): stage 0 and 1 shifted and not, stage 2 (7 x 7 clamps H
+# and W: no shift) and stage 3 (4 x 4 after the merge, N = 128)
+K2_EXTRACT = [("stage0-shifted", 1216, 392, 3, 32, 16, 1),
+              ("stage0", 1216, 392, 3, 32, 0, 1),
+              ("stage1-shifted", 304, 392, 6, 32, 4, 1),
+              ("stage1", 304, 392, 6, 32, 0, 1),
+              ("stage2", 76, 392, 12, 32, 0, 6),
+              ("stage3", 76, 128, 24, 32, 0, 2)]
+K2_EXTRACT_GRIDS = {16: (8, 28, 28), 4: (8, 14, 14)}
+# K4 per extraction forward: the two shifted stages, each rolled by
+# (0, 3, 3) before the attention and back after it
+K4_EXTRACT = {"stage0": (76, 8, 28, 28, 96), "stage1": (76, 8, 14, 14, 192)}
+
+
+def sdpa(q, k, v, am):
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+
+
+def k2_extract_phase(card: str):
+    """K2 at the extraction forward's shapes against its plain version at
+    1e-4, each with its stage's real mask; at stage 0's shifted block
+    (W = 1216, N = 392) the kernel's, the plain version's and SDPA's
+    times cold (L2 flushed) and warm (back-to-back calls) against the
+    bound; the kernel's warm time at every stage and per forward."""
+    kw = dict(stage_mask=True, window=(8, 7, 7), grids=K2_EXTRACT_GRIDS)
+    worst = 0.0
+    for name, w, n, heads, d, nw, _ in K2_EXTRACT:
+        qkv, bias, mask = k2_inputs(w, n, heads, d, nw, seed=31 + w, **kw)
+        got = fused_window_attention(qkv, bias, mask, heads)
+        torch.cuda.synchronize()
+        ref = attention_core_reference(qkv, bias, mask, heads)
+        err = (got - ref).abs().max().item()
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+        worst = max(worst, err)
+        log(f"k2 extract {name}: W={w} N={n} heads={heads} d={d} nW_img={nw} "
+            f"max_abs_err={err:.3e} <= 1e-4 ok")
+        del qkv, bias, mask, got, ref
+    info = launch_info("window_attention", 392, 32)
+    log(f"k2 launch at N=392 d=32: {info['threads']} threads, "
+        f"{info['dynamic_smem_bytes']} B dynamic smem, "
+        f"{info['blocks_per_sm']} blocks per SM")
+
+    out, fwd_ms, fwd_bound = {}, 0.0, 0.0
+    labels = {"ms": "kernel", "plain_ms": "plain", "library_ms": "SDPA"}
+    for name, w, n, heads, d, nw, launches in K2_EXTRACT:
+        def make(i, w=w, n=n, heads=heads, d=d, nw=nw):
+            return k2_inputs(w, n, heads, d, nw, seed=50 + i, **kw)
+
+        call = rotating(make, n=2)
+        fns = {"ms": call(
+            lambda q, b, m, h=heads: fused_window_attention(q, b, m, h))}
+        main = name == "stage0-shifted"
+        if main:
+            fns["plain_ms"] = call(
+                lambda q, b, m, h=heads: attention_core_reference(q, b, m, h))
+            fns["library_ms"] = rotating(
+                lambda i: sdpa_args(*make(i), heads), n=2)(sdpa)
+        # a launch takes 0.1-3 ms here, far above Python's dispatch: the
+        # back-to-back calls of cuda_ms time the card, not the host
+        warm = in_turns(fns, reps=10)
+        bd = bound(card, *k2_work(w, n, heads, d, nw), tensor=True)
+        fwd_ms += launches * warm["ms"]
+        fwd_bound += launches * bd["bound_ms"]
+        if main:
+            cold = in_turns(fns, reps=10, timer=cold_ms)
+            out.update({**cold, "warm": warm, "bound_ms": bd["bound_ms"],
+                        "bound_by": bd["bound_by"],
+                        "fma_bound_ms": bd["fma_bound_ms"],
+                        "shape": {"W": w, "N": n, "heads": heads, "d": d,
+                                  "nW_img": nw}, "launch": info})
+            log(f"k2 extract {name} timing (cold) on {card}: " + ", ".join(
+                f"{labels[k]} {v:.4f} ms" for k, v in cold.items())
+                + f"; kernel at {bd['bound_ms'] / cold['ms'] * 100:.1f}% of "
+                "the tensor-core bound")
+        out.setdefault("warm_ms_by_stage", {})[name] = warm["ms"]
+        log(f"k2 extract {name} x{launches} per forward (warm) on {card}: "
+            + ", ".join(f"{labels[k]} {v:.4f} ms" for k, v in warm.items())
+            + f"; {bound_text(bd)}; kernel at "
+            f"{bd['bound_ms'] / warm['ms'] * 100:.1f}% of the tensor-core "
+            "bound")
+        del call, fns
+    log(f"k2 per extraction forward (12 launches, warm): {fwd_ms:.4f} ms, "
+        f"tensor-core bound {fwd_bound:.4f} ms "
+        f"({fwd_bound / fwd_ms * 100:.1f}%)")
+    return {"max_abs_err": worst, **out, "forward_ms": fwd_ms,
+            "forward_bound_ms": fwd_bound}
+
+
+def k4_extract_phase(card: str):
+    """K4 at the extraction forward's two shifted stages, both signs, bit
+    for bit against torch.roll; the kernel's, the plain version's and
+    torch.roll's times cold and warm against the bytes bound."""
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    for stage, shape in K4_EXTRACT.items():
+        x = torch.randn(shape, generator=g, device=DEVICE)
+        for shifts in ((0, 3, 3), (0, -3, -3)):
+            got = circular_roll(x, shifts)
+            torch.cuda.synchronize()
+            if not torch.equal(got, roll_reference(x, shifts)):
+                raise AssertionError(f"k4 extract {stage} {shifts}: differs "
+                                     "from torch.roll")
+        log(f"k4 extract {stage}: {shape} by (0, +-3, +-3) bitwise equal to "
+            "torch.roll ok")
+        del x, got
+    out = {"max_abs_err": 0.0}
+    labels = {"ms": "kernel", "plain_ms": "plain (torch.roll)",
+              "library_ms": "torch.roll"}
+    for stage, shape in K4_EXTRACT.items():
+        def make(i, shape=shape):
+            gi = torch.Generator(device=DEVICE).manual_seed(300 + i)
+            return (torch.randn(shape, generator=gi, device=DEVICE),)
+
+        call = rotating(make)
+        fns = {"ms": call(lambda x: circular_roll(x, (0, -3, -3))),
+               "plain_ms": call(lambda x: roll_reference(x, (0, -3, -3))),
+               "library_ms": call(lambda x: torch.roll(x, (3, 3), (2, 3)))}
+        cold = in_turns(fns, reps=20, timer=cold_ms)
+        warm = in_turns(fns, reps=20, timer=graph_ms)
+        nbytes = 2 * 4 * int(np.prod(shape))
+        bd = bound(card, 0, nbytes)
+        for label, t in (("cold", cold), ("warm", warm)):
+            log(f"k4 extract {stage} {shape} timing ({label}) on {card}: "
+                + ", ".join(f"{labels[k]} {v:.4f} ms" for k, v in t.items())
+                + f"; {nbytes / 1e6:.1f} MB; bound {bd['bound_ms']:.4f} ms "
+                f"(bytes); kernel at {bd['bound_ms'] / t['ms'] * 100:.1f}% "
+                "of the bound")
+        numbers = {**cold, "warm": warm, "bound_ms": bd["bound_ms"],
+                   "bound_by": "bytes", "shape": list(shape),
+                   "shifts": [0, -3, -3]}
+        if stage == "stage0":
+            out.update(numbers)
+        else:
+            out[stage] = numbers
+        del call, fns
+    return out
+
+
+# train3dcnn at its defaults (b8, 32 frames at 112 px, 4 classes, alpha
+# 0.4) on 16 + 8 synthetic clip dirs written at 112 px (no host resize;
+# the paired augmentation runs on every train clip)
+CLIPS_3D = dict(n_train=16, n_test=8, frames=32, hw=112)
+
+
+def train3dcnn_phase(card_line):
+    """(a) R3DWithBboxes' loss, logits and every gradient at b2, full
+    width, eval mode, card against CPU, each run against float64 on its
+    own ReLU decisions (replay_parity); (b) cli.train3dcnn.main at its
+    defaults, 2 epochs: no hand-written kernel; the logs and checkpoints;
+    (c) the median step time, the peak memory, the kernel families with
+    cuDNN's conv forward, dgrad and wgrad apart, the busy share."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        train3dcnn as cli)
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        make_synthetic_clips)
+
+    cfg = cli.Cnn3DConfig()
+    model = randomize_norms(seeded_init_(cli.make_model(cfg), SEED))
+    g = torch.Generator().manual_seed(SEED + 16)
+    size, frames = cfg.video_size, cfg.frame_num
+    video = torch.rand((2, frames, size, size, 3), generator=g)
+    mask = torch.zeros((2, frames, size, size, 1))
+    mask[0, :, 20:90, 30:70] = 1.0
+    mask[1, 4:, 10:60, 50:110] = 1.0
+    batch = labelled({"video": video}, 2)
+    batch["modalities"]["video"]["mask"] = mask
+    parity = replay_parity("train3dcnn", model, batch,
+                           {"main": LossSpec("ce")}, num_classes=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "clips")
+        make_synthetic_clips(root, seed=SEED, **CLIPS_3D)
+        args = ["--files_root", root, "--saving_dir",
+                os.path.join(tmp, "runs"), "--run_name", "r", "--epoch_num",
+                "2", "--device", DEVICE, "--num_threads", "4"]
+        return train_cli_phase("train3dcnn", cli, args, card_line, {},
+                               parity, split_conv=True)[0]
+
+
+# extract_features: 4 train and 4 test clips of 304 frames at 112 px, one
+# augmented re-extraction of the train split (--num_epochs 1)
+EXTRACT_CLIPS = dict(n_train=4, n_test=4, frames=304, hw=112)
+EXTRACT_DIMS = {"swin3d_t": 768, "r3d18": 512, "s3d": 1024}
+PER_EXTRACT_FORWARD = {"swin3d_t": {"window_attention": 12, "roll": 4},
+                       "r3d18": {}, "s3d": {}}
+
+
+def extract_backbone(backbone, root, tmp, card_line):
+    """One backbone: (a) features of one clip card against CPU, 1e-3 of
+    the largest; (b) cli.extract_features.main at its defaults with the
+    launch counts reset just before and read just after: each forward
+    launches PER_EXTRACT_FORWARD, the files' names and (19, D) shapes;
+    (c) the device ms of a batch forward, its kernel families, and the
+    host-clock ms per batch and clips/s of a 3-batch split with the lag-1
+    readback and with MAR_EXTRACT_PIPELINE=0, in turns."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        extract_features as cli)
+
+    cfg = cli.parse_config(cli.ExtractConfig, ["--backbone", backbone,
+                                               "--swin_gelu", "poly"])
+    dim, per_forward = EXTRACT_DIMS[backbone], PER_EXTRACT_FORWARD[backbone]
+    windows = cfg.frame_num // cfg.window
+    model = randomize_norms(seeded_init_(cli.make_extractor(cfg), SEED))
+    clip = torch.rand((1, cfg.frame_num, 112, 112, 3),
+                      generator=torch.Generator().manual_seed(SEED + 17))
+    gpu = copy.deepcopy(model).to(DEVICE)
+    with torch.inference_mode():
+        want = model(clip)
+        torch.cuda.synchronize()
+        kernels.launch_counts.clear()
+        got = gpu(clip.to(DEVICE))
+        torch.cuda.synchronize()
+        one = dict(kernels.launch_counts)
+    got = got.cpu()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if (got.shape != (1, windows, dim) or not torch.isfinite(got).all()
+            or err > 1e-3 * scale or one != per_forward):
+        raise AssertionError(f"extract {backbone}: card features "
+                             f"{tuple(got.shape)} differ by {err:.3e} (max "
+                             f"{scale:.3e}); a forward launched {one}")
+    log(f"extract {backbone} parity: b1 x {cfg.frame_num} frames, card vs "
+        f"cpu max |d| {err:.3e} (largest {scale:.3e}) <= 1e-3 of it ok; "
+        f"launches per forward {one}")
+
+    out = os.path.join(tmp, f"out_{backbone}")
+    args = ["--files_root", root, "--out_root", out, "--backbone", backbone,
+            "--num_epochs", "1", "--swin_gelu", "poly", "--device", DEVICE,
+            "--seed", str(SEED)]
+    torch.cuda.synchronize()
+    kernels.launch_counts.clear()  # count this path only
+    t0 = time.monotonic()
+    cli.main(args)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)  # read just after the main path
+    run_s = time.monotonic() - t0
+    forwards = 3  # test, train/0, train/1: one batch of 4 clips each
+    if counts != {k: v * forwards for k, v in per_forward.items()}:
+        raise AssertionError(f"extract {backbone}: {forwards} forwards "
+                             f"launched {counts}, want {per_forward} each")
+    for sub in ("test", "train/0", "train/1"):
+        split = "test" if sub == "test" else "train"
+        want_names = sorted(f[:-3] + ".npy" for f in os.listdir(
+            os.path.join(root, split)))
+        names = sorted(os.listdir(os.path.join(out, sub)))
+        if names != want_names:
+            raise AssertionError(f"extract {backbone}: {sub} holds {names}")
+        for f in names:
+            a = np.load(os.path.join(out, sub, f))
+            if a.shape != (windows, dim) or not np.isfinite(a).all():
+                raise AssertionError(f"extract {backbone}: {sub}/{f} "
+                                     f"{a.shape}")
+    log(f"extract {backbone} main path on {card_line}: test, train/0, "
+        f"train/1 of 4 clips each written, ({windows}, {dim}) per clip, "
+        f"launches {counts}, run {run_s:.1f} s")
+
+    batch = torch.rand((cfg.batch_size, cfg.frame_num, 112, 112, 3),
+                       generator=torch.Generator().manual_seed(SEED + 18)
+                       ).to(DEVICE)
+    times = []
+    with torch.inference_mode():
+        gpu(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            gpu(batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        families = kernel_breakdown(lambda: gpu(batch), reps=2,
+                                    split_conv=True)
+    forward_ms = float(np.median(times))
+    busy = sum(families.values())
+    del batch
+
+    # a 3-batch split: the 4 train clips under three names each
+    timing = os.path.join(tmp, "timing")
+    os.makedirs(timing, exist_ok=True)
+    for f in sorted(os.listdir(os.path.join(root, "train"))):
+        for k in range(3):
+            link = os.path.join(timing, f"r{k}{f}")
+            if not os.path.exists(link):
+                os.symlink(os.path.join(root, "train", f), link)
+    host = {"lag1": [], "sequential": []}
+    device = torch.device(DEVICE)
+    for mode in ("lag1", "sequential", "sequential", "lag1"):
+        os.environ["MAR_EXTRACT_PIPELINE"] = "0" if mode == "sequential" else "1"
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        n = cli.run_split(gpu, cfg, device, timing,
+                          os.path.join(tmp, f"timing_out_{backbone}"))
+        torch.cuda.synchronize()
+        host[mode].append(time.monotonic() - t0)
+    os.environ.pop("MAR_EXTRACT_PIPELINE")
+    batches = -(-n // cfg.batch_size)
+    rates = {m: {"ms_per_batch": min(v) / batches * 1e3,
+                 "clips_per_s": n / min(v)} for m, v in host.items()}
+    log(f"extract {backbone} on {card_line}: device forward b4 x "
+        f"{cfg.frame_num} frames ({windows * cfg.batch_size} windows) "
+        f"median {forward_ms:.3f} ms, peak {peak:.2f} GiB; kernels by "
+        "family (ms per forward): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(families.items(),
+                                              key=lambda kv: -kv[1]))
+        + f"; sum {busy:.4f} ms = {busy / forward_ms * 100:.1f}% busy; "
+        f"{n} clips in {batches} batches, host clock: lag-1 "
+        f"{rates['lag1']['ms_per_batch']:.1f} ms per batch "
+        f"({rates['lag1']['clips_per_s']:.2f} clips/s), sequential "
+        f"{rates['sequential']['ms_per_batch']:.1f} ms "
+        f"({rates['sequential']['clips_per_s']:.2f} clips/s)")
+    log(json.dumps({"extract": backbone, "batch": cfg.batch_size,
+                    "frames": cfg.frame_num, "window": cfg.window,
+                    "launches": counts, "launches_per_forward": one,
+                    "parity_max_abs_err": err, "forward_ms": forward_ms,
+                    "peak_gib": peak, "kernel_ms_by_family": families,
+                    "kernel_busy_pct": busy / forward_ms * 100,
+                    "host": rates}))
+    return counts
+
+
+def extract_phase(card_line):
+    """extract_features with each backbone on the same clips."""
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        make_synthetic_videos)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "vids")
+        make_synthetic_videos(root, seed=SEED, **EXTRACT_CLIPS)
+        return {f"extract_{b}": extract_backbone(b, root, tmp, card_line)
+                for b in EXTRACT_DIMS}
+
+
+# generate_features on the tri-modal model at full width (TRAIN's config,
+# b8) over TRAIN_DATA's table: launches per batch by the modalities present
+PER_GEN_MODALITY = {"audio": {"framed_conv1d": 1},
+                    "video": {"window_attention": 12, "roll": 4}}
+
+
+def generate_features_phase(card_line):
+    """(a) the tri-modal model's fused tokens at b2, full width, card
+    against CPU, 1e-3 of the largest; (b) cli.generate_features.main at
+    TRAIN's config on a synthetic table, the launch counts reset just
+    before and read just after, against the batches its loaders give (K1
+    once with audio, K2 12 and K4 4 times with video); the files and the
+    manifest; host-clock ms per batch."""
+    import pandas as pd
+
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        generate_features as cli)
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        train_multimodal)
+    from multimodalaggressionrecognition_tpu_torch.cli.common import (
+        ensure_dataset)
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        generate_synthetic_avabos)
+
+    modalities = ("audio", "text", "video")
+    model = seeded_model(TRIMODAL, modalities)
+    b = full_batch(TRIMODAL, modalities, 2, SEED + 19)
+    gpu = copy.deepcopy(model).to(DEVICE)
+    with torch.inference_mode():
+        want = cli.fused_features(model, b)
+        got = cli.fused_features(gpu, to_device(b, DEVICE))
+    errs = {m: (got[m].cpu() - want[m]).abs().max().item()
+            / want[m].abs().max().item() for m in want}
+    if sorted(got) != list(modalities) or max(errs.values()) > 1e-3:
+        raise AssertionError(f"generate_features parity: {errs}")
+    log("generate_features parity: tri-modal b2 full width, fused tokens "
+        "card vs cpu max |d| / max " + ", ".join(
+            f"{m} {e:.3e}" for m, e in errs.items()) + " <= 1e-3 ok")
+    del gpu
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = os.path.join(tmp, "avabos"), os.path.join(tmp, "fused")
+        generate_synthetic_avabos(root, **TRAIN_DATA)
+        args = ["--dataset_root", root, "--synthetic", "--modalities",
+                ",".join(modalities), "--out_dir", out, "--device", DEVICE,
+                "--num_threads", "4", "--seed", str(SEED)]
+        for k in ("hidden_size", "fusion_layers", "fusion_heads",
+                  "audio_samples", "text_tokens", "video_frames",
+                  "video_size", "video_window", "batch_size"):
+            args += [f"--{k}", str(TRAIN[k])]
+        cfg = cli.parse_config(cli.GenFeaturesConfig, args)
+        batches = [sorted(bt["modalities"]) for loader in
+                   train_multimodal.make_loaders(cfg, *ensure_dataset(cfg),
+                                                 modalities)
+                   for bt in loader]
+        expect = {}
+        for present in batches:
+            for m in present:
+                for k, v in PER_GEN_MODALITY.get(m, {}).items():
+                    expect[k] = expect.get(k, 0) + v
+        torch.cuda.synchronize()
+        kernels.launch_counts.clear()  # count this path only
+        t0 = time.monotonic()
+        cli.main(args)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)  # read just after the main path
+        run_s = time.monotonic() - t0
+        if counts != expect or not all(expect.get(k) for k in (
+                "framed_conv1d", "window_attention", "roll")):
+            raise AssertionError(f"generate_features: {len(batches)} "
+                                 f"batches launched {counts}, want {expect}")
+        manifest = pd.read_csv(os.path.join(out, "manifest.csv"))
+        names = sorted(f[:-4] for f in os.listdir(out) if f.endswith(".npy"))
+        if names != sorted(manifest["name"]) or len(names) < len(batches):
+            raise AssertionError(f"generate_features: {len(names)} files, "
+                                 f"manifest {len(manifest)}")
+        sample = np.load(os.path.join(out, f"{names[0]}.npy"),
+                         allow_pickle=True).item()
+        shapes = {m: a.shape for m, a in sample.items()}
+        if shapes != {"audio": (7, 768), "text": (48, 768),
+                      "video": (16, 768)}:
+            raise AssertionError(f"generate_features: {names[0]} {shapes}")
+    log(f"generate_features main path on {card_line}: {len(batches)} "
+        f"batches ({len(names)} samples), launches {counts}; run "
+        f"{run_s:.1f} s, {run_s / len(batches) * 1e3:.1f} ms per batch on "
+        "the host clock (data loading included)")
+    return counts
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2186,7 +2653,9 @@ def main():
     k1 = {**k1_phase(name), "resources": resources["framed_conv1d"]}
     k1["resample_poly_max_abs_err"] = resample_phase()
     k4 = {**k4_phase(name), "resources": resources["roll"]}
+    k4["extract"] = k4_extract_phase(name)
     k2 = {**k2_phase(name), "resources": resources["window_attention"]}
+    k2["extract"] = k2_extract_phase(name)
     k3 = {**k3_phase(name), "resources": resources["window_attention_bwd"]}
     launches = {label: run_slice(label, cfg, bs, parity_n, per_forward,
                                  card_line)
@@ -2204,6 +2673,9 @@ def main():
         launches["train_video_rnn"] = video_rnn_phase(card_line)
     launches["train_audio_transformer_w2v"] = audio_transformer_w2v_phase(
         card_line)
+    launches["train3dcnn"] = train3dcnn_phase(card_line)
+    launches.update(extract_phase(card_line))
+    launches["generate_features"] = generate_features_phase(card_line)
 
     def entry(kernel, source, replaces, numbers):
         return {"name": kernel, "route": "cuda",

@@ -145,11 +145,17 @@ def make_optimizer(cfg: TrainConfig) -> float:
                 f"--{name} {value} is not ported: the port trains with plain "
                 "Adam at a constant learning rate; schedules, warmup, "
                 "clipping, AdamW and accumulation arrive in a later slice")
+    require_float32(cfg, "trains")
+    return cfg.learning_rate
+
+
+def require_float32(cfg, runs: str):
+    """--compute_dtype other than float32 raises: the port `runs` (trains,
+    extracts) in f32 only."""
     if cfg.compute_dtype != "float32":
         raise SystemExit(f"--compute_dtype {cfg.compute_dtype} is not ported: "
-                         "the port trains in float32; bf16 arrives in a "
+                         f"the port {runs} in float32; bf16 arrives in a "
                          "later slice")
-    return cfg.learning_rate
 
 
 def build_trainer(cfg: TrainConfig, model, loss_specs, train_loader,

@@ -1,4 +1,4 @@
-"""Host -> device input pipeline (the JAX package's data/pipeline.py, without
+"""Host <-> device pipeline (the JAX package's data/pipeline.py, without
 JAX).
 
 `BatchLoader` builds fixed-shape numpy batches on host threads, in order.
@@ -7,6 +7,10 @@ copied into pinned host memory on worker threads, then sent with
 non-blocking copies on a side stream; the compute stream waits on an event
 recorded after the copies, so a step never reads a batch before it has
 arrived, and the copies of the next batches overlap the current step.
+`readback` starts the way back: copies of a batch's results into pinned
+host memory, queued behind the work that produces them, with an event to
+wait on (the feature-dumping entries read batch N-1 back while the card
+computes batch N).
 """
 
 from collections import deque
@@ -54,6 +58,22 @@ def _leaves(tree):
 def _pinned(batch):
     return _tree_map(lambda a: torch.from_numpy(np.asarray(a)).pin_memory(),
                      batch)
+
+
+def readback(tree, device):
+    """Start copying `tree` (nested dicts of tensors on `device`) to the host
+    behind the work queued so far: (host tree, event).  On a CUDA device the
+    host tensors are pinned and hold the values once `event.synchronize()`
+    returns; on the CPU the tree itself comes back, and the event is
+    None."""
+    if torch.device(device).type != "cuda":
+        return tree, None
+    host = _tree_map(lambda t: torch.empty(
+        t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True),
+        tree)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
 
 
 def device_prefetch(batch_iter: Iterable, device, prefetch: int = 2,

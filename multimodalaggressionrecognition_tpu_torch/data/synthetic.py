@@ -1,7 +1,7 @@
 """Synthetic AVABOS-shaped dataset generator (test/bench fixture; a copy of
 the JAX package's data/synthetic.py, which the port does not import), and
 the flat wav, video and feature-sequence fixtures of the single-modality
-entries.
+entries and the clip directories of the 3-D CNN entry.
 
 The real AVABOS dataset is private; every integration test and benchmark in
 this framework runs on this generator, which reproduces the reference's
@@ -152,3 +152,26 @@ def make_synthetic_features(root, dim, n_train=32, n_test=8, seq=19, seed=0):
             shift = 0.3 if label == "AGGR" else -0.3
             feats = rng.standard_normal((seq, dim)).astype(np.float32) + shift
             np.save(os.path.join(root, sub, f"clip{i}_{label}.npy"), feats)
+
+
+def make_synthetic_clips(root, n_train=8, n_test=4, frames=16, hw=64, seed=0):
+    """`root/{train,test}/clip!person,{i}!(0,1)!{LABEL}/` clip dirs, each
+    with `video.pt` ((frames, 3, hw, hw) f32 noise brightened by 0.1 per
+    class id) and `bboxes.npy` (the box [8, 8, 40, 40] on every frame),
+    labels cycling through the four classes (the JAX package's
+    cli/train3dcnn.py `_make_synthetic_clips`, byte for byte)."""
+    import torch
+
+    labels = ["Нет", "Захваты", "Толчки", "Удары"]
+    rng = np.random.default_rng(seed)
+    for sub, n in (("train", n_train), ("test", n_test)):
+        for i in range(n):
+            label = labels[i % len(labels)]
+            d = os.path.join(root, sub, f"clip!person,{i}!(0,1)!{label}")
+            os.makedirs(d, exist_ok=True)
+            vid = rng.uniform(0, 1, (frames, 3, hw, hw)).astype(np.float32)
+            vid += 0.1 * (labels.index(label))
+            torch.save(torch.from_numpy(vid), os.path.join(d, "video.pt"))
+            boxes = np.tile(np.asarray([[8, 8, 40, 40]], np.float32),
+                            (frames, 1))
+            np.save(os.path.join(d, "bboxes.npy"), boxes)

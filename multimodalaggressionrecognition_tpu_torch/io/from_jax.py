@@ -10,9 +10,11 @@ the port module of the same architecture.  Layout rules:
               1 for `conv0` and the previous conv's C_out after it (the
               CNN1D trunk's chain)
 - Conv2d:     kernel (kh, kw, C_in, C_out) -> weight (C_out, C_in, kh, kw)
-              (told from a Conv1d by its rank: the VGG names it conv{i})
 - Conv3d:     kernel (kt, kh, kw, C_in, C_out)
                                        -> weight (C_out, C_in, kt, kh, kw)
+              (both told from a Conv1d by their rank, before the Conv1d
+              rule: the VGG names its convs conv{i}, and R3D's blocks
+              conv1 and conv2)
 - Pos. conv:  pos_conv/kernel (K, E/g, E) -> weight (E, E/g, K)
 - GRU, LSTM:  kernel_ih (E, 3H|4H), kernel_hh (H, 3H|4H)
                                        -> weight_ih_l0, weight_hh_l0
@@ -101,10 +103,13 @@ def from_jax_variables(variables, renames=()) -> dict:
     sd = {}
     for path, value in _flatten(params):
         mod, leaf = _module_path(path[:-1]), path[-1]
-        # by the kernel's rank first: the VGG's 2-D convs are named conv{i}
-        # too, and must not take the CNN1D trunk's Conv1d rule
+        # by the kernel's rank first: the VGG's 2-D convs and the R3D
+        # blocks' 3-D convs are named conv{i} too, and must not take the
+        # CNN1D trunk's Conv1d rule
         if leaf == "kernel" and value.ndim == 4:
             sd[f"{mod}weight"] = value.transpose(3, 2, 0, 1)
+        elif leaf == "kernel" and value.ndim == 5:
+            sd[f"{mod}weight"] = value.transpose(4, 3, 0, 1, 2)
         elif (leaf == "kernel" and len(path) > 1
                 and re.fullmatch(r"conv\d+", path[-2])):
             c_in = _conv_in_channels(params_at, path[:-1])
@@ -119,8 +124,6 @@ def from_jax_variables(variables, renames=()) -> dict:
             sd[f"{mod}weight_{leaf[-2:]}_l0"] = value.T
         elif leaf in ("bias_ih", "bias_hh"):
             sd[f"{mod}{leaf}_l0"] = value
-        elif leaf == "kernel" and value.ndim == 5:
-            sd[f"{mod}weight"] = value.transpose(4, 3, 0, 1, 2)
         elif leaf == "kernel":
             sd[f"{mod}weight"] = value.T
         elif leaf in ("bias", "in_proj_bias", "relative_position_bias_table"):

@@ -2,12 +2,16 @@
 models/nn3d.py), as `F.conv2d` / `F.conv3d`: the JAX package leaves these
 convs to XLA.
 
-Video tensors are (B, T, H, W, C), channels-last as in the JAX package;
-only the unpadded (VALID) `Conv3d` with a bias, which Swin3D's patch
-embedding uses, is ported.  Images run in torch's (B, C, H, W) layout
-(models/vgg.py): `Conv2d` with padding and a bias, and `BatchNorm2d`
-(nn1d.BatchNorm1d's parameters and semantics on the channel axis 1).  The
-JAX package's `max_pool_nd` (VALID, floor) is `F.max_pool2d` there.
+The JAX package keeps video channels-last, (B, T, H, W, C).  `Conv3d`
+takes that layout by default, as Swin3D's patch embedding calls it, and
+torch's (B, C, T, H, W) with `channels_first=True`: the R3D and S3D
+networks permute a clip once at their entry and run every conv, norm and
+pool in that layout.  Images run in torch's (B, C, H, W) layout
+(models/vgg.py): `Conv2d` with padding and a bias.  `BatchNorm2d` and
+`BatchNorm3d` are nn1d.BatchNorm1d's parameters and semantics on the
+channel axis 1.  The JAX package's `max_pool_nd` (-inf padding, floor) is
+`F.max_pool2d` / `F.max_pool3d`, and its `global_avg_pool` a mean over
+every axis after the channel one.
 """
 
 import math
@@ -56,24 +60,48 @@ class BatchNorm2d(BatchNorm1d):
                             momentum=self.momentum, eps=self.eps)
 
 
+class BatchNorm3d(BatchNorm2d):
+    """The same on (B, C, T, H, W): statistics over every axis but C."""
+
+
 class Conv3d(nn.Module):
-    """(B, T, H, W, C_in) -> (B, T', H', W', C_out), no padding.
+    """(B, T, H, W, C_in) -> (B, T', H', W', C_out), or (B, C_in, T, H, W)
+    -> (B, C_out, T', H', W') with `channels_first`; zero padding on both
+    sides of each axis, and no bias parameter with `bias=False` (the JAX
+    `use_bias=False` has no leaf).
 
     Weight (C_out, C_in, kt, kh, kw) as torch's; the JAX package's
     (kt, kh, kw, C_in, C_out) kernel converts in io/from_jax.py."""
 
     def __init__(self, in_channels: int, features: int, kernel_size,
-                 stride=1):
+                 stride=1, padding=0, bias: bool = True,
+                 channels_first: bool = False):
         super().__init__()
         self.kernel_size, self.stride = _triple(kernel_size), _triple(stride)
+        self.padding, self.channels_first = _triple(padding), channels_first
         self.weight = nn.Parameter(
             torch.empty(features, in_channels, *self.kernel_size))
-        self.bias = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features)) if bias else None
         bound = 1.0 / math.sqrt(in_channels * math.prod(self.kernel_size))
         nn.init.uniform_(self.weight, -bound, bound)
-        nn.init.uniform_(self.bias, -bound, bound)
+        if bias:
+            nn.init.uniform_(self.bias, -bound, bound)
 
     def forward(self, x):
+        if self.channels_first:
+            return F.conv3d(x, self.weight, self.bias, stride=self.stride,
+                            padding=self.padding)
         y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight, self.bias,
-                     stride=self.stride)
+                     stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 4, 1)
+
+
+def max_pool3d(x, window, stride=None, padding=0):
+    """torch MaxPool3d on (B, C, T, H, W): -inf padding, floor."""
+    return F.max_pool3d(x, window, stride if stride is not None else window,
+                        padding)
+
+
+def global_avg_pool(x):
+    """AdaptiveAvgPool(1) + Flatten on (B, C, ...): (B, C)."""
+    return x.mean(dim=tuple(range(2, x.dim())))

@@ -8,8 +8,11 @@ matrices: `resize_matrix(..., antialias=True)` matches torch's
 F.interpolate(mode='bilinear', antialias=True) (torchvision's Resize, the
 reference's transform), `antialias=False` the plain bilinear one.  The
 JAX package leaves this to XLA, outside any Pallas kernel, so here it is
-two einsums.  Normalize, box rasterization and the adaptive pool are not
-ported yet (ROADMAP.md, queue 1, train3dcnn).
+two einsums.  `normalize` is the (x - mean) / std channel transform, and
+`rasterize_boxes` fills per-frame XYXY boxes into {0, 1} masks by one
+comparison, as the reference's cv2.rectangle loop did.  The JAX package's
+adaptive pool matrices are `F.adaptive_avg_pool2d` where the port needs
+them (models/vgg.py).
 """
 
 import functools
@@ -78,6 +81,26 @@ def resize_bilinear(x, out_h: int, out_w: int, antialias: bool = True):
     ww = resize_matrix(w, out_w, antialias, x.device)
     y = torch.einsum("...hwc,oh->...owc", x, wh)
     return torch.einsum("...hwc,ow->...hoc", y, ww)
+
+
+def normalize(x, mean, std):
+    """Channel-last normalization: (x - mean) / std."""
+    mean = torch.as_tensor(mean, dtype=x.dtype, device=x.device)
+    std = torch.as_tensor(std, dtype=x.dtype, device=x.device)
+    return (x - mean) / std
+
+
+def rasterize_boxes(boxes, height: int, width: int):
+    """XYXY boxes (..., T, 4) -> filled masks (..., T, H, W) in {0, 1}
+    (f32): both corners inclusive, a fractional corner widened outward
+    (floor of the start, ceil of the end), as cv2.rectangle(thickness=-1)
+    fills."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    ys = torch.arange(height, dtype=boxes.dtype, device=boxes.device)
+    xs = torch.arange(width, dtype=boxes.dtype, device=boxes.device)
+    row = (ys >= torch.floor(y1)[..., None]) & (ys <= torch.ceil(y2)[..., None])
+    col = (xs >= torch.floor(x1)[..., None]) & (xs <= torch.ceil(x2)[..., None])
+    return (row[..., :, None] & col[..., None, :]).float()
 
 
 def window_frames(x, window: int):

@@ -1,12 +1,12 @@
 """Convergence of the port's trainer: the port's counterparts of
 tests/test_convergence.py's runs of the tri-modal model (with the Swin
 tower fine-tuned, --video_freeze false), the spectrogram VGG, the text
-transformer, the audio,text two-tower model, the video transformer, and
-the multi-head RNN entries over wav2vec-1 audio features and over video
-feature sequences.  On the class-separable synthetic fixtures every head
-of the single-head entries, and the best head of the multi-head ones (the
-reference's model selection), must reach a best test UAR of at least
-0.9, the JAX entries' floor.  Slow (minutes on a CPU): not part of the
+transformer, the audio,text two-tower model, the video transformer, the
+multi-head RNN entries over wav2vec-1 audio features and over video
+feature sequences, and the bbox-masked 3-D CNN.  On the class-separable
+synthetic fixtures every head of the single-head entries, and the best
+head of the multi-head ones (the reference's model selection), must reach
+a best test UAR of at least 0.9, the JAX entries' floor.  Slow (minutes on a CPU): not part of the
 fast lane.
 """
 
@@ -144,3 +144,18 @@ def test_converge_video_rnn(tmp_path):
         "--hidden_size", "32", "--synthetic_features", "--log_console",
         "false", "--device", "cpu"])
     assert _best_uar(runs) >= 0.9
+
+
+def test_converge_3dcnn(tmp_path):
+    """tests/test_convergence.py::test_converge_3dcnn's run: the paired
+    augmentation (perspective, affine, flip, box mask) runs on every train
+    clip, and a wrong warp or raster would wash out the class brightness."""
+    from multimodalaggressionrecognition_tpu_torch.cli import train3dcnn
+
+    runs = tmp_path / "runs"
+    train3dcnn.main([
+        "--files_root", str(tmp_path / "clips"), "--saving_dir", str(runs),
+        "--epoch_num", "20", "--batch_size", "4", "--frame_num", "8",
+        "--video_size", "32", "--synthetic_files", "16", "--synthetic_clips",
+        "--two_class", "--log_console", "false", "--device", "cpu"])
+    assert _best_uar(runs, "main") >= 0.9

@@ -415,3 +415,69 @@ def test_trimodal_served_logits_are_unchanged_against_torch_roll(
     assert sorted(got) == sorted(want) == ["phys", "verb"]
     for head in want:
         assert torch.equal(got[head], want[head]), head
+
+
+@pytest.mark.cuda
+def test_window_attention_kernel_at_the_extraction_stage0_shape(cuda):
+    """K2 as extract_features --backbone swin3d_t calls it at stage 0: 4
+    clips x 19 windows of 16 frames -> 76 x (8, 28, 28) patches, in full
+    (8, 7, 7) windows (N = 392): W = 1216, 3 heads, d 32, the shifted
+    block's real mask (16 window slots), 1e-4."""
+    g = torch.Generator().manual_seed(3)
+    w, n, heads, d = 1216, 392, 3, 32
+    qkv = torch.randn((w, n, 3 * heads * d), generator=g).to(cuda)
+    bias = (torch.randn((heads, n, n), generator=g) * 0.1).to(cuda)
+    # T' = 8 fills one window, so the tower does not shift T
+    mask = torch.from_numpy(_attention_mask(8, 28, 28, (8, 7, 7),
+                                            (0, 3, 3))).to(cuda)
+    assert mask.shape == (16, n, n)
+    got = fused_window_attention(qkv, bias, mask, heads)
+    torch.cuda.synchronize()
+    ref = attention_core_reference(qkv, bias, mask, heads)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_r3d_forward_on_the_card_matches_the_cpu(cuda):
+    """R3DWithBboxes (eval mode, seeded weights) at b2 x 16 frames x 112 px
+    with a box mask: cuDNN's f32 convs (TF32 off) against the CPU's, 1e-3
+    of the largest logit; no hand-written kernel runs."""
+    from multimodalaggressionrecognition_tpu_torch.models.layers import (
+        seeded_init_)
+    from multimodalaggressionrecognition_tpu_torch.models.r3d import (
+        R3DWithBboxes)
+
+    model = seeded_init_(R3DWithBboxes(4), 0).eval()
+    g = torch.Generator().manual_seed(2)
+    frames = torch.rand((2, 16, 112, 112, 3), generator=g)
+    mask = torch.zeros((2, 16, 112, 112, 1))
+    mask[:, :, 20:90, 30:70] = 1.0
+    with torch.inference_mode():
+        want = model(frames, mask)
+        before = dict(launch_counts)
+        got = model.to(cuda)(frames.to(cuda), mask.to(cuda)).cpu()
+    assert dict(launch_counts) == before
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-3 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_augment_is_deterministic_for_a_seed(cuda):
+    """The port's paired augmentation (numpy, no OpenCV: the card's machine
+    has none) gives the same frames and boxes twice for one seed."""
+    import numpy as np
+
+    from multimodalaggressionrecognition_tpu_torch.data.augment import (
+        PairedVideoAugment)
+
+    rng = np.random.default_rng(0)
+    video = rng.uniform(0, 1, (8, 112, 112, 3)).astype(np.float32)
+    boxes = np.tile(np.asarray([[8, 8, 40, 40]], np.float32), (8, 1))
+    runs = []
+    for _ in range(2):
+        augment = PairedVideoAugment(seed=5, perspective_p=1.0)
+        runs.append([augment(video, boxes) for _ in range(3)])
+    for (v0, b0), (v1, b1) in zip(*runs):
+        np.testing.assert_array_equal(v0, v1)
+        np.testing.assert_array_equal(b0, b1)
+    assert not np.array_equal(runs[0][0][0], video)
