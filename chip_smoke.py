@@ -87,7 +87,20 @@ Phases (any failure raises, and the script exits non-zero):
                     pattern with its launches (video: K2 24, K3 12, K4 12;
                     audio: K1 1; a verb batch: no K2, no K3, no K4);
                 (c) the median b8 step time with remat on and off, the peak
-                    memory, the step's kernel time by family.
+                    memory, the step's kernel time by family;
+                (d) cli.evaluate.main --from_run of that run's
+                    checkpoint_best_phys on the card, launch counts reset
+                    just before and read just after (K1 once per test batch
+                    with audio, K2 12 and K4 4 times per batch with video):
+                    each head's accuracy, UAR, UAP and UAF1 equal to the
+                    trainer's logged test row of that epoch and the loss
+                    within 1e-4; the same call with --device cpu, metrics
+                    equal and loss within 1e-3; clips/s on the host clock;
+                (e) cli.predict.main --from_run on 8 raw clips at b8 (5 s
+                    wavs at 44.1 kHz, (20, 768) text .npy, (128, 144, 144,
+                    3) uint8 frames resized to 112): K1 1, K2 12, K4 4;
+                    every probability within 1e-3 of the same CLI with
+                    --device cpu; host-clock seconds.
   6. audio_vgg - the spectrogram VGG11-BN trained at full width (5 s at 16
                 kHz, n_fft 512: 257 x 313 spectrograms, masks 80/80):
                 (a) SpectrogramVGG at b2, eval mode, card against CPU: the
@@ -178,14 +191,18 @@ Phases (any failure raises, and the script exits non-zero):
                 tokens card against CPU at b2 (1e-3), launches per batch
                 by the modalities present (K1 once with audio, K2 12 and
                 K4 4 times with video), the files and manifest.
+ 16. doctor    - cli.doctor --smoke: its report on one line, K4 launched
+                once and bit for bit equal to torch.roll.
 Prints a `slice` JSON line per slice, a `train` JSON line per train path,
-an `extract` JSON line per backbone,
+an `evaluate` and a `predict` JSON line, an `extract` JSON line per
+backbone,
 the `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Every kernel
 entry's `launches` counts the tri-modal fine-tune; `launches_by_path` gives
-each path's.  Without a CUDA device it exits non-zero and prints no result.
+each path's (evaluate, predict and doctor among them).  Without a CUDA device it exits non-zero and prints no result.
 """
 
+import contextlib
 import copy
 import io
 import json
@@ -1469,6 +1486,8 @@ def train_phase(card_line):
             timing[remat] = median_step_ms(trainer, batch)
         swin.remat = True
         families = kernel_breakdown(lambda: trainer.train_step(batch), reps=2)
+        scored = {"evaluate": evaluate_phase(trainer.run_dir, card_line),
+                  "predict": predict_phase(trainer.run_dir, tmp, card_line)}
     busy = sum(families.values())
     (on_ms, on_gb), (off_ms, off_gb) = timing[True], timing[False]
     log(f"train step b8 (audio,text,video, 128 frames at 112 px) on "
@@ -1488,6 +1507,187 @@ def train_phase(card_line):
                     "kernel_ms_by_family": families,
                     "kernel_busy_pct": busy / on_ms * 100,
                     **parity}))
+    return counts, scored
+
+
+# launches per scored batch by the modalities it holds (evaluate, predict
+# and generate_features run the tri-modal forward)
+PER_FORWARD_MODALITY = {"audio": {"framed_conv1d": 1},
+                        "video": {"window_attention": 12, "roll": 4}}
+SCORED_KERNELS = ("framed_conv1d", "window_attention", "roll")
+EVAL_METRICS = ("accuracy", "UAR", "UAP", "UAF1")
+
+
+def expected_launches(batches):
+    """Launches of one forward per batch, `batches` their modality lists."""
+    expect = {}
+    for present in batches:
+        for m in present:
+            for k, v in PER_FORWARD_MODALITY.get(m, {}).items():
+                expect[k] = expect.get(k, 0) + v
+    return expect
+
+
+def counted(fn):
+    """(fn(), launch counts reset just before and read just after, host
+    seconds); fn's standard output is swallowed (the CLIs print JSON)."""
+    torch.cuda.synchronize()
+    kernels.launch_counts.clear()  # count this path only
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        result = fn()
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)  # read just after the path
+    return result, counts, time.monotonic() - t0, out.getvalue()
+
+
+def evaluate_phase(run_dir, card_line):
+    """cli.evaluate.main --from_run of the fine-tuned run's
+    checkpoint_best_phys on the card: each head's accuracy, UAR, UAP and
+    UAF1 equal to the trainer's logged test row of that epoch (to 1e-12,
+    the CSV's round trip) and its loss within 1e-4; the same call with
+    --device cpu: metrics equal, loss within 1e-3; the launches against
+    the test batches (K1 once with audio, K2 12 and K4 4 with video)."""
+    import pandas as pd
+
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        evaluate, train_multimodal)
+    from multimodalaggressionrecognition_tpu_torch.cli.common import (
+        ensure_dataset)
+    from multimodalaggressionrecognition_tpu_torch.io.checkpoint import (
+        restore_variables)
+
+    ckpt = os.path.join(run_dir, "checkpoint_best_phys")
+    epoch = int(restore_variables(ckpt)[1]["epoch"])
+    args = ["--from_run", run_dir, "--path_to_checkpoint", ckpt,
+            "--saving_dir", os.path.join(run_dir, "evaluate"),
+            "--num_threads", "4"]
+    cfg = evaluate.parse_config(evaluate.EvalConfig, args)
+    _, test_loader = train_multimodal.make_loaders(
+        cfg, *ensure_dataset(cfg), tuple(cfg.modalities.split(",")))
+    test = [(sorted(b["modalities"]), int(b["sample_mask"].sum()))
+            for b in test_loader]
+    clips = sum(n for _, n in test)
+    expect = expected_launches([m for m, _ in test])
+    got, counts, card_s, _ = counted(lambda: evaluate.main(
+        args + ["--device", DEVICE]))
+    if counts != expect or not all(expect.get(k) for k in SCORED_KERNELS):
+        raise AssertionError(f"evaluate: {len(test)} test batches launched "
+                             f"{counts}, want {expect}")
+    cpu, _, cpu_s, _ = counted(lambda: evaluate.main(args + ["--device",
+                                                            "cpu"]))
+    if sorted(got) != ["phys", "verb"] or sorted(cpu) != sorted(got):
+        raise AssertionError(f"evaluate: heads {sorted(got)}, cpu "
+                             f"{sorted(cpu)}")
+    errs = {}
+    for head in got:
+        df = pd.read_csv(os.path.join(run_dir, f"{head}_test_log.csv"))
+        row = df[df["epoch"] == epoch].iloc[0]
+        for metric in EVAL_METRICS:
+            if abs(got[head][metric] - float(row[metric])) > 1e-12:
+                raise AssertionError(
+                    f"evaluate: {head} {metric} {got[head][metric]} vs the "
+                    f"logged {row[metric]} (epoch {epoch})")
+            if cpu[head][metric] != got[head][metric]:
+                raise AssertionError(
+                    f"evaluate: {head} {metric} cuda {got[head][metric]} vs "
+                    f"cpu {cpu[head][metric]}")
+        errs[head] = {"vs_log": abs(got[head]["loss"] - float(row["loss"])),
+                      "vs_cpu": abs(got[head]["loss"] - cpu[head]["loss"])}
+        if errs[head]["vs_log"] > 1e-4 or errs[head]["vs_cpu"] > 1e-3:
+            raise AssertionError(f"evaluate: {head} loss {got[head]['loss']}"
+                                 f", logged {row['loss']}, cpu "
+                                 f"{cpu[head]['loss']}")
+    log(f"evaluate main path on {card_line}: cli.evaluate.main --from_run, "
+        f"checkpoint_best_phys (epoch {epoch}), {len(test)} test batches "
+        f"({clips} clips), launches {counts}; metrics equal to the logged "
+        f"row and the CPU's, loss |d| " + ", ".join(
+            f"{h} {e['vs_log']:.3e} vs log, {e['vs_cpu']:.3e} vs cpu"
+            for h, e in errs.items())
+        + f"; {card_s:.2f} s ({clips / card_s:.2f} clips/s) on the host "
+        f"clock, data and model set-up included; the CPU {cpu_s:.2f} s")
+    log(json.dumps({"evaluate": "audio,text,video", "batches": len(test),
+                    "clips": clips, "launches": counts,
+                    "metrics": {h: {k: got[h][k] for k in EVAL_METRICS}
+                                for h in got},
+                    "loss_err": errs, "host_s": card_s,
+                    "clips_per_s": clips / card_s, "cpu_host_s": cpu_s}))
+    return counts
+
+
+PREDICT_CLIPS = 8  # one b8 batch: 5 s wavs at 44.1 kHz, (20, 768) text,
+# (128, 144, 144, 3) uint8 frames (the /255 rule and the resize to 112)
+
+
+def predict_phase(run_dir, tmp, card_line):
+    """cli.predict.main --from_run on PREDICT_CLIPS raw clips at b8 on the
+    card: one line per clip, every probability within 1e-3 of the same CLI
+    with --device cpu; K1 once, K2 12 and K4 4 times."""
+    from scipy.io import wavfile
+
+    from multimodalaggressionrecognition_tpu_torch.cli import predict
+
+    rng = np.random.default_rng(SEED + 23)
+    dirs = {m: os.path.join(tmp, f"predict_{m}")
+            for m in ("audio", "text", "video")}
+    for d in dirs.values():
+        os.makedirs(d)
+    for i in range(PREDICT_CLIPS):
+        wavfile.write(os.path.join(dirs["audio"], f"clip{i}.wav"), 44100,
+                      (rng.standard_normal(5 * 44100) * 3000).astype(
+                          np.int16))
+        np.save(os.path.join(dirs["text"], f"clip{i}.npy"),
+                rng.standard_normal((20, 768)).astype(np.float32))
+        np.save(os.path.join(dirs["video"], f"clip{i}.npy"),
+                rng.integers(0, 256, (128, 144, 144, 3), dtype=np.uint8))
+    args = ["--from_run", run_dir, "--path_to_checkpoint",
+            os.path.join(run_dir, "checkpoint_best_phys"),
+            "--modalities", "audio,text,video", "--batch_size", "8"]
+    for m, d in dirs.items():
+        args += [f"--{m}", d]
+    rows = {}
+    _, counts, card_s, out = counted(lambda: predict.main(
+        args + ["--device", DEVICE]))
+    rows["cuda"] = [json.loads(line) for line in out.splitlines()]
+    expect = expected_launches([["audio", "text", "video"]])
+    if counts != expect:
+        raise AssertionError(f"predict: launched {counts}, want {expect}")
+    _, _, cpu_s, out = counted(lambda: predict.main(args + ["--device",
+                                                           "cpu"]))
+    rows["cpu"] = [json.loads(line) for line in out.splitlines()]
+    names = [f"clip{i}.wav" for i in range(PREDICT_CLIPS)]
+    worst = 0.0
+    for device, got in rows.items():
+        if [r["clip"] for r in got] != names:
+            raise AssertionError(f"predict {device}: rows {got}")
+    for g, w in zip(rows["cuda"], rows["cpu"]):
+        for key in ("phys_prob_aggr", "verb_prob_aggr"):
+            worst = max(worst, abs(g[key] - w[key]))
+            if not 0.0 <= g[key] <= 1.0 or abs(g[key] - w[key]) > 1e-3:
+                raise AssertionError(f"predict: cuda {g} vs cpu {w}")
+    log(f"predict main path on {card_line}: cli.predict.main --from_run, "
+        f"{PREDICT_CLIPS} clips at b8 (5 s wavs at 44.1 kHz, (20, 768) text, "
+        f"128 x 144 px uint8 frames resized to 112), launches {counts}; "
+        f"probabilities within {worst:.1e} of the CPU's (<= 1e-3); "
+        f"{card_s:.2f} s on the host clock, decoding and set-up included "
+        f"({PREDICT_CLIPS / card_s:.2f} clips/s); the CPU {cpu_s:.2f} s")
+    log(json.dumps({"predict": "audio,text,video", "clips": PREDICT_CLIPS,
+                    "launches": counts, "max_prob_err": worst,
+                    "host_s": card_s, "clips_per_s": PREDICT_CLIPS / card_s,
+                    "cpu_host_s": cpu_s, "rows": rows["cuda"]}))
+    return counts
+
+
+def doctor_phase():
+    """cli.doctor --smoke on the card: its report on one line; K4 bit for
+    bit against torch.roll (doctor exits non-zero otherwise)."""
+    from multimodalaggressionrecognition_tpu_torch.cli import doctor
+
+    report, counts, _, _ = counted(lambda: doctor.main(["--smoke"]))
+    if (report["backend"] != "cuda" or counts != {"roll": 1}
+            or not report["smoke"]["roll"]["bitwise_equal_to_torch_roll"]):
+        raise AssertionError(f"doctor: {report}, launches {counts}")
+    log("doctor --smoke: " + json.dumps(report))
     return counts
 
 
@@ -2542,12 +2742,6 @@ def extract_phase(card_line):
                 for b in EXTRACT_DIMS}
 
 
-# generate_features on the tri-modal model at full width (TRAIN's config,
-# b8) over TRAIN_DATA's table: launches per batch by the modalities present
-PER_GEN_MODALITY = {"audio": {"framed_conv1d": 1},
-                    "video": {"window_attention": 12, "roll": 4}}
-
-
 def generate_features_phase(card_line):
     """(a) the tri-modal model's fused tokens at b2, full width, card
     against CPU, 1e-3 of the largest; (b) cli.generate_features.main at
@@ -2596,11 +2790,7 @@ def generate_features_phase(card_line):
                    train_multimodal.make_loaders(cfg, *ensure_dataset(cfg),
                                                  modalities)
                    for bt in loader]
-        expect = {}
-        for present in batches:
-            for m in present:
-                for k, v in PER_GEN_MODALITY.get(m, {}).items():
-                    expect[k] = expect.get(k, 0) + v
+        expect = expected_launches(batches)
         torch.cuda.synchronize()
         kernels.launch_counts.clear()  # count this path only
         t0 = time.monotonic()
@@ -2608,8 +2798,8 @@ def generate_features_phase(card_line):
         torch.cuda.synchronize()
         counts = dict(kernels.launch_counts)  # read just after the main path
         run_s = time.monotonic() - t0
-        if counts != expect or not all(expect.get(k) for k in (
-                "framed_conv1d", "window_attention", "roll")):
+        if counts != expect or not all(expect.get(k) for k in
+                                       SCORED_KERNELS):
             raise AssertionError(f"generate_features: {len(batches)} "
                                  f"batches launched {counts}, want {expect}")
         manifest = pd.read_csv(os.path.join(out, "manifest.csv"))
@@ -2661,7 +2851,8 @@ def main():
                                  card_line)
                 for label, cfg, bs, parity_n, per_forward in SLICES}
     main_path = "train"  # the tri-modal fine-tune runs every kernel
-    launches[main_path] = train_phase(card_line)
+    launches[main_path], scored = train_phase(card_line)
+    launches.update(scored)
     launches["train_audio_vgg"] = audio_vgg_phase(card_line, k1)
     launches["train_text"] = text_phase(card_line)
     launches["train_video_transformer"] = video_transformer_phase(card_line)
@@ -2676,6 +2867,7 @@ def main():
     launches["train3dcnn"] = train3dcnn_phase(card_line)
     launches.update(extract_phase(card_line))
     launches["generate_features"] = generate_features_phase(card_line)
+    launches["doctor"] = doctor_phase()
 
     def entry(kernel, source, replaces, numbers):
         return {"name": kernel, "route": "cuda",

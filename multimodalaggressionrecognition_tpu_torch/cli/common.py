@@ -2,10 +2,12 @@
 training half (dataset provisioning, optimizer, trainer).
 
 Only the fields the ported paths read exist; the JAX package's other knobs
-(`--from_run`, schedules, AdamW, clipping, accumulation, EMA, early
-stopping, bf16, parallelism, profiling, TensorBoard, the compilation cache)
-are listed in ROADMAP.md.  `make_optimizer` still reads the optimizer knobs
-so that asking for one that is not ported fails instead of being ignored.
+(schedules, AdamW, clipping, accumulation, EMA, early stopping, bf16,
+parallelism, profiling, TensorBoard, the compilation cache) are listed in
+ROADMAP.md.  `make_optimizer` still reads the optimizer knobs so that
+asking for one that is not ported fails instead of being ignored.
+`--from_run <run dir>` fills every field not passed on the command line
+from the run's saved config.json.
 """
 
 import argparse
@@ -82,10 +84,39 @@ def _parse_bool(s: str) -> bool:
         f"expected a boolean (true/false/1/0/yes/no/on/off), got {s!r}")
 
 
+def flag_value(args, name, default):
+    """Last occurrence of `--name VALUE` or `--name=VALUE` in an arg list
+    (sweep's peek at the passthrough's --saving_dir)."""
+    out = default
+    for i, a in enumerate(args):
+        if a == f"--{name}" and i + 1 < len(args):
+            out = args[i + 1]
+        elif a.startswith(f"--{name}="):
+            out = a.split("=", 1)[1]
+    return out
+
+
+# fields never inherited through --from_run: the run's identity and resume
+# knobs, sizes whose training-time values are wrong for a new invocation,
+# and the device (a run trained with --device cpu must not move a later
+# evaluate or predict to the CPU without the caller asking)
+_FROM_RUN_EXCLUDE = frozenset({
+    "path_to_checkpoint", "resume_training", "run_name", "saving_dir",
+    "epoch_num", "batch_size", "num_threads", "log_console", "device"})
+
+
 def parse_config(cls, argv=None, **overrides):
-    # allow_abbrev=False: "--batch" must not silently mean --batch_size
+    import sys
+
+    # allow_abbrev=False: --from_run tells the explicitly passed flags by
+    # their argv tokens, which needs argparse never to expand a prefix
+    # ("--batch" must not mean --batch_size)
     parser = argparse.ArgumentParser(description=cls.__doc__,
                                      allow_abbrev=False)
+    parser.add_argument(
+        "--from_run", default="",
+        help="run directory (or a checkpoint inside one): take every field "
+             "not passed explicitly from the run's saved config.json")
     for f in dataclasses.fields(cls):
         default = overrides.get(f.name, f.default)
         arg = f"--{f.name}"
@@ -96,7 +127,19 @@ def parse_config(cls, argv=None, **overrides):
         else:
             typ = type(default) if default is not None else str
             parser.add_argument(arg, type=typ, default=default)
-    return cls(**vars(parser.parse_args(argv)))
+    kwargs = vars(parser.parse_args(argv))
+    from_run = kwargs.pop("from_run")
+    if from_run:
+        explicit = {a.split("=", 1)[0].lstrip("-")
+                    for a in (sys.argv[1:] if argv is None else argv)
+                    if a.startswith("--")}
+        saved = load_run_config(from_run)
+        names = {f.name for f in dataclasses.fields(cls)}
+        for k, v in saved.items():
+            if (k in names and k not in explicit
+                    and k not in _FROM_RUN_EXCLUDE):
+                kwargs[k] = v
+    return cls(**kwargs)
 
 
 def save_run_config(cfg, run_dir: str):
@@ -107,6 +150,23 @@ def save_run_config(cfg, run_dir: str):
     with open(os.path.join(run_dir, "config.json"), "w") as f:
         json.dump({"config_class": type(cfg).__name__,
                    **dataclasses.asdict(cfg)}, f, indent=1, default=str)
+
+
+def load_run_config(path: str) -> dict:
+    """The config.json of the run dir `path`, or of the run dir holding the
+    checkpoint `path`."""
+    import json
+
+    for candidate in (path, os.path.dirname(path.rstrip("/"))):
+        cfg_path = os.path.join(candidate, "config.json")
+        if os.path.isfile(cfg_path):
+            with open(cfg_path) as f:
+                saved = json.load(f)
+            saved.pop("config_class", None)
+            return saved
+    raise FileNotFoundError(
+        f"no config.json under {path!r} (or its parent); --from_run needs "
+        "a run directory produced by a train CLI")
 
 
 def ensure_dataset(cfg: TrainConfig, **synth_kwargs):

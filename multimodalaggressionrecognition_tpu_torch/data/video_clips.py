@@ -82,7 +82,10 @@ def resize_frames(video, size: int):
     centres, two taps, border clamped, no antialias)."""
     wh = _resize_matrix_np(video.shape[1], size, False)
     ww = _resize_matrix_np(video.shape[2], size, False)
-    return np.einsum("oh,thwc,pw->topc", wh, video, ww).astype(np.float32)
+    # optimize: two BLAS contractions; numpy's default single loop over
+    # all six indices takes ~3 s a frame at 144 -> 112 px
+    return np.einsum("oh,thwc,pw->topc", wh, video, ww,
+                     optimize=True).astype(np.float32)
 
 
 class ClipDirSource:

@@ -481,3 +481,113 @@ def test_augment_is_deterministic_for_a_seed(cuda):
         np.testing.assert_array_equal(v0, v1)
         np.testing.assert_array_equal(b0, b1)
     assert not np.array_equal(runs[0][0][0], video)
+
+
+@pytest.fixture(scope="module")
+def trimodal_run(tmp_path_factory):
+    """A tri-modal port run trained for one epoch on the CPU (8 frames at
+    32 px, 24 000 samples, the Swin tower fine-tuned)."""
+    import os
+
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        train_multimodal)
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    tmp = tmp_path_factory.mktemp("run")
+    root, saving = str(tmp / "avabos"), str(tmp / "runs")
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        generate_synthetic_avabos)
+
+    generate_synthetic_avabos(root, num_clusters=2, samples_per_cluster=4,
+                              seed=9, audio_len=24000, video_frames=8,
+                              video_hw=32)
+    train_multimodal.main([
+        "--dataset_root", root, "--batch_size", "4", "--epoch_num", "1",
+        "--audio_samples", "24000", "--video_frames", "8",
+        "--video_size", "32", "--modalities", "audio,text,video",
+        "--video_freeze", "false", "--saving_dir", saving, "--run_name", "t",
+        "--log_console", "false", "--device", "cpu"])
+    return tmp, os.path.join(saving, "t")
+
+
+@pytest.mark.cuda
+def test_evaluate_on_the_card_matches_the_cpu(cuda, trimodal_run):
+    """cli.evaluate --from_run of the tri-modal run: the card's metrics
+    equal the CPU's and its loss is within 1e-3; K1, K2 and K4 launch."""
+    import os
+
+    from multimodalaggressionrecognition_tpu_torch.cli import evaluate
+
+    tmp, run_dir = trimodal_run
+    args = ["--from_run", run_dir, "--path_to_checkpoint",
+            os.path.join(run_dir, "checkpoint_best_phys"),
+            "--saving_dir", str(tmp / "eval")]
+    want = evaluate.main(args + ["--device", "cpu"])
+    launch_counts.clear()
+    got = evaluate.main(args)  # CUDA by default
+    counts = dict(launch_counts)
+    assert all(counts.get(k, 0) >= 1
+               for k in ("framed_conv1d", "window_attention", "roll"))
+    assert sorted(got) == sorted(want) == ["phys", "verb"]
+    for head in want:
+        for metric in ("accuracy", "UAR", "UAP", "UAF1"):
+            assert got[head][metric] == want[head][metric], (head, metric)
+        assert abs(got[head]["loss"] - want[head]["loss"]) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_predict_on_the_card_matches_the_cpu(cuda, trimodal_run, capsys):
+    """cli.predict --from_run on wavs, text .npy and 48 px uint8-range
+    video .npy: the card's probabilities within 1e-3 of the CPU's."""
+    import json
+    import os
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from multimodalaggressionrecognition_tpu_torch.cli import predict
+
+    tmp, run_dir = trimodal_run
+    rng = np.random.default_rng(3)
+    dirs = {m: tmp / f"clips_{m}" for m in ("audio", "text", "video")}
+    for d in dirs.values():
+        d.mkdir()
+    for i in range(3):
+        wavfile.write(str(dirs["audio"] / f"c{i}.wav"), 44100,
+                      (rng.standard_normal(44100) * 3000).astype(np.int16))
+        np.save(dirs["text"] / f"c{i}.npy",
+                rng.standard_normal((20, 768)).astype(np.float32))
+        np.save(dirs["video"] / f"c{i}.npy",
+                (rng.random((6, 48, 48, 3)) * 255).astype(np.float32))
+    args = ["--from_run", run_dir, "--path_to_checkpoint",
+            os.path.join(run_dir, "checkpoint_best_phys"),
+            "--modalities", "audio,text,video", "--batch_size", "2"]
+    for m, d in dirs.items():
+        args += [f"--{m}", str(d)]
+    capsys.readouterr()
+    outs = {}
+    for device in ("cpu", "cuda"):
+        launch_counts.clear()
+        predict.main(args + ["--device", device])
+        outs[device] = [json.loads(line) for line in
+                        capsys.readouterr().out.strip().splitlines()]
+    assert all(launch_counts.get(k, 0) >= 1
+               for k in ("framed_conv1d", "window_attention", "roll"))
+    assert len(outs["cuda"]) == len(outs["cpu"]) == 3
+    for g, w in zip(outs["cuda"], outs["cpu"]):
+        assert g["clip"] == w["clip"]
+        for key in ("phys_prob_aggr", "verb_prob_aggr"):
+            assert abs(g[key] - w[key]) <= 1e-3, (g, w)
+
+
+@pytest.mark.cuda
+def test_doctor_smoke_on_the_card(cuda, capsys):
+    """doctor --smoke: the card listed, K4 built and bit for bit equal to
+    torch.roll."""
+    from multimodalaggressionrecognition_tpu_torch.cli import doctor
+
+    report = doctor.main(["--smoke"])
+    assert report["backend"] == "cuda" and report["devices"]
+    assert report["smoke"]["roll"]["bitwise_equal_to_torch_roll"] is True
+    assert "roll" in report["kernels"]["built"]
