@@ -59,7 +59,13 @@ Phases (any failure raises, and the script exits non-zero):
                 its bound, and its launch (threads, shared memory, blocks
                 per SM) at N = 392; K4 at (76, 8, 28, 28, 96) and
                 (76, 8, 14, 14, 192), both signs, bit for bit, cold and
-                warm against its bound and torch.roll.
+                warm against its bound and torch.roll.  In bf16 (the
+                main path's bf16 shapes: K2 and K3 at stage 0's shifted
+                block, K4 at stage 0): K2 and K3 within 1e-2 of their plain
+                versions' largest output and in f32 on the same inputs within
+                1e-3, K4 bit for bit; each kernel's, plain version's and
+                library call's (SDPA, its backward, torch.roll, in bf16)
+                time cold and warm against the bound with bf16 bytes.
   4. slices   - each served model at full width with seeded random weights:
                 audio,text (hidden 768, 80 000 samples, 48 tokens, 1 fusion
                 layer, 8 heads, batch 32), then audio,text,video (+ the frozen
@@ -75,7 +81,10 @@ Phases (any failure raises, and the script exits non-zero):
                     12 times, K4 4 times), no other kernel;
                 (c) throughput of Predictor.predict at the served batch, the
                     forward's time by tower, its kernel time by family, and
-                    MicroBatcher single-clip p50 latency.
+                    MicroBatcher single-clip p50 latency;
+                (d) the tri-modal Predictor with compute_dtype bfloat16 at
+                    b8: K1 1, K2 12, K4 4 launches a forward, probabilities
+                    within 0.03 of the f32 Predictor's, both forwards' ms.
   5. train    - the tri-modal model fine-tuned (Swin unfrozen, remat on):
                 (a) loss and every gradient of the full-width model at b1
                     with 16 frames, eval mode, on the card against the CPU,
@@ -100,7 +109,22 @@ Phases (any failure raises, and the script exits non-zero):
                     wavs at 44.1 kHz, (20, 768) text .npy, (128, 144, 144,
                     3) uint8 frames resized to 112): K1 1, K2 12, K4 4;
                     every probability within 1e-3 of the same CLI with
-                    --device cpu; host-clock seconds.
+                    --device cpu; host-clock seconds;
+                (f) the same fine-tune with --compute_dtype bfloat16, 2
+                    epochs: K1 1, K2 24, K3 12, K4 12 launches a tri-modal
+                    step, its step time and peak memory with remat on and
+                    off beside f32's, its kernel families, one bf16 step
+                    within 5 % of one f32 step's loss on the same weights,
+                    master parameters, optimizer state and BatchNorm
+                    statistics f32;
+                (g) the audio,text flagship trainer at b32, 2 epochs, with
+                    a cosine schedule, warmup, clipping, AdamW, accumulation
+                    over 2, an EMA, early stopping, TensorBoard and the
+                    profiler: K1 once a micro-step, the trace and the
+                    scalars (or the one warning), the step time; the same
+                    run preempted by guard.request() mid-epoch 1 and
+                    resumed from checkpoint_preempt, its logged losses within
+                    1e-4 relative of the uninterrupted run's.
   6. audio_vgg - the spectrogram VGG11-BN trained at full width (5 s at 16
                 kHz, n_fft 512: 257 x 313 spectrograms, masks 80/80):
                 (a) SpectrogramVGG at b2, eval mode, card against CPU: the
@@ -195,11 +219,12 @@ Phases (any failure raises, and the script exits non-zero):
                 once and bit for bit equal to torch.roll.
 Prints a `slice` JSON line per slice, a `train` JSON line per train path,
 an `evaluate` and a `predict` JSON line, an `extract` JSON line per
-backbone,
+backbone, a `serve` line for bf16 serving,
 the `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Every kernel
 entry's `launches` counts the tri-modal fine-tune; `launches_by_path` gives
-each path's (evaluate, predict and doctor among them).  Without a CUDA device it exits non-zero and prints no result.
+each path's (evaluate, predict and doctor among them); K2's, K3's and K4's
+`bf16` entries give their bf16 numbers and the bf16 paths' launches.  Without a CUDA device it exits non-zero and prints no result.
 """
 
 import contextlib
@@ -336,34 +361,45 @@ EDGE_SHAPES = [(4, n, 2, d, nw) for n in (1, 17, 392) for d in (8, 16, 32)
 
 
 def peaks(name: str):
-    """(f32 non-tensor FLOP/s, dense TF32 tensor-core FLOP/s, HBM bytes/s)
-    from NVIDIA's data sheets (TF32: half the figure with sparsity)."""
+    """{f32 non-tensor, dense TF32 and dense bf16 tensor-core FLOP/s, HBM
+    bytes/s} from NVIDIA's data sheets (tensor cores: half the figure with
+    sparsity)."""
     if "PCIe" in name:
-        return 51.2e12, 378e12, 2.0e12
+        return {"fma": 51.2e12, "tf32": 378e12, "bf16": 756.5e12,
+                "bw": 2.0e12}
     if "NVL" in name:
-        return 60.0e12, 417.5e12, 3.9e12
-    return 67.0e12, 495e12, 3.35e12  # H100 SXM
+        return {"fma": 60.0e12, "tf32": 417.5e12, "bf16": 835.5e12,
+                "bw": 3.9e12}
+    return {"fma": 67.0e12, "tf32": 495e12, "bf16": 989e12,
+            "bw": 3.35e12}  # H100 SXM
 
 
-# tensor-core passes per f32-accurate product (3xTF32: big*small,
-# small*big, big*big)
-TF32_PASSES = 3
+# the least tensor-core passes a product of these operand types needs for
+# an f32-accurate result, and the peak they run at: f32 x f32 in 3xTF32
+# (big*small, small*big, big*big); f32 x bf16 in 2xTF32 (a bf16 value is
+# exact in TF32, so only the f32 side is split); bf16 x bf16 in one bf16
+# pass (exact products, f32 accumulation)
+PASSES = {"f32*f32": (3, "tf32"), "f32*bf16": (2, "tf32"),
+          "bf16*bf16": (1, "bf16")}
 
 
-def bound(card: str, flops: float, nbytes: float, tensor: bool = False):
+def bound(card: str, flops: float, nbytes: float, products=None):
     """The least time the card could take: {bound_ms, bound_by, and both
-    terms}.  `tensor`: the products run on the tensor cores in 3xTF32, so
-    the operations take TF32_PASSES * flops at the TF32 peak; the f32 FMA
-    pipe's bound (the only one before the tensor-core designs) is kept
-    beside it as fma_bound_ms."""
-    peak_fma, peak_tf32, peak_bw = peaks(card)
-    fma_ms = flops / peak_fma * 1e3
-    bytes_ms = nbytes / peak_bw * 1e3
-    ops_ms = TF32_PASSES * flops / peak_tf32 * 1e3 if tensor else fma_ms
+    terms}.  `products`: the work runs on the tensor cores, listed as
+    (flops, operand types) per product, each at its PASSES; the f32 FMA
+    pipe's bound (the only one before the tensor-core designs) is then
+    kept beside it as fma_bound_ms."""
+    peak = peaks(card)
+    fma_ms = flops / peak["fma"] * 1e3
+    bytes_ms = nbytes / peak["bw"] * 1e3
+    ops_ms = fma_ms
+    if products is not None:
+        ops_ms = sum(PASSES[kind][0] * f / peak[PASSES[kind][1]]
+                     for f, kind in products) * 1e3
     out = {"bound_ms": max(ops_ms, bytes_ms),
            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
            "ops_ms": ops_ms, "bytes_ms": bytes_ms}
-    if tensor:
+    if products is not None:
         out["fma_bound_ms"] = max(fma_ms, bytes_ms)
     return out
 
@@ -385,7 +421,8 @@ def log(*parts):
 def short_name(mangled: str) -> str:
     """'_ZN12_GLOBAL__N_115name_kernelILi32EE...' -> 'name_kernel<32>': the
     length-prefixed name ending in `_kernel` (every kernel of csrc/ is
-    named so) and its first int template argument."""
+    named so) and its first int template argument, with ',bf16' where the
+    next one is __nv_bfloat16 (K2's and K3's bf16 instantiations)."""
     # a hash before the name may end in digits, so try every split of a
     # digit run into the hash's tail and the length prefix
     for m in re.finditer(r"\d+", mangled):
@@ -393,8 +430,12 @@ def short_name(mangled: str) -> str:
             end = m.end() + int(mangled[start:m.end()])
             name = mangled[m.end():end]
             if re.fullmatch(r"[A-Za-z]\w*_kernel", name):
-                tmpl = re.match(r"ILi(\d+)E", mangled[end:])
-                return name + (f"<{tmpl.group(1)}>" if tmpl else "")
+                tmpl = re.match(r"ILi(\d+)E(13__nv_bfloat16)?",
+                                mangled[end:])
+                if not tmpl:
+                    return name
+                return (name + f"<{tmpl.group(1)}"
+                        + (",bf16>" if tmpl.group(2) else ">"))
     return mangled
 
 
@@ -461,8 +502,8 @@ def resources_phase():
     (m-tiles of 16 frames a warp: 2 where the taps are many and the grid
     is full, as at the STFT, else 1, as at the stem); the
     window-attention launches at stage 0 (N=196, d=32): threads, dynamic
-    shared memory, resident blocks per SM; the roll's 16-byte and scalar
-    instantiations."""
+    shared memory, resident blocks per SM, and their bf16 instantiations;
+    the roll's 16-byte, 4-byte and 2-byte instantiations."""
     found = {}
     for lib in kernels.kernel_sources():
         for kernel, use in ptxas_usage(kernels.build_log(lib)).items():
@@ -485,10 +526,13 @@ def resources_phase():
             + "; ".join(f"{part}: " + ", ".join(f"{k} {v}"
                                                 for k, v in n.items())
                         for part, n in sass[kernel].items()))
-    launches["roll"] = {f"vec{v}": found[f"roll_kernel<{v}>"] for v in (4, 1)}
+    # 16-byte vectors, 4-byte (f32) and 2-byte (bf16) elements
+    launches["roll"] = {f"bytes{v}": found[f"roll_kernel<{v}>"]
+                        for v in (16, 4, 2)}
     for name in ("window_attention", "window_attention_bwd"):
         info = launch_info(name, 196, 32)
-        launches[name] = {**info, **found.get(f"{name}_kernel<32>", {})}
+        launches[name] = {**info, **found.get(f"{name}_kernel<32>", {}),
+                          "bf16": found[f"{name}_kernel<32,bf16>"]}
         log(f"resources {name} launch at N=196 d=32: {info['threads']} "
             f"threads, {info['dynamic_smem_bytes']} B dynamic smem, "
             f"{info['blocks_per_sm']} blocks per SM "
@@ -661,7 +705,7 @@ def k1_phase(card: str):
         times = in_turns(fns, reps=20, timer=cold_ms)
         warm = in_turns(fns, reps=20, timer=graph_ms)
         flops, nbytes = k1_work(b, length, f, hop, pad, c)
-        bd = bound(card, flops, nbytes, tensor=True)
+        bd = bound(card, flops, nbytes, [(flops, "f32*f32")])
         for label, t in (("cold", times), ("warm", warm)):
             log(f"k1 {name} timing ({label}) on {card}: "
                 + ", ".join(f"{labels[k]} {v:.4f} ms" for k, v in t.items())
@@ -769,11 +813,14 @@ def k2_inputs(w, n, heads, d, nw, seed, stage_mask=False, window=(4, 7, 7),
 
 
 def k2_work(w, n, heads, d, nw):
-    """(operations, bytes) of one launch: two N x N x d products per window
-    and head; qkv, bias and mask read once, the output written once."""
+    """(operations, bytes, products) of one launch: two N x N x d products
+    per window and head, f32*f32; qkv, bias and mask read once, the output
+    written once."""
     c = heads * d
-    return (4 * w * heads * n * n * d,
-            4 * (w * n * 3 * c + heads * n * n + nw * n * n + w * n * c))
+    flops = 4 * w * heads * n * n * d
+    return (flops,
+            4 * (w * n * 3 * c + heads * n * n + nw * n * n + w * n * c),
+            [(flops, "f32*f32")])
 
 
 def sdpa_args(qkv, bias, mask, heads):
@@ -830,7 +877,7 @@ def k2_phase(card: str):
             fns["library_ms"] = rotating(
                 lambda i: sdpa_args(*make(i), heads))(sdpa)
         times = in_turns(fns)
-        bd = bound(card, *k2_work(w, n, heads, d, nw), tensor=True)
+        bd = bound(card, *k2_work(w, n, heads, d, nw))
         if name == "stage0-shifted":
             main = {**times, "bound_ms": bd["bound_ms"],
                     "bound_by": bd["bound_by"],
@@ -871,13 +918,16 @@ def k2_phase(card: str):
 
 
 def k3_work(w, n, heads, d, nw):
-    """(operations, bytes) of one backward launch, by the JAX kernel's own
-    count: five N x N x d products per window and head; qkv, g, bias and
-    mask read once, dqkv and dbias written once."""
+    """(operations, bytes, products) of one backward launch, by the JAX
+    kernel's own count: five N x N x d products per window and head,
+    f32*f32; qkv, g, bias and mask read once, dqkv and dbias written
+    once."""
     c = heads * d
-    return (10 * w * heads * n * n * d,
+    flops = 10 * w * heads * n * n * d
+    return (flops,
             4 * (2 * w * n * 3 * c + 2 * heads * n * n + nw * n * n
-                 + w * n * c))
+                 + w * n * c),
+            [(flops, "f32*f32")])
 
 
 def k3_inputs(w, n, heads, d, nw, seed, stage_mask=False):
@@ -961,7 +1011,7 @@ def k3_phase(card: str):
             fns["library_ms"] = rotating(
                 lambda i: (sdpa_backward(*make(i), heads),))(lambda f: f())
         times = in_turns(fns, reps=10)
-        bd = bound(card, *k3_work(w, n, heads, d, nw), tensor=True)
+        bd = bound(card, *k3_work(w, n, heads, d, nw))
         if name == "stage0-shifted":
             main = {**times, "bound_ms": bd["bound_ms"],
                     "bound_by": bd["bound_by"],
@@ -984,6 +1034,182 @@ def k3_phase(card: str):
     return {"max_abs_err": worst, **main, "ms_by_stage": per_stage,
             "train_step_ms": step_ms, "train_step_bound_ms": step_bound,
             "train_step_fma_bound_ms": step_fma}
+
+
+# bf16 I/O of K2, K3 and K4 at the main path's shapes (stage 0's shifted
+# block of the tri-modal b8 step, and its roll): qkv, g, the output and
+# dqkv in bf16 (the bias too, as the cast model's table gives it); the
+# kernels widen to f32 inside and round each result once
+BF16_TOL = 1e-2  # of each output's largest value: one bf16 rounding, 2^-8
+
+
+def bf16_check(label, got, want):
+    """max |got - want| / max |want|, raised past BF16_TOL; both bf16."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= BF16_TOL * scale:
+        raise AssertionError(f"{label}: max |d| {err:.3e} > {BF16_TOL} * "
+                             f"{scale:.3e}")
+    return err / scale
+
+
+def k2_work_bf16(w, n, heads, d, nw):
+    """k2_work with qkv and the output in bf16 (bias and mask read as f32),
+    and its products by operand type: Q.K^T is bf16*bf16, P.V (P the f32
+    probabilities) f32*bf16."""
+    c = heads * d
+    one = 2 * w * heads * n * n * d
+    return (2 * one,
+            2 * (w * n * 3 * c + w * n * c) + 4 * (heads * n * n + nw * n * n),
+            [(one, "bf16*bf16"), (one, "f32*bf16")])
+
+
+def k3_work_bf16(w, n, heads, d, nw):
+    """k3_work with qkv, g and dqkv in bf16 (bias, mask, dbias as f32), and
+    its products by operand type: Q.K^T and g.V^T are bf16*bf16; P^T.g,
+    dS.K and dS^T.Q (P, dS f32) f32*bf16."""
+    c = heads * d
+    one = 2 * w * heads * n * n * d
+    return (5 * one,
+            2 * (2 * w * n * 3 * c + w * n * c)
+            + 4 * (2 * heads * n * n + nw * n * n),
+            [(2 * one, "bf16*bf16"), (3 * one, "f32*bf16")])
+
+
+def sdpa_args_bf16(qkv, bias, mask, heads):
+    """sdpa_args with bias + mask as a bf16 float mask (SDPA takes a mask
+    of the query's dtype)."""
+    q, k, v, am = sdpa_args(qkv, bias, mask, heads)
+    return q, k, v, am.to(torch.bfloat16)
+
+
+def sdpa_backward_bf16(qkv, bias, mask, g, heads):
+    q, k, v, am = (t.detach().requires_grad_()
+                   for t in sdpa_args_bf16(qkv, bias, mask, heads))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+    w, n, c3 = qkv.shape
+    d = c3 // 3 // heads
+    go = g.reshape(w, n, heads, d).transpose(1, 2).reshape(out.shape)
+    return lambda: torch.autograd.grad(out, (q, k, v, am), go,
+                                       retain_graph=True)
+
+
+def bf16_kernel_phase(card: str):
+    """K2, K3 and K4 on bf16 inputs at the main path's shapes: each against
+    its plain version (K2, K3 within BF16_TOL of the largest output, K4 bit
+    for bit), K2 and K3 in f32 on the same inputs within 1e-3 (the f32 path
+    unchanged); the kernel's, the plain version's and the library call's
+    (SDPA, its backward, torch.roll, all in bf16) times cold (L2 flushed)
+    and warm (K2, K3 back to back; K4 in CUDA graphs), against the bound
+    with bf16 bytes."""
+    name, w, n, heads, d, nw, _ = K2_STAGES[0]
+    bf = torch.bfloat16
+
+    def make(i):
+        qkv, bias, mask, g = k3_inputs(w, n, heads, d, nw, seed=31 + i,
+                                       stage_mask=True)
+        return qkv.to(bf), bias.to(bf), mask, g.to(bf)
+
+    q16, b16, mask, g16 = make(0)
+    out = {}
+    err_f32 = 0.0
+    q32, b32, g32 = q16.float(), b16.float(), g16.float()
+    for label, got, want in (
+            ("k2 f32", fused_window_attention(q32, b32, mask, heads),
+             attention_core_reference(q32, b32, mask, heads)),
+            ("k3 f32 dqkv", window_attention_bwd(q32, b32, mask, g32,
+                                                 heads)[0],
+             window_attention_bwd_reference(q32, b32, mask, g32, heads)[0])):
+        e = ((got - want).abs().max() / want.abs().max()).item()
+        if not e <= 1e-3:
+            raise AssertionError(f"{label} {name}: {e:.3e} > 1e-3")
+        err_f32 = max(err_f32, e)
+    del q32, b32, g32
+    errs = {
+        "k2": bf16_check("k2 bf16", fused_window_attention(q16, b16, mask,
+                                                           heads),
+                         attention_core_reference(q16, b16, mask, heads))}
+    got = window_attention_bwd(q16, b16, mask, g16, heads)
+    want = window_attention_bwd_reference(q16, b16, mask, g16, heads)
+    errs["k3"] = max(bf16_check(f"k3 bf16 {part}", x, y) for part, x, y in
+                     zip(("dqkv", "dbias"), got, want))
+    log(f"bf16 k2/k3 {name}: W={w} N={n} heads={heads} d={d} nW={nw}, "
+        f"bf16 in and out: k2 {errs['k2']:.3e}, k3 {errs['k3']:.3e} of the "
+        f"largest <= {BF16_TOL}; the same inputs in f32 within "
+        f"{err_f32:.3e} <= 1e-3 ok")
+    del got, want
+
+    call = rotating(make)
+    works = {"k2": k2_work_bf16(w, n, heads, d, nw),
+             "k3": k3_work_bf16(w, n, heads, d, nw)}
+    fns = {
+        "k2": {"ms": call(lambda q, b, m, g: fused_window_attention(
+                   q, b, m, heads)),
+               "plain_ms": call(lambda q, b, m, g: attention_core_reference(
+                   q, b, m, heads)),
+               # yardstick only: the one PyTorch call for the same function
+               "library_ms": rotating(lambda i: sdpa_args_bf16(
+                   *make(i)[:3], heads))(sdpa)},
+        "k3": {"ms": call(lambda q, b, m, g: window_attention_bwd(
+                   q, b, m, g, heads)),
+               "plain_ms": call(lambda q, b, m, g:
+                                window_attention_bwd_reference(
+                                    q, b, m, g, heads)),
+               "library_ms": rotating(lambda i: (sdpa_backward_bf16(
+                   *make(i), heads),))(lambda f: f())}}
+    labels = {"ms": "kernel", "plain_ms": "plain", "library_ms": "library"}
+    for key in ("k2", "k3"):
+        cold = in_turns(fns[key], reps=10, timer=cold_ms)
+        warm = in_turns(fns[key], reps=10)
+        nbytes = works[key][1]
+        bd = bound(card, *works[key])
+        for label, t in (("cold", cold), ("warm", warm)):
+            log(f"bf16 {key} {name} timing ({label}) on {card}: "
+                + ", ".join(f"{labels[k]} {v:.4f} ms" for k, v in t.items())
+                + f"; {nbytes / 1e6:.1f} MB; {bound_text(bd)}; kernel "
+                f"at {bd['bound_ms'] / t['ms'] * 100:.1f}% of the bound")
+        out[key] = {**cold, "warm": warm, "bound_ms": bd["bound_ms"],
+                    "bound_by": bd["bound_by"], "max_abs_err": errs[key],
+                    "shape": [w, n, heads, d, nw]}
+    del call, fns
+
+    shape = K4_STAGES["stage0"]
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
+    x = torch.randn(shape, generator=g, device=DEVICE).to(bf)
+    for shifts in ((0, 3, 3), (0, -3, -3)):
+        if not torch.equal(circular_roll(x, shifts).view(torch.int16),
+                           roll_reference(x, shifts).view(torch.int16)):
+            raise AssertionError(f"bf16 k4 {shape} {shifts}: differs from "
+                                 "torch.roll")
+    del x
+
+    def make4(i):
+        gi = torch.Generator(device=DEVICE).manual_seed(300 + i)
+        return (torch.randn(shape, generator=gi, device=DEVICE).to(bf),)
+
+    call = rotating(make4)
+    fns = {"ms": call(lambda x: circular_roll(x, (0, 3, 3))),
+           "plain_ms": call(lambda x: roll_reference(x, (0, 3, 3))),
+           "library_ms": call(lambda x: torch.roll(x, (-3, -3), (2, 3)))}
+    cold = in_turns(fns, reps=20, timer=cold_ms)
+    warm = in_turns(fns, reps=20, timer=graph_ms)
+    nbytes = 2 * 2 * int(np.prod(shape))
+    bd = bound(card, 0, nbytes)
+    for label, t in (("cold", cold), ("warm", warm)):
+        log(f"bf16 k4 stage0 {shape} timing ({label}) on {card}: "
+            + ", ".join(f"{labels[k]} {v:.4f} ms" for k, v in t.items())
+            + f"; {nbytes / 1e6:.1f} MB; bound {bd['bound_ms']:.4f} ms "
+            f"(bytes); kernel at {bd['bound_ms'] / t['ms'] * 100:.1f}% of "
+            "the bound")
+    log(f"bf16 k4 stage0: bit for bit equal to torch.roll, both signs ok")
+    out["k4"] = {**cold, "warm": warm, "bound_ms": bd["bound_ms"],
+                 "bound_by": "bytes", "max_abs_err": 0.0,
+                 "shape": list(shape), "shifts": [0, 3, 3]}
+    del call, fns
+    return out
 
 
 def kernel_breakdown(fn, reps: int = 5, split_conv: bool = False):
@@ -1026,7 +1252,9 @@ def kernel_breakdown(fn, reps: int = 5, split_conv: bool = False):
                   if any(k in name for k in ("fprop", "dgrad", "wgrad",
                                              "conv", "winograd", "fft",
                                              "cf32"))
-                  else "gemm (Linear, fusion attention)" if "gemm" in name
+                  # cuBLAS's bf16 GEMMs on Hopper are "nvjet_..." kernels
+                  else "gemm (Linear, fusion attention)" if any(
+                      k in name for k in ("gemm", "nvjet"))
                   else "BatchNorm (cuDNN)" if "batch_norm" in name
                   or "bn_" in name
                   else "max pool" if "max_pool" in name
@@ -1323,6 +1551,14 @@ PER_PATTERN = {"video": {"window_attention": 24, "window_attention_bwd": 12,
                "audio,text,video": {"framed_conv1d": 1,
                                     "window_attention": 24,
                                     "window_attention_bwd": 12, "roll": 12}}
+
+
+def bf16_counts(counts):
+    """`counts` with K2, K3 and K4 under their bf16 instantiations' keys
+    (kernels.launch_key): what a bf16 path launches where the f32 path
+    launches `counts`.  K1 stays f32, cast around the kernel."""
+    return {k if k == "framed_conv1d" else kernels.launch_key(
+        k, torch.bfloat16): v for k, v in counts.items()}
 SPECS = {"phys": LossSpec("focal", class_weights=(0.5, 0.5), gamma=2.0),
          "verb": LossSpec("ce")}
 
@@ -1488,6 +1724,8 @@ def train_phase(card_line):
         families = kernel_breakdown(lambda: trainer.train_step(batch), reps=2)
         scored = {"evaluate": evaluate_phase(trainer.run_dir, card_line),
                   "predict": predict_phase(trainer.run_dir, tmp, card_line)}
+        scored["train_bf16"], _ = bf16_train_phase(args, trainer, batch,
+                                                   timing, card_line)
     busy = sum(families.values())
     (on_ms, on_gb), (off_ms, off_gb) = timing[True], timing[False]
     log(f"train step b8 (audio,text,video, 128 frames at 112 px) on "
@@ -1508,6 +1746,348 @@ def train_phase(card_line):
                     "kernel_busy_pct": busy / on_ms * 100,
                     **parity}))
     return counts, scored
+
+
+def check_logs(run_dir, heads, epochs, label):
+    """Each head's train and test logs hold `epochs` rows of finite
+    losses; returns {log name: DataFrame}."""
+    import pandas as pd
+
+    logs = {}
+    for h in heads:
+        for split in ("train", "test"):
+            f = f"{h}_{split}_log.csv"
+            df = pd.read_csv(os.path.join(run_dir, f))
+            if df["epoch"].tolist() != list(range(epochs)) or not np.isfinite(
+                    df["loss"]).all():
+                raise AssertionError(f"{label}: {f} holds {df.to_dict()}")
+            logs[f] = df
+    return logs
+
+
+def state_dtypes_f32(state, label):
+    """Master parameters, their gradients, the optimizer's floating state
+    and every buffer (BatchNorm's statistics) are f32."""
+    for name, p in state.model.named_parameters():
+        if p.dtype != torch.float32 or (p.grad is not None
+                                        and p.grad.dtype != torch.float32):
+            raise AssertionError(f"{label}: {name} is {p.dtype}")
+    for st in state.optimizer.inner.state.values():
+        for v in st.values():
+            if v.is_floating_point() and v.dtype != torch.float32:
+                raise AssertionError(f"{label}: optimizer state {v.dtype}")
+    for name, b in state.model.named_buffers():
+        if b.is_floating_point() and b.dtype != torch.float32:
+            raise AssertionError(f"{label}: buffer {name} is {b.dtype}")
+
+
+def bf16_train_phase(args, trainer32, batch, timing32, card_line):
+    """The tri-modal fine-tune with --compute_dtype bfloat16: 2 epochs of
+    cli.train_multimodal.main on the f32 run's data set and config, its
+    launches per step (K1 1, K2 24, K3 12, K4 12 with remat), the median
+    step time and peak memory with remat on and off (JAX's tuned
+    configuration: --video_remat false --compute_dtype bfloat16), the
+    kernel families; one bf16 step against one f32 step on the same
+    weights (the runs' seeded initial model) and batch: the loss within
+    5 % (tests/test_precision.py:168), master state f32."""
+    from multimodalaggressionrecognition_tpu_torch.cli import train_multimodal
+    from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
+        set_generator)
+    from multimodalaggressionrecognition_tpu_torch.train.state import (
+        OptimizerConfig, create_train_state)
+    from multimodalaggressionrecognition_tpu_torch.train.steps import (
+        train_step)
+
+    args = list(args) + ["--compute_dtype", "bfloat16"]
+    args[args.index("--run_name") + 1] = "r_bf16"
+    torch.cuda.synchronize()
+    kernels.launch_counts.clear()  # count this path only
+    t0 = time.monotonic()
+    trainer = train_multimodal.main(args)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)  # read just after the main path
+    fit_s = time.monotonic() - t0
+    swin_kernels = ("window_attention", "window_attention_bwd", "roll")
+    if (not counts.get("framed_conv1d")
+            or any(counts.get(k) for k in swin_kernels)
+            or not all(counts.get(kernels.launch_key(k, torch.bfloat16))
+                       for k in swin_kernels)):
+        raise AssertionError(f"train bf16: the fit launched {counts}, want "
+                             "K1 and the bf16 K2, K3 and K4 only")
+    logs = check_logs(trainer.run_dir, ("phys", "verb"), 2, "train bf16")
+    per_step = step_counts(trainer, batch)
+    want = bf16_counts(PER_PATTERN["audio,text,video"])
+    if per_step != want:
+        raise AssertionError(f"train bf16: a tri-modal step launched "
+                             f"{per_step}, want {want}")
+    swin = trainer.state.model.extractors["video"].backbone.backbone
+    timing = {}
+    for remat in (True, False):
+        swin.remat = remat
+        timing[remat] = median_step_ms(trainer, batch)
+    swin.remat = True
+    families = kernel_breakdown(lambda: trainer.train_step(batch), reps=2)
+    busy = sum(families.values())
+    state_dtypes_f32(trainer.state, "train bf16")
+
+    losses = {}
+    initial = seeded_init_(build_model(
+        MultimodalConfig(**TRAIN, video_freeze=False),
+        ("audio", "text", "video")), SEED)
+    for dtype in (None, torch.bfloat16):
+        st = create_train_state(copy.deepcopy(initial),
+                                OptimizerConfig(learning_rate=1e-3), DEVICE)
+        set_generator(st.model, torch.Generator(DEVICE).manual_seed(SEED))
+        losses[dtype] = train_step(st, batch, trainer32.loss_specs, 2,
+                                   compute_dtype=dtype)["total_loss"].item()
+        state_dtypes_f32(st, "train bf16 parity")
+        del st
+    rel = abs(losses[torch.bfloat16] - losses[None]) / abs(losses[None])
+    if not rel <= 0.05:
+        raise AssertionError(f"train bf16: loss {losses} differs by {rel}")
+    (on_ms, on_gb), (off_ms, off_gb) = timing[True], timing[False]
+    (f_on, f_on_gb), (f_off, f_off_gb) = timing32[True], timing32[False]
+    clips_s = [float(v) for v in logs["verb_train_log.csv"]["clips_per_sec"]]
+    log(f"train bf16 main path: cli.train_multimodal.main --compute_dtype "
+        f"bfloat16, 2 epochs, {trainer.state.step} steps, launches {counts}, "
+        f"fit {fit_s:.1f} s; per tri-modal step {per_step}; loss of one "
+        f"step bf16 {losses[torch.bfloat16]:.6f} vs f32 {losses[None]:.6f} "
+        f"({rel * 100:.3f} % <= 5 %); master state f32 ok")
+    log(f"train bf16 step b8 on {card_line}: median {on_ms:.3f} ms, peak "
+        f"{on_gb:.2f} GiB with remat; {off_ms:.3f} ms, peak {off_gb:.2f} GiB "
+        f"without (f32: {f_on:.3f} ms, {f_on_gb:.2f} GiB; {f_off:.3f} ms, "
+        f"{f_off_gb:.2f} GiB); kernels by family (ms per step, remat on): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            families.items(), key=lambda kv: -kv[1]))
+        + f"; sum {busy:.4f} ms = {busy / on_ms * 100:.1f}% of the step")
+    log(json.dumps({"train": "audio,text,video bf16",
+                    "batch": TRAIN["batch_size"], "compute_dtype": "bfloat16",
+                    "steps": trainer.state.step, "launches": counts,
+                    "launches_per_step": per_step, "step_ms_remat": on_ms,
+                    "step_ms_no_remat": off_ms, "peak_gib_remat": on_gb,
+                    "peak_gib_no_remat": off_gb, "f32_step_ms_remat": f_on,
+                    "f32_step_ms_no_remat": f_off,
+                    "f32_peak_gib_remat": f_on_gb,
+                    "f32_peak_gib_no_remat": f_off_gb,
+                    "epoch_clips_per_s": clips_s,
+                    "kernel_ms_by_family": families,
+                    "kernel_busy_pct": busy / on_ms * 100,
+                    "loss_bf16": losses[torch.bfloat16],
+                    "loss_f32": losses[None], "loss_rel_diff": rel}))
+    return counts, {"step_ms_remat": on_ms, "step_ms_no_remat": off_ms}
+
+
+def serve_bf16_phase(card_line):
+    """Predictor(compute_dtype="bfloat16") of the tri-modal model at b8
+    (seeded weights): its launches per forward (K1 1, K2 12, K4 4), its
+    probabilities within 0.03 of the f32 Predictor's on the card
+    (tests/test_precision.py:201), and both forwards' device ms."""
+    from multimodalaggressionrecognition_tpu_torch.serve import Predictor
+
+    modalities = ("audio", "text", "video")
+    model = seeded_model(TRIMODAL, modalities)
+    batch = full_batch(TRIMODAL, modalities, 8, SEED + 3)
+    request = {m: v["data"].numpy() for m, v in batch.items()}
+    p32 = Predictor(copy.deepcopy(model), batch_size=8, device=DEVICE)
+    p16 = Predictor(model, batch_size=8, device=DEVICE,
+                    compute_dtype="bfloat16")
+    want = p32.predict(request)
+    p16.predict(request)  # first call: the constants and the casts' set-up
+    torch.cuda.synchronize()
+    kernels.launch_counts.clear()  # count this path only
+    got = p16.predict(request)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)  # read just after the path
+    expect = bf16_counts({"framed_conv1d": 1, "window_attention": 12,
+                          "roll": 4})
+    if counts != expect:
+        raise AssertionError(f"serve bf16: a forward launched {counts}, "
+                             f"want {expect}")
+    err = max(float(np.abs(got[h] - want[h]).max()) for h in want)
+    if not err <= 0.03 or any(got[h].dtype != np.float32 for h in got):
+        raise AssertionError(f"serve bf16: probabilities differ by {err}")
+    padded = p16._pad_batch(request, 8)
+    ms = {"f32": cuda_ms(lambda: p32._forward(padded), reps=10),
+          "bf16": cuda_ms(lambda: p16._forward(padded), reps=10)}
+    families = kernel_breakdown(lambda: p16._forward(padded), reps=3)
+    log(f"serve bf16 tri-modal b8 on {card_line}: launches {counts} ok; "
+        f"max |dprob| vs the f32 card {err:.3e} <= 0.03 ok; forward "
+        f"{ms['bf16']:.3f} ms (f32 {ms['f32']:.3f} ms); kernels by family: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            families.items(), key=lambda kv: -kv[1])))
+    log(json.dumps({"serve": "audio,text,video bf16", "batch": 8,
+                    "launches": counts, "max_abs_prob_err": err,
+                    "forward_ms_bf16": ms["bf16"],
+                    "forward_ms_f32": ms["f32"],
+                    "kernel_ms_by_family": families}))
+    return counts
+
+
+# the flagship trainer (ROADMAP item 11): train_multimodal --modalities
+# audio,text at full width, b32, with the JAX package's production knobs
+FLAGSHIP_DATA = dict(num_clusters=4, samples_per_cluster=64, seed=SEED,
+                     audio_len=FLAGSHIP["audio_samples"],
+                     text_len=FLAGSHIP["text_tokens"], video_frames=8,
+                     video_hw=32)
+FLAGSHIP_KNOBS = ["--lr_schedule", "cosine", "--warmup_steps", "2",
+                  "--grad_clip_norm", "1.0", "--weight_decay", "0.01",
+                  "--grad_accum_steps", "2", "--ema_decay", "0.99",
+                  "--early_stop_patience", "3"]
+
+
+class _RequestAt:
+    """Calls guard.request() after the `at`-th train step of epoch `epoch`
+    (the trainer's on_epoch_start hook tells the epoch)."""
+
+    def __init__(self, trainer, guard, epoch: int, at: int):
+        self.trainer, self.guard = trainer, guard
+        self.epoch, self.at = epoch, at
+        self.current, self.steps = -1, 0
+        self.step = trainer.train_step
+        trainer.on_epoch_start = self.on_epoch_start
+        trainer.train_step = self
+
+    def on_epoch_start(self, epoch):
+        self.current, self.steps = epoch, 0
+
+    def __call__(self, batch):
+        out = self.step(batch)
+        self.steps += 1
+        if self.current == self.epoch and self.steps == self.at:
+            self.guard.request()
+        return out
+
+
+def flagship_phase(card_line):
+    """cli.train_multimodal --modalities audio,text at full width, b32, 2
+    epochs, with a cosine schedule after a 2-step warmup, clipping at 1.0,
+    AdamW (0.01), accumulation over 2 micro-batches, an EMA (0.99), early
+    stopping (3), TensorBoard and the profiler: K1 once a micro-step, the
+    trace file, the scalars (or the one warning without tensorboard); the
+    median step time (micro-steps and updates alternate).  Then the same
+    run preempted by guard.request() after the 3rd step of epoch 1 (mid
+    accumulation), resumed from checkpoint_preempt: its logged losses
+    within 1e-4 relative of the uninterrupted run's."""
+    import glob
+
+    from multimodalaggressionrecognition_tpu_torch.cli import train_multimodal
+    from multimodalaggressionrecognition_tpu_torch.cli.common import (
+        parse_config, run_training)
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        generate_synthetic_avabos)
+    from multimodalaggressionrecognition_tpu_torch.utils.preemption import (
+        PreemptionGuard)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        root = os.path.join(tmp, "avabos")
+        generate_synthetic_avabos(root, **FLAGSHIP_DATA)
+        data_s = time.monotonic() - t0
+        base = ["--dataset_root", root, "--saving_dir",
+                os.path.join(tmp, "runs"), "--modalities", "audio,text",
+                "--epoch_num", "2", "--device", DEVICE, "--num_threads", "4",
+                "--batch_size", "32", "--log_console", "false",
+                *FLAGSHIP_KNOBS]
+        for k in ("hidden_size", "fusion_layers", "fusion_heads",
+                  "audio_samples", "text_tokens"):
+            base += [f"--{k}", str(FLAGSHIP[k])]
+        prof, tb = os.path.join(tmp, "prof"), os.path.join(tmp, "tb")
+        args = base + ["--run_name", "full", "--profile_dir", prof,
+                       "--tensorboard_dir", tb]
+        torch.cuda.synchronize()
+        kernels.launch_counts.clear()  # count this path only
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            trainer = train_multimodal.main(args)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)  # read just after the path
+        fit_s = time.monotonic() - t0
+        logs = check_logs(trainer.run_dir, ("verb",), 2, "train flagship")
+        steps, updates = trainer.state.step, trainer.state.optimizer.updates
+        eval_steps = 2 * sum(1 for _ in trainer.test_loader)
+        if counts != {"framed_conv1d": steps + eval_steps} or steps < 8:
+            raise AssertionError(f"train flagship: {steps} micro-steps and "
+                                 f"{eval_steps} eval steps launched {counts}")
+        if updates != steps // 2:
+            raise AssertionError(f"train flagship: accumulation made "
+                                 f"{updates} updates in {steps} micro-steps")
+        ckpt = torch.load(os.path.join(trainer.run_dir, "checkpoint_current"),
+                          weights_only=True)
+        if abs(ckpt["ema"]["decay"] - 0.99) > 1e-12:
+            raise AssertionError("train flagship: no EMA in the checkpoint")
+        traces = glob.glob(os.path.join(prof, "trace_*.json"))
+        events = glob.glob(os.path.join(tb, "events.out.tfevents.*"))
+        warned = out.getvalue().count("tensorboard not available")
+        if len(traces) != 1 or not (events or warned == 1):
+            raise AssertionError(f"train flagship: traces {traces}, events "
+                                 f"{events}, warnings {warned}")
+        trace_mb = os.path.getsize(traces[0]) / 1e6
+        batch = next(iter(trainer.batches(trainer.train_loader)))
+        one = step_counts(trainer, batch)
+        if one != {"framed_conv1d": 1}:
+            raise AssertionError(f"train flagship: a step launched {one}")
+        step_ms, peak_gb = median_step_ms(trainer, batch)
+        families = kernel_breakdown(lambda: trainer.train_step(batch), reps=4)
+        busy = sum(families.values())
+        clips_s = [float(v) for v in logs["verb_train_log.csv"]
+                   ["clips_per_sec"]]
+        log(f"train flagship main path on {card_line}: audio,text b32, 2 "
+            f"epochs, {steps} micro-steps ({updates} updates), launches "
+            f"{counts}; data set made in {data_s:.1f} s, "
+            f"fit {fit_s:.1f} s; epoch clips/s {clips_s}; trace "
+            f"{os.path.basename(traces[0])} ({trace_mb:.1f} MB); TensorBoard "
+            + (f"{len(events)} event file(s)" if events else
+               "not installed: one warning"))
+        log(f"train flagship step b32 on {card_line}: median {step_ms:.3f} ms "
+            f"(micro-steps and updates), peak {peak_gb:.2f} GiB; kernels by "
+            "family (ms per step): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(families.items(),
+                                                  key=lambda kv: -kv[1]))
+            + f"; sum {busy:.4f} ms = {busy / step_ms * 100:.1f}% of the step")
+
+        cfg = parse_config(train_multimodal.MultimodalConfig,
+                           base + ["--run_name", "pre"])
+        first = train_multimodal.make_trainer(cfg)
+        guard = PreemptionGuard(verbose=False)
+        first.preemption_guard = guard
+        _RequestAt(first, guard, epoch=1, at=3)
+        run_training(cfg, first)
+        pre_dir = first.run_dir
+        if not os.path.isfile(os.path.join(pre_dir, "checkpoint_preempt")):
+            raise AssertionError("train flagship: no checkpoint_preempt")
+        partial = torch.load(os.path.join(pre_dir, "checkpoint_preempt"),
+                             weights_only=True)["meta"]
+        second = train_multimodal.make_trainer(cfg)
+        run_training(cfg, second)  # resumes from checkpoint_preempt
+        got = check_logs(pre_dir, ("verb",), 2, "train flagship resumed")
+        gap = 0.0
+        for f, df in logs.items():
+            want = df["loss"].to_numpy()
+            have = got[f]["loss"].to_numpy()
+            gap = max(gap, float(np.max(np.abs(have - want)
+                                        / np.abs(want))))
+        if not gap <= 1e-4:
+            raise AssertionError(f"train flagship: the resumed run's losses "
+                                 f"differ by {gap:.3e} relative")
+        if os.path.exists(os.path.join(pre_dir, "checkpoint_preempt")):
+            raise AssertionError("train flagship: checkpoint_preempt left")
+        log(f"train flagship preemption: guard.request() after step 3 of "
+            f"epoch 1 -> checkpoint_preempt at epoch {partial['epoch']}, "
+            f"batch {partial['batches_done']}; the resumed run's logged "
+            f"losses within {gap:.3e} relative of the uninterrupted run's "
+            "<= 1e-4 ok")
+    log(json.dumps({"train": "audio,text flagship", "batch": 32,
+                    "knobs": FLAGSHIP_KNOBS, "steps": steps,
+                    "updates": updates,
+                    "launches": counts, "launches_per_step": one,
+                    "step_ms": step_ms, "peak_gib": peak_gb,
+                    "epoch_clips_per_s": clips_s,
+                    "kernel_ms_by_family": families,
+                    "kernel_busy_pct": busy / step_ms * 100,
+                    "trace_mb": trace_mb, "tensorboard_events": len(events),
+                    "preempt_batches_done": partial["batches_done"],
+                    "preempt_resume_loss_rel_gap": gap}))
+    return counts
 
 
 # launches per scored batch by the modalities it holds (evaluate, predict
@@ -2469,7 +3049,7 @@ def k2_extract_phase(card: str):
         # a launch takes 0.1-3 ms here, far above Python's dispatch: the
         # back-to-back calls of cuda_ms time the card, not the host
         warm = in_turns(fns, reps=10)
-        bd = bound(card, *k2_work(w, n, heads, d, nw), tensor=True)
+        bd = bound(card, *k2_work(w, n, heads, d, nw))
         fwd_ms += launches * warm["ms"]
         fwd_bound += launches * bd["bound_ms"]
         if main:
@@ -2847,12 +3427,26 @@ def main():
     k2 = {**k2_phase(name), "resources": resources["window_attention"]}
     k2["extract"] = k2_extract_phase(name)
     k3 = {**k3_phase(name), "resources": resources["window_attention_bwd"]}
+    bf16 = bf16_kernel_phase(name)
     launches = {label: run_slice(label, cfg, bs, parity_n, per_forward,
                                  card_line)
                 for label, cfg, bs, parity_n, per_forward in SLICES}
+    launches["serve_bf16"] = serve_bf16_phase(card_line)
     main_path = "train"  # the tri-modal fine-tune runs every kernel
     launches[main_path], scored = train_phase(card_line)
     launches.update(scored)
+    launches["train_flagship"] = flagship_phase(card_line)
+    for numbers, key, kernel in ((k2, "k2", "window_attention"),
+                                 (k3, "k3", "window_attention_bwd"),
+                                 (k4, "k4", "roll")):
+        numbers["bf16"] = {
+            **bf16[key],
+            "launches": launches["train_bf16"].get(
+                kernels.launch_key(kernel, torch.bfloat16), 0),
+            "launches_by_path": {
+                p: launches[p].get(kernels.launch_key(kernel, torch.bfloat16),
+                                   0)
+                for p in ("train_bf16", "serve_bf16")}}
     launches["train_audio_vgg"] = audio_vgg_phase(card_line, k1)
     launches["train_text"] = text_phase(card_line)
     launches["train_video_transformer"] = video_transformer_phase(card_line)

@@ -1,11 +1,13 @@
 """Shared CLI machinery: dataclass configs with generated argparse, and the
 training half (dataset provisioning, optimizer, trainer).
 
-Only the fields the ported paths read exist; the JAX package's other knobs
-(schedules, AdamW, clipping, accumulation, EMA, early stopping, bf16,
-parallelism, profiling, TensorBoard, the compilation cache) are listed in
-ROADMAP.md.  `make_optimizer` still reads the optimizer knobs so that
-asking for one that is not ported fails instead of being ignored.
+`TrainConfig` carries the JAX package's training knobs: the optimizer chain
+(`--lr_schedule`, `--lr_decay_steps`, `--lr_decay_rate`, `--warmup_steps`,
+`--grad_clip_norm`, `--weight_decay`, `--grad_accum_steps`), the EMA
+(`--ema_decay`), early stopping, the profiler, TensorBoard and
+`--compute_dtype` (bfloat16 where an entry accepts it; the others call
+`require_float32`).  Not ported: multi-GPU (`--data_parallel`,
+`--model_parallelism`) and, by design, the XLA compilation cache.
 `--from_run <run dir>` fills every field not passed on the command line
 from the run's saved config.json.
 """
@@ -34,13 +36,25 @@ class TrainConfig:
     synthetic: bool = False
     num_threads: int = 4
     log_console: bool = True
-    # not ported beyond their defaults: anything else raises
-    lr_schedule: str = "constant"
-    warmup_steps: int = 0
-    grad_clip_norm: float = 0.0
-    weight_decay: float = 0.0
-    grad_accum_steps: int = 1
+    lr_schedule: str = "constant"  # constant | cosine | exponential
+    lr_decay_steps: int = 10000
+    lr_decay_rate: float = 0.95
+    warmup_steps: int = 0  # a linear warmup joined in front of the schedule
+    grad_clip_norm: float = 0.0  # 0: off; else clip by the global norm
+    weight_decay: float = 0.0  # 0: Adam; else AdamW
+    grad_accum_steps: int = 1  # micro-batches per optimizer update
+    ema_decay: float = 0.0  # 0: off; else eval and serve the EMA shadow
+    early_stop_patience: int = 0  # 0: off; else stop after N flat epochs
+    # "float32", or "bfloat16" (f32 master parameters, optimizer state,
+    # BatchNorm statistics and losses; bf16 activations) where the entry
+    # takes it
     compute_dtype: str = "float32"
+    # torch.profiler Chrome trace of one training epoch ('' = off), epoch
+    # min(profile_epoch, epoch_num - 1)
+    profile_dir: str = ""
+    profile_epoch: int = 1
+    # TensorBoard scalars <head>/<split>/<metric> per epoch ('' = off)
+    tensorboard_dir: str = ""
     device: str = "cuda"
 
 
@@ -102,7 +116,8 @@ def flag_value(args, name, default):
 # evaluate or predict to the CPU without the caller asking)
 _FROM_RUN_EXCLUDE = frozenset({
     "path_to_checkpoint", "resume_training", "run_name", "saving_dir",
-    "epoch_num", "batch_size", "num_threads", "log_console", "device"})
+    "profile_dir", "epoch_num", "batch_size", "num_threads", "log_console",
+    "device"})
 
 
 def parse_config(cls, argv=None, **overrides):
@@ -190,49 +205,72 @@ def ensure_dataset(cfg: TrainConfig, **synth_kwargs):
     return df, split
 
 
-def make_optimizer(cfg: TrainConfig) -> float:
-    """The ported optimizer is the reference's: plain Adam at a constant
-    learning rate (returned; train/state.py builds it).  Every other
-    optimizer knob raises."""
-    later = {"lr_schedule": (cfg.lr_schedule, "constant"),
-             "warmup_steps": (cfg.warmup_steps, 0),
-             "grad_clip_norm": (cfg.grad_clip_norm, 0.0),
-             "weight_decay": (cfg.weight_decay, 0.0),
-             "grad_accum_steps": (cfg.grad_accum_steps, 1)}
-    for name, (value, plain) in later.items():
-        if value != plain:
-            raise SystemExit(
-                f"--{name} {value} is not ported: the port trains with plain "
-                "Adam at a constant learning rate; schedules, warmup, "
-                "clipping, AdamW and accumulation arrive in a later slice")
-    require_float32(cfg, "trains")
-    return cfg.learning_rate
+def make_optimizer(cfg: TrainConfig):
+    """The optimizer chain of the config (train/state.py): [accumulation]
+    over [clip] -> Adam or AdamW at the schedule, the JAX package's
+    make_optimizer.  The defaults are the reference's plain Adam at a
+    constant rate."""
+    from ..train.state import OptimizerConfig
+
+    try:
+        return OptimizerConfig(
+            learning_rate=cfg.learning_rate, lr_schedule=cfg.lr_schedule,
+            lr_decay_steps=cfg.lr_decay_steps,
+            lr_decay_rate=cfg.lr_decay_rate, warmup_steps=cfg.warmup_steps,
+            grad_clip_norm=cfg.grad_clip_norm, weight_decay=cfg.weight_decay,
+            grad_accum_steps=cfg.grad_accum_steps)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+
+
+def compute_dtype(cfg):
+    """--compute_dtype as a torch dtype, or None for float32; an unknown
+    name exits."""
+    import torch
+
+    from ..utils.precision import resolve_dtype
+
+    try:
+        dtype = resolve_dtype(cfg.compute_dtype)
+    except ValueError as e:
+        raise SystemExit(f"--compute_dtype: {e}") from None
+    return None if dtype == torch.float32 else dtype
 
 
 def require_float32(cfg, runs: str):
-    """--compute_dtype other than float32 raises: the port `runs` (trains,
-    extracts) in f32 only."""
-    if cfg.compute_dtype != "float32":
-        raise SystemExit(f"--compute_dtype {cfg.compute_dtype} is not ported: "
-                         f"the port {runs} in float32; bf16 arrives in a "
-                         "later slice")
+    """--compute_dtype other than float32 raises, for the entries that `run`
+    (train, extract) in f32 only: bf16 on their norms and cuDNN RNNs needs
+    its own checks (ROADMAP.md, queue 1 item 12)."""
+    if compute_dtype(cfg) is not None:
+        raise SystemExit(f"--compute_dtype {cfg.compute_dtype} is not "
+                         f"ported for this entry: it {runs} in float32; "
+                         "bf16 runs in train_multimodal, evaluate, predict "
+                         "and serve (ROADMAP.md, queue 1 item 12)")
 
 
 def build_trainer(cfg: TrainConfig, model, loss_specs, train_loader,
-                  test_loader, num_classes: int = 2, on_epoch_start=None):
+                  test_loader, num_classes: int = 2, on_epoch_start=None,
+                  bf16: bool = False):
+    """The entry's Trainer with every knob of `cfg`; `bf16`: the entry
+    takes --compute_dtype bfloat16 (else it must be float32)."""
     from ..serve import resolve_device
     from ..train.loop import Trainer
 
-    learning_rate = make_optimizer(cfg)
+    if not bf16:
+        require_float32(cfg, "trains")
     run_dir = (os.path.join(cfg.saving_dir, cfg.run_name) if cfg.run_name
                else None)
     trainer = Trainer(
-        model, loss_specs, learning_rate, train_loader, test_loader,
+        model, loss_specs, make_optimizer(cfg), train_loader, test_loader,
         num_classes=num_classes, saving_dir=cfg.saving_dir,
         model_name=cfg.model_name, device=resolve_device(cfg.device),
         checkpoint_criterion=cfg.checkpoint_criterion, seed=cfg.seed,
         log_console=cfg.log_console, run_dir=run_dir,
-        on_epoch_start=on_epoch_start)
+        on_epoch_start=on_epoch_start, compute_dtype=compute_dtype(cfg),
+        ema_decay=cfg.ema_decay,
+        early_stop_patience=cfg.early_stop_patience,
+        profile_dir=cfg.profile_dir or None, profile_epoch=cfg.profile_epoch,
+        tensorboard_dir=cfg.tensorboard_dir or None)
     save_run_config(cfg, trainer.run_dir)
     return trainer
 

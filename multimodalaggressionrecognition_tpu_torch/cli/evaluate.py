@@ -19,7 +19,7 @@ metrics do not.  `--exported` (a serving artifact) is not ported.
 import json
 from dataclasses import dataclass
 
-from .common import ensure_dataset, parse_config, require_float32
+from .common import compute_dtype, ensure_dataset, parse_config
 from .train_multimodal import MultimodalConfig, build_model, make_loaders
 
 
@@ -44,6 +44,7 @@ def main(argv=None):
     from ..models.layers import seeded_init_
     from ..serve import resolve_device
     from ..train.loop import Trainer
+    from ..train.state import OptimizerConfig
     from ..train.steps import LossSpec
     from .train_multimodal import class_weights_from_df
 
@@ -52,7 +53,7 @@ def main(argv=None):
         raise SystemExit("--exported is not ported: the PyTorch package has "
                          "no serving artifact yet (ROADMAP.md, queue 1 item "
                          "9); evaluate a checkpoint with --path_to_checkpoint")
-    require_float32(cfg, "evaluates")
+    dtype = compute_dtype(cfg)
     device = resolve_device(cfg.device)  # fail before any data or model work
     modalities = tuple(cfg.modalities.split(","))
     df, split = ensure_dataset(cfg)
@@ -62,12 +63,14 @@ def main(argv=None):
                                    class_weights=class_weights_from_df(
                                        df, "phys_aggr_label")),
                   "verb": LossSpec("ce")}
-    trainer = Trainer(model, loss_specs, 1e-3, train_loader, test_loader,
-                      num_classes=2, saving_dir=cfg.saving_dir,
-                      model_name="evaluate", device=device, log_console=False)
+    trainer = Trainer(model, loss_specs, OptimizerConfig(learning_rate=1e-3),
+                      train_loader, test_loader, num_classes=2,
+                      saving_dir=cfg.saving_dir, model_name="evaluate",
+                      device=device, log_console=False, compute_dtype=dtype)
     trainer.init_state()
     if cfg.path_to_checkpoint:
-        # the weights of a training or an inference checkpoint, strictly
+        # the weights of a training or an inference checkpoint (its EMA
+        # shadow where it has one), strictly
         state_dict, _ = restore_variables(cfg.path_to_checkpoint)
         trainer.state.model.load_state_dict(state_dict, strict=True)
     results = trainer.eval_epoch()

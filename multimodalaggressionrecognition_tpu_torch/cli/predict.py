@@ -12,9 +12,9 @@ Accepts .wav (host decode + 16 kHz resample), .pt waveforms, .npy text
 embeddings, and .mp4/.npy/.pt video clips (host decode + spatial resize +
 frame pad; pass --modalities audio,text,video so the model has the video
 tower); missing modalities follow the EMPTY protocol (zero stubs).  Prints
-one JSON line per clip.  Runs on CUDA unless --device cpu.  Not ported:
-`--exported` (a serving artifact, with its feature-sequence video input),
-`--quantize` and bf16.
+one JSON line per clip.  Runs on CUDA unless --device cpu, in f32 or with
+--compute_dtype bfloat16.  Not ported: `--exported` (a serving artifact,
+with its feature-sequence video input) and `--quantize`.
 """
 
 import json
@@ -23,7 +23,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .common import parse_config
+from .common import compute_dtype, parse_config
 from .train_multimodal import MultimodalConfig, build_model
 
 
@@ -96,10 +96,6 @@ def _refuse_unported(cfg):
         raise SystemExit(f"--quantize {cfg.quantize} is not ported: the port "
                          "scores in float32; int8 arrives with the export "
                          "work (ROADMAP.md, queue 1 item 9)")
-    if cfg.compute_dtype != "float32":
-        raise SystemExit(f"--compute_dtype {cfg.compute_dtype} is not "
-                         "ported: the port scores in float32; bf16 arrives "
-                         "in a later slice (ROADMAP.md, queue 1 item 7)")
 
 
 def main(argv=None):
@@ -111,6 +107,7 @@ def main(argv=None):
     cfg = parse_config(PredictConfig, argv)
     _refuse_unported(cfg)
     device = resolve_device(cfg.device)  # fail before any data or model work
+    dtype = compute_dtype(cfg)
 
     files = {"audio": _gather(cfg.audio, {".wav", ".pt"}),
              "text": _gather(cfg.text, {".npy"}),
@@ -151,7 +148,7 @@ def main(argv=None):
         state_dict, _ = restore_variables(cfg.path_to_checkpoint)
     predictor = Predictor(model, state_dict,
                           batch_size=min(cfg.batch_size, max(n, 1)),
-                          device=device)
+                          device=device, compute_dtype=dtype)
     names = [os.path.basename(p) for p in next(iter(files.values()))]
     for start in range(0, n, predictor.batch_size):
         chunk = {k: v[start:start + predictor.batch_size]

@@ -183,9 +183,10 @@ def build_server(cfg: ServeConfig, state_dict=None) -> ThreadingHTTPServer:
     from ..io.checkpoint import restore_variables
     from ..models.layers import seeded_init_
     from ..serve import MicroBatcher, Predictor, resolve_device
-    from .common import clip_shapes_from_config
+    from .common import clip_shapes_from_config, compute_dtype
 
     device = resolve_device(cfg.device)  # fail before any model work
+    dtype = compute_dtype(cfg)
     modalities = tuple(sorted(cfg.modalities.split(",")))
     model = build_model(cfg, modalities)
     if state_dict is None:
@@ -202,7 +203,7 @@ def build_server(cfg: ServeConfig, state_dict=None) -> ThreadingHTTPServer:
 
     shapes = clip_shapes_from_config(cfg, modalities)
     predictor = Predictor(model, state_dict, batch_size=cfg.batch_size,
-                          device=device)
+                          device=device, compute_dtype=dtype)
     predictor.warmup({m: np.zeros((1,) + shapes[m], np.float32)
                       for m in modalities})
     pad_builders = {"audio": pad_audio, "text": pad_text, "video": pad_video}

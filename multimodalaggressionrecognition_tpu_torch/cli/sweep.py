@@ -14,9 +14,8 @@ their best test metric (show_results' selection rule).
 
 Everything after `--` is passed verbatim to every run.  Writes
 <saving_dir>/sweep_summary.csv and prints the ranked table.  A point whose
-run left a `checkpoint_preempt` stops the sweep unmarked; the port's
-trainer writes none until preemption is ported (ROADMAP.md, queue 1 item
-7).
+run was preempted (SIGTERM: its trainer left a `checkpoint_preempt` and
+returned) stops the sweep unmarked, so a relaunch resumes that point.
 """
 
 import argparse
@@ -99,7 +98,7 @@ def main(argv=None):
         for k, v in kv.items():
             args += [f"--{k}", v]
         entry.main(args)
-        if os.path.isdir(os.path.join(run_dir, "checkpoint_preempt")):
+        if os.path.exists(os.path.join(run_dir, "checkpoint_preempt")):
             # a preempted run is not done: no marker (a relaunched sweep
             # resumes it through --run_name), and no next point
             print(json.dumps({"sweep": slug, "status": "preempted"}),

@@ -4,8 +4,11 @@ Pipeline: time-intervals table + cluster split -> aggr-type-homogeneous
 batches with the EMPTY protocol -> PhysVerbModel (CNN1D audio tower +
 Linear 512->hidden, identity text tower, optional windowed Swin3D-T video
 tower, frozen or fine-tuned) -> fusion transformer -> PhysVerb concat heads,
-with focal loss ('phys', inverse-frequency alpha) + CE ('verb'), Adam and
-best-UAR checkpoints.  Runs on CUDA unless --device cpu.
+with focal loss ('phys', inverse-frequency alpha) + CE ('verb'), Adam (or
+the optimizer chain of cli/common.make_optimizer) and best-UAR
+checkpoints, in f32 or with --compute_dtype bfloat16 (the JAX package's
+tuned fine-tune: --video_remat false --compute_dtype bfloat16).  Runs on
+CUDA unless --device cpu.
 
   python -m multimodalaggressionrecognition_tpu_torch.cli.train_multimodal \
       --dataset_root data/avabos --modalities audio,text,video \
@@ -16,8 +19,8 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .common import (TrainConfig, build_trainer, ensure_dataset,
-                     parse_config, run_training)
+from .common import (TrainConfig, build_trainer, compute_dtype,
+                     ensure_dataset, parse_config, run_training)
 
 SWIN_WIDTH = 768  # Swin3D-T's final width: the video tokens' width
 
@@ -140,13 +143,15 @@ def make_loaders(cfg, df, split, modalities):
     return loaders
 
 
-def main(argv=None):
+def make_trainer(cfg):
+    """The Trainer `main` runs for `cfg`: data set, loaders, the seeded
+    model, the losses and every knob of the config."""
     from ..models.layers import seeded_init_
     from ..serve import resolve_device
     from ..train.steps import LossSpec
 
-    cfg = parse_config(MultimodalConfig, argv)
     resolve_device(cfg.device)  # fail before any data or model work
+    compute_dtype(cfg)
     modalities = tuple(cfg.modalities.split(","))
     df, split = ensure_dataset(cfg)
     train_loader, test_loader = make_loaders(cfg, df, split, modalities)
@@ -158,8 +163,13 @@ def main(argv=None):
                          gamma=cfg.focal_gamma),
         "verb": LossSpec("ce"),
     }
-    trainer = build_trainer(cfg, model, loss_specs, train_loader, test_loader)
-    return run_training(cfg, trainer)
+    return build_trainer(cfg, model, loss_specs, train_loader, test_loader,
+                         bf16=True)
+
+
+def main(argv=None):
+    cfg = parse_config(MultimodalConfig, argv)
+    return run_training(cfg, make_trainer(cfg))
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 // Fused (shifted-)window attention forward (kernel K2) for Hopper, f32
-// accuracy on the tensor cores (3xTF32).
+// accuracy on the tensor cores (3xTF32), with f32 or bf16 qkv and output.
 //
 // Replaces `_fused_fwd` (with its body `_kernel`) in
 // multimodalaggressionrecognition_tpu/ops/pallas/window_attention.py: for
@@ -11,8 +11,11 @@
 //
 // with q, k, v the three C-wide thirds of the packed qkv (W, N, 3C) and each
 // head a d-wide slice of them (C = heads * d), bias (heads, N, N), mask
-// (nW, N, N) or none, out (W, N, C), all row-major f32.  The (W, heads, N, N)
-// score tensor never reaches device memory.
+// (nW, N, N) or none, out (W, N, C), all row-major; qkv and out are f32 or
+// both bf16 (the model's compute dtype), bias and mask f32.  The TPU kernel
+// reads bf16 qkv the same way: it widens each operand to f32 and rounds only
+// its output to the output's dtype; so does this one (tf32x3.cuh, storage
+// types).  The (W, heads, N, N) score tensor never reaches device memory.
 //
 // Bound.  At Swin3D-T's stage 0 served at batch 8 (W=2048 windows of
 // N=196 tokens, C=96, 3 heads, d=32, shifted mask nW=16) one launch does
@@ -20,7 +23,9 @@
 // 4*(W*N*3C + heads*N^2 + nW*N^2 + W*N*C) = 619 MB.  On an H100 SXM that is
 // 0.185 ms at 3.35 TB/s against 0.183 ms for the three TF32 passes of every
 // product at 495 TFLOP/s: bound by bytes (0.451 ms at the 67 TFLOP/s f32
-// FMA peak, which the earlier designs used).
+// FMA peak, which the earlier designs used).  In bf16 qkv and out move half
+// the bytes, 311 MB, 0.093 ms: the operations bound it, as the same 3xTF32
+// products still run on the widened operands.
 //
 // Design (FlashAttention-2's layout on mma.sync.m16n8k8, see tf32x3.cuh).
 // One block of 4 warps per (window, head).  The head's K and V slices are
@@ -64,11 +69,11 @@ size_t smem_bytes(int n, int d) {
   return sizeof(float) * 2 * static_cast<size_t>(keys_padded(n)) * d;
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 3)
-window_attention_kernel(const float* __restrict__ qkv,
+window_attention_kernel(const T* __restrict__ qkv,
                         const float* __restrict__ bias,
-                        const float* __restrict__ mask, float* __restrict__ out,
+                        const float* __restrict__ mask, T* __restrict__ out,
                         int N, int heads, int nw_img, float scale) {
   constexpr int KT = D / 8;  // k-steps of q.k, n-tiles of p.v
   extern __shared__ __align__(16) float smem[];
@@ -80,7 +85,7 @@ window_attention_kernel(const float* __restrict__ qkv,
   const int64_t C3 = 3 * static_cast<int64_t>(C);
   const int64_t w = blockIdx.x / heads;
   const int h = blockIdx.x % heads;
-  const float* win = qkv + w * N * C3 + h * D;
+  const T* win = qkv + w * N * C3 + h * D;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -160,68 +165,56 @@ window_attention_kernel(const float* __restrict__ qkv,
       }
     }
     const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
-    float* oa = out + (w * N + r0 + g) * C + h * D + 2 * t;
-    float* ob = oa + 8 * C;
+    T* oa = out + (w * N + r0 + g) * C + h * D + 2 * t;
+    T* ob = oa + 8 * C;
 #pragma unroll
     for (int nt = 0; nt < KT; ++nt) {
-      if (r0 + g < N)
-        *reinterpret_cast<float2*>(oa + nt * 8) =
-            make_float2(o[nt][0] * inv0, o[nt][1] * inv0);
-      if (r0 + g + 8 < N)
-        *reinterpret_cast<float2*>(ob + nt * 8) =
-            make_float2(o[nt][2] * inv1, o[nt][3] * inv1);
+      if (r0 + g < N) st2(oa + nt * 8, o[nt][0] * inv0, o[nt][1] * inv0);
+      if (r0 + g + 8 < N) st2(ob + nt * 8, o[nt][2] * inv1, o[nt][3] * inv1);
     }
   }
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t raise_smem_limit() {
   // per call, so that it holds on whichever device is current
-  return cudaFuncSetAttribute(window_attention_kernel<D>,
+  return cudaFuncSetAttribute(window_attention_kernel<D, T>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem_bytes(MAX_N, D)));
 }
 
-template <int D>
-int launch(const float* qkv, const float* bias, const float* mask, float* out,
-           int W, int N, int heads, int nw_img, float scale,
-           cudaStream_t stream) {
-  const cudaError_t err = raise_smem_limit<D>();
+template <int D, typename T>
+int launch(const T* qkv, const float* bias, const float* mask, T* out, int W,
+           int N, int heads, int nw_img, float scale, cudaStream_t stream) {
+  const cudaError_t err = raise_smem_limit<D, T>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>(W) * static_cast<unsigned>(heads);
-  window_attention_kernel<D><<<blocks, THREADS, smem_bytes(N, D), stream>>>(
+  window_attention_kernel<D, T><<<blocks, THREADS, smem_bytes(N, D), stream>>>(
       qkv, bias, mask, out, N, heads, nw_img, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int info(int N, int* out) {
-  cudaError_t err = raise_smem_limit<D>();
+  cudaError_t err = raise_smem_limit<D, float>();
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[2], window_attention_kernel<D>, THREADS, smem_bytes(N, D));
+        &out[2], window_attention_kernel<D, float>, THREADS, smem_bytes(N, D));
   out[0] = THREADS;
   out[1] = static_cast<int>(smem_bytes(N, D));
   return static_cast<int>(err);
 }
 
-}  // namespace
-
-// Launches on `stream`; returns a cudaError_t (0 = launched).  `mask` may be
-// null (no shifted-window mask; `nw_img` is then ignored).  The caller checks
-// dtypes, contiguity, 16-byte alignment, W % nw_img == 0 and W * heads <
-// 2**31; the shapes the kernel does not take (d not 8, 16 or 32; N outside
-// 1..392) return cudaErrorInvalidValue.
-extern "C" int window_attention_f32(const void* qkv, const void* bias,
-                                    const void* mask, void* out, int W, int N,
-                                    int heads, int d, int nw_img, float scale,
-                                    void* stream) {
+template <typename T>
+int dispatch(const void* qkv, const void* bias, const void* mask, void* out,
+             int W, int N, int heads, int d, int nw_img, float scale,
+             void* stream) {
   if (W < 1 || heads < 1 || N < 1 || N > MAX_N || (mask && nw_img < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* q = static_cast<const float*>(qkv);
+  const auto* q = static_cast<const T*>(qkv);
   const auto* b = static_cast<const float*>(bias);
   const auto* m = static_cast<const float*>(mask);
-  auto* o = static_cast<float*>(out);
+  auto* o = static_cast<T*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 8:
@@ -233,6 +226,30 @@ extern "C" int window_attention_f32(const void* qkv, const void* bias,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+// Launch on `stream`; return a cudaError_t (0 = launched).  qkv and out are
+// f32 (window_attention_f32) or bf16 (window_attention_bf16), bias and mask
+// f32.  `mask` may be null (no shifted-window mask; `nw_img` is then
+// ignored).  The caller checks dtypes, contiguity, 16-byte alignment,
+// W % nw_img == 0 and W * heads < 2**31; the shapes the kernel does not take
+// (d not 8, 16 or 32; N outside 1..392) return cudaErrorInvalidValue.
+extern "C" int window_attention_f32(const void* qkv, const void* bias,
+                                    const void* mask, void* out, int W, int N,
+                                    int heads, int d, int nw_img, float scale,
+                                    void* stream) {
+  return dispatch<float>(qkv, bias, mask, out, W, N, heads, d, nw_img, scale,
+                         stream);
+}
+
+extern "C" int window_attention_bf16(const void* qkv, const void* bias,
+                                     const void* mask, void* out, int W,
+                                     int N, int heads, int d, int nw_img,
+                                     float scale, void* stream) {
+  return dispatch<bf16>(qkv, bias, mask, out, W, N, heads, d, nw_img, scale,
+                        stream);
 }
 
 // The launch at (N, d): out = {threads per block, dynamic shared memory

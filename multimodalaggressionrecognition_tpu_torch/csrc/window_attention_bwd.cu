@@ -1,5 +1,5 @@
 // Fused (shifted-)window attention backward (kernel K3) for Hopper, f32
-// accuracy on the tensor cores (3xTF32).
+// accuracy on the tensor cores (3xTF32), with f32 or bf16 qkv, g and dqkv.
 //
 // Replaces `_fused_bwd` (with its body `_bwd_kernel`) in
 // multimodalaggressionrecognition_tpu/ops/pallas/window_attention.py: the
@@ -17,6 +17,9 @@
 //
 // writing dqkv (W, N, 3C) and dbias (heads, N, N); the mask gets no
 // gradient.  Neither p nor dS, (W, heads, N, N) each, reaches device memory.
+// qkv, g and dqkv are f32 or all three bf16 (the model's compute dtype),
+// widened to f32 on load and rounded on store (tf32x3.cuh, storage types),
+// as the TPU kernel does; bias, mask and dbias (and its partials) are f32.
 //
 // Bound.  The JAX kernel's own count (its CostEstimate) is
 // 10*W*heads*N^2*d operations and 4*(2*W*N*3C + 2*heads*N^2 + W*N*C) bytes.
@@ -98,13 +101,12 @@ size_t smem_bytes(int n, int d) {
   return sizeof(float2) * 2 * np * d + sizeof(float) * 2 * np;
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-window_attention_bwd_kernel(const float* __restrict__ qkv,
+window_attention_bwd_kernel(const T* __restrict__ qkv,
                             const float* __restrict__ bias,
                             const float* __restrict__ mask,
-                            const float* __restrict__ gout,
-                            float* __restrict__ dqkv,
+                            const T* __restrict__ gout, T* __restrict__ dqkv,
                             float* __restrict__ partial, int W, int N,
                             int heads, int nw_img, int groups, float scale) {
   constexpr int KT = D / 8;  // k-steps over d, and n-tiles of d
@@ -132,9 +134,9 @@ window_attention_bwd_kernel(const float* __restrict__ qkv,
   const float neg_inf = __int_as_float(0xff800000);
 
   for (int64_t w = w0; w < w1; ++w) {
-    const float* win = qkv + w * N * C3 + h * D;
-    const float* gwin = gout + w * N * C + h * D;
-    float* dwin = dqkv + w * N * C3 + h * D;
+    const T* win = qkv + w * N * C3 + h * D;
+    const T* gwin = gout + w * N * C + h * D;
+    T* dwin = dqkv + w * N * C3 + h * D;
     const float* mask_w = mask ? mask + (w % nw_img) * NN : nullptr;
 
     __syncthreads();  // the previous window's column pass is done
@@ -247,16 +249,14 @@ window_attention_bwd_kernel(const float* __restrict__ qkv,
                  load_b_pairs_split<D>(xs, j0 + 8 * u, nt * 8, lane));
         }
       }
-      float* qa_out = dwin + (r0 + g) * C3 + 2 * t;
-      float* qb_out = qa_out + 8 * C3;
+      T* qa_out = dwin + (r0 + g) * C3 + 2 * t;
+      T* qb_out = qa_out + 8 * C3;
 #pragma unroll
       for (int nt = 0; nt < KT; ++nt) {
         if (r0 + g < N)
-          *reinterpret_cast<float2*>(qa_out + nt * 8) =
-              make_float2(dq[nt][0] * scale, dq[nt][1] * scale);
+          st2(qa_out + nt * 8, dq[nt][0] * scale, dq[nt][1] * scale);
         if (r0 + g + 8 < N)
-          *reinterpret_cast<float2*>(qb_out + nt * 8) =
-              make_float2(dq[nt][2] * scale, dq[nt][3] * scale);
+          st2(qb_out + nt * 8, dq[nt][2] * scale, dq[nt][3] * scale);
       }
       if (t == 0) {
         lse[r0 + g] = lse0;
@@ -276,8 +276,8 @@ window_attention_bwd_kernel(const float* __restrict__ qkv,
       // keys a = j0+g and b = j0+g+8; a key past N repeats key N-1 (its
       // results are discarded)
       const int ja = j0 + g, jb = j0 + g + 8;
-      const float* ka_row = win + C + min(ja, N - 1) * C3;
-      const float* kb_row = win + C + min(jb, N - 1) * C3;
+      const T* ka_row = win + C + min(ja, N - 1) * C3;
+      const T* kb_row = win + C + min(jb, N - 1) * C3;
       FragA ka[KT], va[KT];
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk) {
@@ -366,21 +366,17 @@ window_attention_bwd_kernel(const float* __restrict__ qkv,
           }
         }
       }
-      float* ka_out = dwin + ja * C3 + C + 2 * t;
-      float* kb_out = ka_out + 8 * C3;
+      T* ka_out = dwin + ja * C3 + C + 2 * t;
+      T* kb_out = ka_out + 8 * C3;
 #pragma unroll
       for (int nt = 0; nt < KT; ++nt) {
         if (ja < N) {
-          *reinterpret_cast<float2*>(ka_out + nt * 8) =
-              make_float2(dk[nt][0], dk[nt][1]);
-          *reinterpret_cast<float2*>(ka_out + C + nt * 8) =
-              make_float2(dv[nt][0], dv[nt][1]);
+          st2(ka_out + nt * 8, dk[nt][0], dk[nt][1]);
+          st2(ka_out + C + nt * 8, dv[nt][0], dv[nt][1]);
         }
         if (jb < N) {
-          *reinterpret_cast<float2*>(kb_out + nt * 8) =
-              make_float2(dk[nt][2], dk[nt][3]);
-          *reinterpret_cast<float2*>(kb_out + C + nt * 8) =
-              make_float2(dv[nt][2], dv[nt][3]);
+          st2(kb_out + nt * 8, dk[nt][2], dk[nt][3]);
+          st2(kb_out + C + nt * 8, dv[nt][2], dv[nt][3]);
         }
       }
     }
@@ -399,20 +395,23 @@ __global__ void sum_groups_kernel(const float* __restrict__ partial,
   }
 }
 
-template <int D>
+template <int D, typename T>
 cudaError_t raise_smem_limit() {
   // per call, so that it holds on whichever device is current
-  return cudaFuncSetAttribute(window_attention_bwd_kernel<D>,
+  return cudaFuncSetAttribute(window_attention_bwd_kernel<D, T>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem_bytes(MAX_N, D)));
 }
 
+// the f32 and bf16 kernels share the shared-memory layout; the group count
+// (and so the partials' shape) is the f32 kernel's for both
 template <int D>
 cudaError_t blocks_per_sm(int N, int* per_sm) {
-  cudaError_t err = raise_smem_limit<D>();
+  cudaError_t err = raise_smem_limit<D, float>();
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, window_attention_bwd_kernel<D>, THREADS, smem_bytes(N, D));
+      per_sm, window_attention_bwd_kernel<D, float>, THREADS,
+      smem_bytes(N, D));
 }
 
 template <int D>
@@ -429,18 +428,17 @@ int groups_for(int W, int N, int heads) {
   return static_cast<int>(want < W ? want : W);
 }
 
-template <int D>
-int launch(const float* qkv, const float* bias, const float* mask,
-           const float* g, float* dqkv, float* dbias, float* partial, int W,
-           int N, int heads, int nw_img, int groups, float scale,
-           cudaStream_t stream) {
-  cudaError_t err = raise_smem_limit<D>();
+template <int D, typename T>
+int launch(const T* qkv, const float* bias, const float* mask, const T* g,
+           T* dqkv, float* dbias, float* partial, int W, int N, int heads,
+           int nw_img, int groups, float scale, cudaStream_t stream) {
+  cudaError_t err = raise_smem_limit<D, T>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>(groups) * static_cast<unsigned>(heads);
-  window_attention_bwd_kernel<D><<<blocks, THREADS, smem_bytes(N, D),
-                                   stream>>>(qkv, bias, mask, g, dqkv, partial,
-                                             W, N, heads, nw_img, groups,
-                                             scale);
+  window_attention_bwd_kernel<D, T><<<blocks, THREADS, smem_bytes(N, D),
+                                      stream>>>(qkv, bias, mask, g, dqkv,
+                                                partial, W, N, heads, nw_img,
+                                                groups, scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   const int64_t count = static_cast<int64_t>(heads) * N * N;
   const int64_t want = (count + 255) / 256;
@@ -454,6 +452,37 @@ int info(int N, int* out) {
   out[0] = THREADS;
   out[1] = static_cast<int>(smem_bytes(N, D));
   return static_cast<int>(blocks_per_sm<D>(N, &out[2]));
+}
+
+template <typename T>
+int dispatch(const void* qkv, const void* bias, const void* mask,
+             const void* g, void* dqkv, void* dbias, void* partial, int W,
+             int N, int heads, int d, int nw_img, int groups, float scale,
+             void* stream) {
+  if (W < 1 || heads < 1 || N < 1 || N > MAX_N || groups < 1 || groups > W ||
+      (mask && nw_img < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* q = static_cast<const T*>(qkv);
+  const auto* b = static_cast<const float*>(bias);
+  const auto* m = static_cast<const float*>(mask);
+  const auto* go = static_cast<const T*>(g);
+  auto* dq = static_cast<T*>(dqkv);
+  auto* db = static_cast<float*>(dbias);
+  auto* pa = static_cast<float*>(partial);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 8:
+      return launch<8>(q, b, m, go, dq, db, pa, W, N, heads, nw_img, groups,
+                       scale, s);
+    case 16:
+      return launch<16>(q, b, m, go, dq, db, pa, W, N, heads, nw_img, groups,
+                        scale, s);
+    case 32:
+      return launch<32>(q, b, m, go, dq, db, pa, W, N, heads, nw_img, groups,
+                        scale, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -476,8 +505,10 @@ extern "C" int window_attention_bwd_groups(int W, int N, int heads, int d) {
   }
 }
 
-// Launches both kernels on `stream`; returns a cudaError_t (0 = launched).
-// `mask` may be null (no shifted-window mask; `nw_img` is then ignored).
+// Launch both kernels on `stream`; return a cudaError_t (0 = launched).
+// qkv, g and dqkv are f32 (window_attention_bwd_f32) or bf16
+// (window_attention_bwd_bf16); bias, dbias and the partials f32.  `mask`
+// may be null (no shifted-window mask; `nw_img` is then ignored).
 // `partial` holds groups * heads * N * N floats, groups from
 // window_attention_bwd_groups.  The caller checks dtypes, contiguity,
 // 16-byte alignment of qkv and g, W % nw_img == 0 and the grid size.
@@ -487,30 +518,19 @@ extern "C" int window_attention_bwd_f32(const void* qkv, const void* bias,
                                         int W, int N, int heads, int d,
                                         int nw_img, int groups, float scale,
                                         void* stream) {
-  if (W < 1 || heads < 1 || N < 1 || N > MAX_N || groups < 1 || groups > W ||
-      (mask && nw_img < 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto* q = static_cast<const float*>(qkv);
-  const auto* b = static_cast<const float*>(bias);
-  const auto* m = static_cast<const float*>(mask);
-  const auto* go = static_cast<const float*>(g);
-  auto* dq = static_cast<float*>(dqkv);
-  auto* db = static_cast<float*>(dbias);
-  auto* pa = static_cast<float*>(partial);
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 8:
-      return launch<8>(q, b, m, go, dq, db, pa, W, N, heads, nw_img, groups,
-                       scale, s);
-    case 16:
-      return launch<16>(q, b, m, go, dq, db, pa, W, N, heads, nw_img, groups,
-                        scale, s);
-    case 32:
-      return launch<32>(q, b, m, go, dq, db, pa, W, N, heads, nw_img, groups,
-                        scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<float>(qkv, bias, mask, g, dqkv, dbias, partial, W, N,
+                         heads, d, nw_img, groups, scale, stream);
+}
+
+extern "C" int window_attention_bwd_bf16(const void* qkv, const void* bias,
+                                         const void* mask, const void* g,
+                                         void* dqkv, void* dbias,
+                                         void* partial, int W, int N,
+                                         int heads, int d, int nw_img,
+                                         int groups, float scale,
+                                         void* stream) {
+  return dispatch<bf16>(qkv, bias, mask, g, dqkv, dbias, partial, W, N,
+                        heads, d, nw_img, groups, scale, stream);
 }
 
 // The main kernel's launch at (N, d): out = {threads per block, dynamic

@@ -131,6 +131,16 @@ class MultimodalSource:
                 present[modality] = 0.0
         return data, present, labels, label_mask
 
+    def batch_is_empty(self, indices: Sequence[int]) -> bool:
+        """True iff build_batch(indices) would return None (no selected
+        modality present), from the intervals table alone (no file I/O):
+        BatchLoader.iter_skipping advances a resumed epoch's batch stream
+        with it.  Batches are aggr_type-homogeneous, and build_batch keys
+        modality inclusion off its first sample."""
+        row = self.df.iloc[indices[0]]
+        return not (set(AGGR_PRESENCE[row["aggr_type"]])
+                    & set(self.modalities))
+
     def build_batch(self, indices: Sequence[int], pad_to: Optional[int] = None):
         """Fixed-shape numpy batch dict for a homogeneous index batch.
 

@@ -161,7 +161,9 @@ class FilenameLabelSource:
 
 class RandomBatchSampler:
     """Shuffled fixed-size batches for single-modality sources: epoch e
-    (counted by iterations) shuffles with seed + e."""
+    shuffles with seed + e.  The Trainer pins `set_epoch(epoch)` before each
+    epoch, so a run resumed mid-epoch shuffles like the uninterrupted one;
+    standalone iteration still counts epochs by iterations."""
 
     def __init__(self, num_samples: int, batch_size: int, shuffle: bool = True,
                  seed: int = 0):
@@ -170,6 +172,9 @@ class RandomBatchSampler:
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = int(epoch)
 
     def __iter__(self):
         idx = np.arange(self.num_samples)

@@ -126,8 +126,31 @@ class BatchLoader:
     def __len__(self):
         return len(self.sampler)
 
+    def iter_skipping(self, skip: int):
+        """Iterate like __iter__, but pass over the first `skip` yielded
+        batches without building them (a resumed partial epoch only needs
+        the stream's position).  An all-EMPTY batch is never yielded, so it
+        must not count toward `skip`: `source.batch_is_empty(indices)` says
+        so from the table alone where the source has it; a source without
+        it (which never returns None) counts every sampler batch."""
+        batches = iter(list(self.sampler))
+        is_empty = getattr(self.source, "batch_is_empty", None)
+        skipped = 0
+        while skipped < skip:
+            idx = next(batches, None)
+            if idx is None:
+                raise ValueError(
+                    f"cannot skip {skip} batches: the loader yields only "
+                    f"{skipped}; the resume state does not match this "
+                    "dataset")
+            if is_empty is None or not is_empty(idx):
+                skipped += 1
+        return self._iter_indices(list(batches))
+
     def __iter__(self):
-        batches = list(self.sampler)
+        return self._iter_indices(list(self.sampler))
+
+    def _iter_indices(self, batches):
         if self.num_threads <= 1:
             built = (self.source.build_batch(idx, pad_to=self.pad_to)
                      for idx in batches)

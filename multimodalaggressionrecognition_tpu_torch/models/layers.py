@@ -11,7 +11,8 @@ two documented divergences from torch hold:
   nested-tensor fast path does the same).
 
 The JAX package's `TorchLinear` is `nn.Linear` here and its
-`TorchLayerNorm` is `nn.LayerNorm` (eps 1e-5).  The key-padding mask is
+`TorchLayerNorm` is `LayerNorm` (nn.LayerNorm, eps 1e-5, in f32 under a
+lower compute dtype).  The key-padding mask is
 True for a masked key.  Parameter names follow torch's, so io/from_jax.py
 maps the JAX trees onto them.
 """
@@ -24,6 +25,21 @@ from torch import nn
 
 from ..ops.erf import gelu
 from .stochastic import Dropout
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm that normalizes in f32 and returns its input's dtype:
+    under bf16 compute the statistics, the affine and the gradients of
+    the weight and bias are f32 sums, as in the JAX package's
+    TorchLayerNorm (torch's CPU kernel sums a bf16 input's weight and bias
+    gradients in bf16).  The identity of nn.LayerNorm in f32."""
+
+    def forward(self, x):
+        if x.dtype == self.weight.dtype == torch.float32:
+            return super().forward(x)
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(x.dtype)
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -46,7 +62,9 @@ class MultiheadSelfAttention(nn.Module):
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         # (B, T, 3E) -> 3 x (B, H, T, d)
         q, k, v = qkv.view(b, t, 3, h, d).permute(2, 0, 3, 1, 4)
-        scores = (q @ k.transpose(-1, -2)) / math.sqrt(d)
+        # the scores and the softmax in f32 whatever the compute dtype, the
+        # weights back in it for P.V (the JAX layer's f32 accumulation)
+        scores = (q.float() @ k.float().transpose(-1, -2)) / math.sqrt(d)
         if key_padding_mask is not None:
             scores = scores.masked_fill(key_padding_mask[:, None, None, :],
                                         torch.finfo(scores.dtype).min)
@@ -54,7 +72,7 @@ class MultiheadSelfAttention(nn.Module):
         if key_padding_mask is not None:
             any_valid = (~key_padding_mask).any(dim=-1)[:, None, None, None]
             attn = torch.where(any_valid, attn, torch.zeros_like(attn))
-        out = self.dropout(attn) @ v
+        out = self.dropout(attn.to(v.dtype)) @ v
         return self.out_proj(out.transpose(1, 2).reshape(b, t, e))
 
 
@@ -74,8 +92,8 @@ class TransformerEncoderLayer(nn.Module):
         self.self_attn = MultiheadSelfAttention(d_model, nhead, dropout)
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
+        self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.dropout = Dropout(dropout)
 
     def _ff(self, x):
@@ -101,7 +119,7 @@ class TransformerEncoder(nn.Module):
         self.layers = nn.ModuleList(
             TransformerEncoderLayer(d_model, nhead, dim_feedforward, dropout)
             for _ in range(num_layers))
-        self.norm = nn.LayerNorm(d_model, eps=1e-5)
+        self.norm = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, x, key_padding_mask=None):
         for layer in self.layers:

@@ -13,6 +13,12 @@ BatchNorm follows torch.nn.BatchNorm1d: in train mode it normalizes with the
 biased batch variance and moves the running statistics (momentum 0.1) with
 the unbiased one; in eval mode it uses the running statistics.  The dropouts
 draw from explicit generators (models/stochastic.py).
+
+Under bf16 compute (utils/precision.py) every layer returns its input's
+dtype, as in the JAX package: the kernel's stem runs in f32 with a cast in
+and out (its folded BatchNorm scale and shift are f32), BatchNorm takes its
+statistics in f32 from the widened input, and the other convolutions run in
+bf16, any folded affine applied in f32 before the rounding.
 """
 
 import torch
@@ -44,24 +50,29 @@ class Conv1d(nn.Module):
         nn.init.uniform_(self.weight, -bound, bound)
 
     def forward(self, x, scale=None, shift=None, relu: bool = False):
+        dtype = x.dtype
         if x.shape[-1] == 1 and self.bias is not None:
-            # (C_out, 1, K) -> (K, C_out): the kernel's (F, C_out) layout
-            w = self.weight[:, 0, :].t().contiguous()
-            args = (x[..., 0].contiguous(), w, self.bias, self.kernel_size,
-                    self.stride, self.padding)
+            # (C_out, 1, K) -> (K, C_out): the kernel's (F, C_out) layout; it
+            # runs in f32 (cast in and out under bf16, as JAX does)
+            w = self.weight[:, 0, :].t().float().contiguous()
+            args = (x[..., 0].float().contiguous(), w, self.bias.float(),
+                    self.kernel_size, self.stride, self.padding)
             if not (torch.is_grad_enabled() and (
                     x.requires_grad or self.weight.requires_grad)):
-                return framed_conv1d(*args, scale=scale, shift=shift,
-                                     relu=relu)
+                return framed_conv1d(
+                    *args, scale=None if scale is None else scale.float(),
+                    shift=None if shift is None else shift.float(),
+                    relu=relu).to(dtype)
             y = framed_conv1d_trainable(*args)
         else:
             y = F.conv1d(x.transpose(1, 2), self.weight, self.bias,
                          stride=self.stride, padding=self.padding
                          ).transpose(1, 2)
         if scale is not None:
-            y = y * scale
+            y = y.float() * scale
         if shift is not None:
-            y = y + shift
+            y = y.float() + shift
+        y = y.to(dtype)
         return torch.relu(y) if relu else y
 
 
@@ -79,16 +90,19 @@ class BatchNorm1d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def folded_scale_shift(self):
-        """(scale, shift) with bn(y) == y * scale + shift in eval mode."""
+        """(scale, shift) with bn(y) == y * scale + shift in eval mode, f32
+        (the running statistics are)."""
         if self.training:
             raise RuntimeError("BatchNorm1d: only the eval mode folds")
-        scale = self.weight * torch.rsqrt(self.running_var + self.eps)
-        return scale, self.bias - self.running_mean * scale
+        scale = self.weight.float() * torch.rsqrt(self.running_var + self.eps)
+        return scale, self.bias.float() - self.running_mean * scale
 
     def forward(self, x):
+        dtype, x = x.dtype, x.float()
+        weight, bias = self.weight.float(), self.bias.float()
         if not self.training:
-            inv = torch.rsqrt(self.running_var + self.eps) * self.weight
-            return (x - self.running_mean) * inv + self.bias
+            inv = torch.rsqrt(self.running_var + self.eps) * weight
+            return ((x - self.running_mean) * inv + bias).to(dtype)
         axes = tuple(range(x.dim() - 1))
         mean = x.mean(dim=axes)
         var = (x - mean).square().mean(dim=axes)
@@ -97,8 +111,8 @@ class BatchNorm1d(nn.Module):
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(m * mean)
             self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
-        inv = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * inv + self.bias
+        inv = torch.rsqrt(var + self.eps) * weight
+        return ((x - mean) * inv + bias).to(dtype)
 
 
 def max_pool1d(x, window: int):

@@ -20,6 +20,7 @@ import contextlib
 
 import torch
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint as _checkpoint
 
 
@@ -66,7 +67,11 @@ def set_generator(model: nn.Module, generator) -> nn.Module:
 def checkpoint(module: nn.Module, *args):
     """torch.utils.checkpoint of module(*args) whose recompute draws the
     same masks from the explicit generators of module's stochastic
-    submodules as the forward did."""
+    submodules as the forward did, and runs on the same parameters: the
+    tensors module holds now (a caller's `functional_call` may have put
+    bf16 casts in place of them, train/steps.py) are handed to the
+    checkpointed call as inputs, since the recompute runs in the backward,
+    after such a substitution has ended."""
     gens = list({id(m.generator): m.generator for m in module.modules()
                  if isinstance(m, Random) and m.generator is not None
                  }.values())
@@ -88,5 +93,12 @@ def checkpoint(module: nn.Module, *args):
             for g, state in zip(gens, after):
                 g.set_state(state)
 
-    return _checkpoint(module, *args, use_reentrant=False,
+    params = dict(module.named_parameters())
+    names, n_args = list(params), len(args)
+
+    def run(*flat):
+        return functional_call(module, dict(zip(names, flat[n_args:])),
+                               flat[:n_args])
+
+    return _checkpoint(run, *args, *params.values(), use_reentrant=False,
                        context_fn=lambda: (forward_ctx(), recompute_ctx()))

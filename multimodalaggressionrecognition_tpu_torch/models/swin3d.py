@@ -38,6 +38,7 @@ from torch import nn
 from ..ops.cuda.roll import roll
 from ..ops.cuda.window_attention import window_attention
 from ..ops.erf import check_gelu_mode, gelu
+from .layers import LayerNorm
 from .nn3d import Conv3d
 from .stochastic import Stochastic, checkpoint
 
@@ -117,7 +118,10 @@ class ShiftedWindowAttention3d(nn.Module):
         key = key + (str(device),)
         t = self._consts.get(key)
         if t is None:
-            t = self._consts[key] = make().to(device)
+            # a normal tensor even when first made under inference_mode (a
+            # served forward), so that a later train step may save it
+            with torch.inference_mode(False):
+                t = self._consts[key] = make().to(device)
         return t
 
     def forward(self, x):
@@ -176,10 +180,10 @@ class SwinBlock3d(nn.Module):
                  gelu: str = "poly"):
         super().__init__()
         self.gelu = check_gelu_mode(gelu)
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = ShiftedWindowAttention3d(dim, num_heads, window, shift)
         self.sd1 = StochasticDepth(sd_prob)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
         self.mlp_fc1 = nn.Linear(dim, int(dim * mlp_ratio))
         self.mlp_fc2 = nn.Linear(int(dim * mlp_ratio), dim)
         self.sd2 = StochasticDepth(sd_prob)
@@ -207,7 +211,7 @@ class PatchMerging3d(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
+        self.norm = LayerNorm(4 * dim, eps=1e-5)
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x):
@@ -236,7 +240,7 @@ class SwinTransformer3d(nn.Module):
         _check_remat_policy(remat_policy)
         self.patch_embed = Conv3d(in_channels, embed_dim, (2, 4, 4),
                                   stride=(2, 4, 4))
-        self.patch_norm = nn.LayerNorm(embed_dim, eps=1e-5)
+        self.patch_norm = LayerNorm(embed_dim, eps=1e-5)
         self.stages = []  # (block names, merge name or None) per stage
         total = sum(depths)
         block_id, dim = 0, embed_dim
@@ -255,7 +259,7 @@ class SwinTransformer3d(nn.Module):
                 self.add_module(merge, PatchMerging3d(dim))
                 dim *= 2
             self.stages.append((names, merge))
-        self.norm = nn.LayerNorm(dim, eps=1e-5)
+        self.norm = LayerNorm(dim, eps=1e-5)
         self.out_dim = dim
 
     def forward(self, x):

@@ -10,8 +10,9 @@ package's Pallas prototype of the roll that its Swin3D makes with
 which is `torch.roll(x, (-st, -sh, -sw), (1, 2, 3))`.  The prototype rolls
 H and W only; the kernel takes T too.  Each shift is reduced modulo its
 size, so negative shifts roll the other way.  Both the wrapper and the
-kernel take a contiguous f32 tensor of fewer than 2**31 elements and raise
-on anything else; nothing is copied quietly.
+kernel take a contiguous float32 or bfloat16 tensor (the model's compute
+dtypes; a copy is exact in either) of fewer than 2**31 elements and raise on
+anything else; nothing is copied quietly.
 
 `roll` is the differentiable entry (a `torch.autograd.Function`): the
 gradient of a roll is the roll of the gradient by the negated shifts, on a
@@ -23,15 +24,22 @@ import ctypes
 
 import torch
 
-from ...utils.kernels import check_status, launch_counts, load_library
+from ...utils.kernels import (check_status, launch_counts, launch_key,
+                               load_library)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+# dtype -> (the kernel's entry, elements per 16-byte vector)
+_ENTRIES = {torch.float32: ("roll_f32", 4), torch.bfloat16: ("roll_16bit", 8)}
+
+
 def _bind(lib):
-    lib.roll_f32.argtypes = [_P, _P] + [_I] * 9 + [_P]
-    lib.roll_f32.restype = _I
+    for entry, _ in _ENTRIES.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = [_P, _P] + [_I] * 9 + [_P]
+        fn.restype = _I
 
 
 def roll_reference(x, shifts):
@@ -46,8 +54,8 @@ def _validate(x, shifts):
     if x.dim() != 5:
         raise ValueError(f"roll: x must be (B, T, H, W, C), got "
                          f"{tuple(x.shape)}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"roll: x must be float32, got {x.dtype}")
+    if x.dtype not in _ENTRIES:
+        raise TypeError(f"roll: x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("roll: x must be contiguous")
     if not 0 < x.numel() < 2 ** 31:  # the kernel's indices are 32-bit ints
@@ -59,7 +67,7 @@ def _validate(x, shifts):
 
 
 def circular_roll(x, shifts):
-    """x (B, T, H, W, C) f32, contiguous; shifts (st, sh, sw) -> out with
+    """x (B, T, H, W, C) f32 or bf16, contiguous; shifts (st, sh, sw) -> out with
     out[b, t, h, w] = x[b, (t+st) % T, (h+sh) % H, (w+sw) % W].
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
@@ -71,13 +79,15 @@ def circular_roll(x, shifts):
         raise ValueError(f"roll: no kernel for device {x.device}")
     b, t, h, w, c = x.shape
     out = torch.empty_like(x)
-    vec4 = c % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    entry, per_vec = _ENTRIES[x.dtype]
+    vec = (c % per_vec == 0 and x.data_ptr() % 16 == 0
+           and out.data_ptr() % 16 == 0)
     lib = load_library("roll", _bind)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = lib.roll_f32(x.data_ptr(), out.data_ptr(), b, t, h, w, c,
-                          *shifts, int(vec4), stream)
+    status = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), b, t, h, w, c,
+                                 *shifts, int(vec), stream)
     check_status("roll", status)
-    launch_counts["roll"] += 1
+    launch_counts[launch_key("roll", x.dtype)] += 1
     return out
 
 

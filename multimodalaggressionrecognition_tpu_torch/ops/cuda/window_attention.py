@@ -12,13 +12,24 @@ differentiable entry (a `torch.autograd.Function`, the JAX `custom_vjp`):
 its forward is `fused_window_attention`, its backward
 `window_attention_bwd`, which returns the gradients of qkv and bias; the
 mask gets none.
+
+Dtypes, as in the JAX kernels: qkv (and the output gradient g) are float32
+or bfloat16, and the output and dqkv come back in qkv's dtype; the math is
+f32 throughout (each operand widened on load, one rounding per stored
+result).  The bias may be bfloat16 (a cast model's bias table): like the
+JAX wrapper, this one hands the kernels its f32 copy and returns dbias in
+the bias's dtype.  The mask is a constant, always f32.  The plain versions
+follow the same rule.  (The JAX package's CPU reference rounds the softmax
+probabilities to v's dtype before P·V; its TPU kernel, and so this port,
+does not.)
 """
 
 import ctypes
 
 import torch
 
-from ...utils.kernels import check_status, launch_counts, load_library
+from ...utils.kernels import (check_status, launch_counts, launch_key,
+                               load_library)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,19 +42,25 @@ def _bind_info(fn):
     fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], _I
 
 
+# the storage dtypes of qkv, g, out and dqkv: the kernels' entry suffixes
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 def _bind(lib):
-    lib.window_attention_f32.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                         ctypes.c_float, _P]
-    lib.window_attention_f32.restype = _I
+    for suffix in _SUFFIX.values():
+        fn = getattr(lib, f"window_attention_{suffix}")
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+        fn.restype = _I
     _bind_info(lib.window_attention_info)
 
 
 def _bind_bwd(lib):
     lib.window_attention_bwd_groups.argtypes = [_I, _I, _I, _I]
     lib.window_attention_bwd_groups.restype = _I
-    lib.window_attention_bwd_f32.argtypes = [_P] * 7 + [_I] * 6 + [
-        ctypes.c_float, _P]
-    lib.window_attention_bwd_f32.restype = _I
+    for suffix in _SUFFIX.values():
+        fn = getattr(lib, f"window_attention_bwd_{suffix}")
+        fn.argtypes = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
+        fn.restype = _I
     _bind_info(lib.window_attention_bwd_info)
 
 
@@ -76,21 +93,32 @@ def _probs(q, k, bias, mask):
     return torch.softmax(attn, dim=-1)
 
 
+def _wide(t):
+    """bf16 widened to f32 (f32 and f64 stay as they are: the plain
+    versions also run in float64 for the tests)."""
+    return t.float() if t is not None and t.dtype == torch.bfloat16 else t
+
+
 def attention_core_reference(qkv, bias, mask, heads: int):
     """The plain version: (W, N, 3C), (heads, N, N), (nW_img, N, N) | None
-    -> (W, N, C), with the score tensor materialized."""
+    -> (W, N, C) in qkv's dtype, with the score tensor materialized; f32
+    math for bf16 inputs."""
     w, n, c3 = qkv.shape
-    q, k, v = _split(qkv, heads)
+    q, k, v = _split(_wide(qkv), heads)
     # (W, heads, N, d)
-    out = _probs(q * q.shape[-1] ** -0.5, k, bias, mask) @ v
-    return out.transpose(1, 2).reshape(w, n, c3 // 3)
+    out = _probs(q * q.shape[-1] ** -0.5, k, _wide(bias), _wide(mask)) @ v
+    return out.transpose(1, 2).reshape(w, n, c3 // 3).to(qkv.dtype)
 
 
 def window_attention_bwd_reference(qkv, bias, mask, g, heads: int):
     """The plain backward, the K3 formula in torch ops: recompute p, then
     dV = p^T g, dP = g v^T, dS = p (dP - rowsum(dP p)), dQ = dS k / sqrt(d),
-    dK = dS^T q / sqrt(d) and dbias = sum over windows of dS.  Returns
-    (dqkv (W, N, 3C), dbias (heads, N, N))."""
+    dK = dS^T q / sqrt(d) and dbias = sum over windows of dS, in f32 for
+    bf16 inputs.
+    Returns (dqkv (W, N, 3C) in qkv's dtype, dbias (heads, N, N) in the
+    bias's)."""
+    dtype, bias_dtype = qkv.dtype, bias.dtype
+    qkv, bias, mask, g = _wide(qkv), _wide(bias), _wide(mask), _wide(g)
     w, n, c3 = qkv.shape
     q, k, v = _split(qkv, heads)
     d = q.shape[-1]
@@ -103,12 +131,12 @@ def window_attention_bwd_reference(qkv, bias, mask, g, heads: int):
     dq = (ds @ k) * scale
     dk = (ds.transpose(-1, -2) @ q) * scale
     dqkv = torch.stack((dq, dk, dv)).permute(1, 3, 0, 2, 4).reshape(w, n, c3)
-    return dqkv, ds.sum(dim=0)
+    return dqkv.to(dtype), ds.sum(dim=0).to(bias_dtype)
 
 
-def _check(name, t, shape, device):
-    if t.dtype != torch.float32:
-        raise TypeError(f"fused_window_attention: {name} must be float32, "
+def _check(name, t, shape, device, dtype=torch.float32):
+    if t.dtype != dtype:
+        raise TypeError(f"fused_window_attention: {name} must be {dtype}, "
                         f"got {t.dtype}")
     if t.device != device:
         raise ValueError(f"fused_window_attention: {name} on {t.device}, qkv "
@@ -121,10 +149,14 @@ def _check(name, t, shape, device):
 
 
 def _validate(qkv, bias, mask, heads: int):
-    """Check what the kernels take; returns (W, N, C, d, nW_img)."""
+    """Check what the kernels take; returns (W, N, C, d, nW_img).  `bias`
+    is the f32 copy the kernels read."""
     if qkv.device.type != "cuda":
         raise ValueError(
             f"fused_window_attention: no kernel for device {qkv.device}")
+    if qkv.dtype not in _SUFFIX:
+        raise TypeError(f"fused_window_attention: qkv must be float32 or "
+                        f"bfloat16, got {qkv.dtype}")
     if qkv.dim() != 3 or qkv.shape[2] % 3:
         raise ValueError("fused_window_attention: qkv must be (W, N, 3C), got "
                          f"{tuple(qkv.shape)}")
@@ -134,7 +166,7 @@ def _validate(qkv, bias, mask, heads: int):
         raise ValueError(f"fused_window_attention: C={c} is not a multiple of "
                          f"heads={heads}")
     d = c // heads
-    _check("qkv", qkv, (w, n, c3), qkv.device)
+    _check("qkv", qkv, (w, n, c3), qkv.device, qkv.dtype)
     _check("bias", bias, (heads, n, n), qkv.device)
     nw = 0
     if mask is not None:
@@ -155,37 +187,46 @@ def _validate(qkv, bias, mask, heads: int):
     return w, n, c, d, nw
 
 
+def _bias_f32(bias):
+    """The f32 bias the kernels read (a bf16 bias of a cast model is
+    widened, as the JAX wrapper does before its pallas_call)."""
+    return bias.float().contiguous() if bias.dtype == torch.bfloat16 else bias
+
+
 def fused_window_attention(qkv, bias, mask, heads: int):
-    """qkv (W, N, 3C) f32, bias (heads, N, N), mask (nW_img, N, N) or None
-    -> (W, N, C).
+    """qkv (W, N, 3C) f32 or bf16, bias (heads, N, N), mask (nW_img, N, N)
+    or None -> (W, N, C) in qkv's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     on the current stream or raises."""
     if qkv.device.type == "cpu":
         return attention_core_reference(qkv, bias, mask, heads)
+    bias = _bias_f32(bias)
     w, n, c, d, nw = _validate(qkv, bias, mask, heads)
     lib = load_library("window_attention", _bind)
-    out = torch.empty((w, n, c), dtype=torch.float32, device=qkv.device)
+    out = torch.empty((w, n, c), dtype=qkv.dtype, device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    status = lib.window_attention_f32(
+    status = getattr(lib, f"window_attention_{_SUFFIX[qkv.dtype]}")(
         qkv.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         w, n, heads, d, nw, d ** -0.5, stream)
     check_status("window_attention", status)
-    launch_counts["window_attention"] += 1
+    launch_counts[launch_key("window_attention", qkv.dtype)] += 1
     return out
 
 
 def window_attention_bwd(qkv, bias, mask, g, heads: int):
     """The backward of `fused_window_attention` for output gradient g
-    (W, N, C) f32: returns (dqkv (W, N, 3C), dbias (heads, N, N)).
+    (W, N, C) in qkv's dtype: returns (dqkv (W, N, 3C) in qkv's dtype,
+    dbias (heads, N, N) in the bias's).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     on the current stream or raises."""
     if qkv.device.type == "cpu":
         return window_attention_bwd_reference(qkv, bias, mask, g, heads)
+    bias_dtype, bias = bias.dtype, _bias_f32(bias)
     w, n, c, d, nw = _validate(qkv, bias, mask, heads)
-    _check("g", g, (w, n, c), qkv.device)
+    _check("g", g, (w, n, c), qkv.device, qkv.dtype)
     if g.data_ptr() % 16:
         raise ValueError("fused_window_attention: g must be 16-byte aligned")
     lib = load_library("window_attention_bwd", _bind_bwd)
@@ -197,14 +238,14 @@ def window_attention_bwd(qkv, bias, mask, g, heads: int):
     partial = torch.empty((groups, heads, n, n), dtype=torch.float32,
                           device=qkv.device)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    status = lib.window_attention_bwd_f32(
+    status = getattr(lib, f"window_attention_bwd_{_SUFFIX[qkv.dtype]}")(
         qkv.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), g.data_ptr(),
         dqkv.data_ptr(), dbias.data_ptr(), partial.data_ptr(),
         w, n, heads, d, nw, groups, d ** -0.5, stream)
     check_status("window_attention_bwd", status)
-    launch_counts["window_attention_bwd"] += 1
-    return dqkv, dbias
+    launch_counts[launch_key("window_attention_bwd", qkv.dtype)] += 1
+    return dqkv, dbias.to(bias_dtype)
 
 
 class _WindowAttention(torch.autograd.Function):

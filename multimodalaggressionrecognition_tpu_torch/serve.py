@@ -5,9 +5,10 @@ fixed batch shape: variable-size request batches are padded up to it with
 all-zero, `present=0` rows and scored in one forward on the device.
 `MicroBatcher` sits in front of it for online serving: concurrent
 single-clip requests are coalesced into one forward, bounded by a
-max-delay deadline.  Semantics follow the JAX package's serve.py; bf16
-compute, int8 quantization, sharded serving and the compile cache are not
-ported yet.
+max-delay deadline.  Semantics follow the JAX package's serve.py, bf16
+compute included (`compute_dtype`: the floating parameters and inputs cast
+to bf16 inside the forward, f32 probabilities out); int8 quantization,
+sharded serving and the compile cache are not ported.
 """
 
 import queue
@@ -78,11 +79,15 @@ class Predictor(ScorerBase):
            io.from_jax.from_jax_variables); None keeps the model's own.
     batch_size: fixed batch size; requests are padded up to it.
     device: "cuda" (default) or "cpu"; CUDA without a card raises.
+    compute_dtype: None / "float32", or "bfloat16" (utils/precision.py).
     """
 
     def __init__(self, model: torch.nn.Module, state_dict=None,
-                 batch_size: int = 32, device="cuda"):
+                 batch_size: int = 32, device="cuda", compute_dtype=None):
+        from .utils.precision import resolve_dtype
+
         self.device = resolve_device(device)
+        self.compute_dtype = resolve_dtype(compute_dtype)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device).eval()
@@ -90,7 +95,9 @@ class Predictor(ScorerBase):
 
     @torch.inference_mode()
     def _forward(self, batch):
-        return self.model(batch)
+        from .train.steps import forward
+
+        return forward(self.model, batch, self.compute_dtype)
 
     def warmup(self, example_modalities: Dict[str, np.ndarray]):
         """Run once on zero inputs shaped like a real request: builds the

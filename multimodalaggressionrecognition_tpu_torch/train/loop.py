@@ -1,28 +1,41 @@
-"""Epoch-loop trainer: CSV logs, best-metric checkpoints, resume (the JAX
-package's train/loop.py).
+"""Epoch-loop trainer: CSV logs, best-metric checkpoints, resume,
+preemption, early stopping (the JAX package's train/loop.py).
 
 - run dir `<saving_dir>/<DD.MM.YYYY, HH-MM-SS> (<model_name>)`, or a fixed
-  one (`run_dir`);
+  one (`run_dir`), held by a flock for the trainer's life
+  (utils/runlock.py): a second live trainer on it exits;
 - per-head CSV logs `{head}_train_log.csv` / `{head}_test_log.csv` with the
   reference's metric set: loss, accuracy, per-class precision/recall/f1
   (stringified arrays), UAR/UAP/UAF1, plus epoch_seconds and clips_per_sec
-  for training;
+  for training; with `tensorboard_dir` also TensorBoard scalars
+  (utils/tblog.py);
 - `checkpoint_current` after every epoch and `checkpoint_best_{head}` on an
-  improvement of `1 - criterion` (or of the loss);
+  improvement of `1 - criterion` (or of the loss), judged on the EMA
+  shadow when one is tracked (`ema_decay`); `early_stop_patience` epochs in
+  a row without any head improving end the fit;
 - `on_epoch_start(epoch)`, when given, is called at the top of each epoch,
   before the sampler's `set_epoch` (`train_video_rnn --epoch_dirs` moves
   the train source to that epoch's directory);
+- SIGTERM (utils/preemption.py) is polled once per train and eval step and
+  at the end of each epoch: mid-epoch the trainer writes
+  `checkpoint_preempt` (state, epoch, batches done, the metric
+  accumulators, seconds so far and the epoch's random-generator state) and
+  returns; during eval it saves the whole trained epoch the same way;
 - resume from a checkpoint (`load_checkpoint`) or from the run dir's
-  `checkpoint_current` (`resume_latest`); every epoch's shuffling and
-  dropout draws are keyed by the epoch, so a resumed run continues as the
-  uninterrupted one would.
+  `checkpoint_preempt`, else `checkpoint_current` (`resume_latest`); every
+  epoch's shuffling and dropout draws are keyed by the epoch, and a partial
+  epoch resumes with its generator's saved state and skips the trained
+  batches without building them (`BatchLoader.iter_skipping`), so a
+  resumed run logs what the uninterrupted one would;
+- with `profile_dir`, epoch min(profile_epoch, epochs - 1) trains under
+  `torch.profiler` (utils/profiling.py).
 
 The epoch runs without host synchronisation: each step's metrics are added
-into accumulators on the device, and the host reads them once per epoch.
-`_InflightThrottle` bounds how far the host may run ahead of the card.
+into accumulators on the device, and the host reads them once per epoch
+(or per preemption snapshot).  `_InflightThrottle` bounds how far the host
+may run ahead of the card.
 
-Not ported: preemption and its partial checkpoint, the run lock, EMA,
-TensorBoard, the profiler, early stopping and multi-process training.
+Not ported: multi-process training.
 """
 
 import os
@@ -36,6 +49,8 @@ import torch
 from ..data.pipeline import device_prefetch
 from ..models.stochastic import set_generator
 from ..ops.metrics import metrics_from_confusion
+from ..utils.preemption import NullGuard, PreemptionGuard
+from ..utils.runlock import acquire_run_lock
 from .state import TrainState, create_train_state
 from .steps import eval_step, train_step
 
@@ -68,6 +83,23 @@ def _accumulate(acc, metrics, sample_mask=None):
     return acc
 
 
+def _encode_acc(acc):
+    """The accumulators as plain floats and lists, for a partial
+    checkpoint's meta (the snapshot's one readback)."""
+    return {head: {"loss": float(s["loss"]), "valid": float(s["valid"]),
+                   "confusion": s["confusion"].cpu().tolist()}
+            for head, s in acc.items() if head != "_samples"}
+
+
+def _decode_acc(enc, samples, device):
+    """_encode_acc's output back into device accumulators (f32, exact)."""
+    acc = {head: {k: torch.tensor(s[k], dtype=torch.float32, device=device)
+                  for k in ("loss", "valid", "confusion")}
+           for head, s in enc.items()}
+    acc["_samples"] = torch.tensor(float(samples), device=device)
+    return acc
+
+
 class _InflightThrottle:
     """Bound how far the host epoch loop runs ahead of the card.
 
@@ -95,16 +127,21 @@ class _InflightThrottle:
 
 
 class Trainer:
-    def __init__(self, model, loss_specs, learning_rate: float, train_loader,
+    def __init__(self, model, loss_specs, optimizer, train_loader,
                  test_loader, num_classes: int, saving_dir: str,
                  model_name: str, device, checkpoint_criterion: str = "UAR",
                  seed: int = 0, log_console: bool = True,
                  run_dir: Optional[str] = None, inflight_steps: int = 4,
-                 on_epoch_start: Optional[Callable[[int], None]] = None):
+                 on_epoch_start: Optional[Callable[[int], None]] = None,
+                 compute_dtype=None, ema_decay: float = 0.0,
+                 early_stop_patience: int = 0,
+                 profile_dir: Optional[str] = None, profile_epoch: int = 1,
+                 tensorboard_dir: Optional[str] = None):
+        """`optimizer`: a train.state.OptimizerConfig."""
         self.model = model
         self.on_epoch_start = on_epoch_start
         self.loss_specs = loss_specs
-        self.learning_rate = learning_rate
+        self.optimizer = optimizer
         self.train_loader = train_loader
         self.test_loader = test_loader
         self.num_classes = num_classes
@@ -114,21 +151,35 @@ class Trainer:
         self.seed = seed
         self.log_console = log_console
         self.inflight_steps = inflight_steps
+        self.compute_dtype = compute_dtype
+        self.ema_decay = ema_decay
+        self.early_stop_patience = early_stop_patience
+        self.profile_dir = profile_dir
+        self.profile_epoch = profile_epoch
+        self.tensorboard_dir = tensorboard_dir
+        # a stand-in guard can be injected (tests, schedulers that signal
+        # preemption by other means than SIGTERM)
+        self.preemption_guard = None
+        self._tb = None
         if run_dir is None:
             stamp = time.strftime("%d.%m.%Y, %H-%M-%S")
             run_dir = os.path.join(saving_dir, f"{stamp} ({model_name})")
         self.run_dir = run_dir
         os.makedirs(self.run_dir, exist_ok=True)
+        self._release_runlock = acquire_run_lock(self.run_dir)
         self.state: Optional[TrainState] = None
         self.start_epoch = 0
         self.best_errors: Dict[str, float] = {}
         self.logs: Dict[str, list] = {}
+        self._guard = NullGuard()
+        self._partial = None  # a preempted epoch's snapshot, to resume
+        self._snapshot = None  # the last train_epoch's snapshot
 
     # ------------------------------------------------------------------ state
     def init_state(self):
         if self.state is None:
-            self.state = create_train_state(self.model, self.learning_rate,
-                                            self.device)
+            self.state = create_train_state(self.model, self.optimizer,
+                                            self.device, self.ema_decay)
         return self.state
 
     def epoch_generator(self, epoch: int) -> torch.Generator:
@@ -143,11 +194,11 @@ class Trainer:
 
     def train_step(self, batch):
         return train_step(self.state, batch, self.loss_specs,
-                          self.num_classes)
+                          self.num_classes, self.compute_dtype)
 
     def eval_step(self, batch):
         return eval_step(self.state, batch, self.loss_specs,
-                         self.num_classes)
+                         self.num_classes, self.compute_dtype)
 
     # ------------------------------------------------------------------ epochs
     def _epoch_results(self, acc):
@@ -160,31 +211,73 @@ class Trainer:
             results[head] = m
         return results
 
+    def _skipping(self, loader, skip: int):
+        """The loader's batches after the first `skip`: skipped unbuilt
+        where the loader can (BatchLoader.iter_skipping), else drawn and
+        dropped on the host."""
+        if skip and hasattr(loader, "iter_skipping"):
+            return loader.iter_skipping(skip)
+        it = iter(loader)
+        for _ in range(skip):
+            next(it, None)
+        return it
+
     def train_epoch(self, generator):
-        """One training epoch; returns {head: metrics}."""
+        """One training epoch; returns {head: metrics}, or None when
+        preempted.  Its snapshot (batches done, samples, accumulators,
+        seconds, the generator's state) is left in `self._snapshot`: the
+        epoch so far when preempted, the whole epoch otherwise.  A pending
+        partial epoch (`self._partial`, from load_checkpoint) resumes: the
+        trained batches are skipped, the generator and the accumulators
+        continue from its state."""
         self.init_state()
+        partial, self._partial = self._partial, None
+        skip, prior_seconds, acc = 0, 0.0, {}
+        if partial is not None:
+            skip = int(partial["batches_done"])
+            prior_seconds = float(partial.get("seconds", 0.0))
+            acc = _decode_acc(partial["acc"], partial["samples"], self.device)
+            if partial.get("generator") is not None:
+                generator.set_state(partial["generator"])
         set_generator(self.model, generator)
-        acc = {}
         inflight = _InflightThrottle(self.inflight_steps, self.device)
+        done = skip
         t0 = time.time()
-        for batch in self.batches(self.train_loader):
+
+        def snapshot():
+            samples = float(acc["_samples"]) if "_samples" in acc else 0.0
+            return {"batches_done": done, "samples": samples,
+                    "acc": _encode_acc(acc),
+                    "seconds": prior_seconds + time.time() - t0,
+                    "generator": generator.get_state()}
+
+        for batch in device_prefetch(
+                self._skipping(self.train_loader, skip), self.device):
             _accumulate(acc, self.train_step(batch), batch["sample_mask"])
             inflight.push()
-        results = self._epoch_results(acc)  # the epoch's one readback
-        elapsed = max(time.time() - t0, 1e-9)
-        samples = float(acc["_samples"]) if "_samples" in acc else 0.0
+            done += 1
+            if self._guard.should_stop():
+                self._snapshot = snapshot()
+                return None
+        self._snapshot = snapshot()  # the epoch's one readback
+        results = self._epoch_results(acc)
+        elapsed = max(self._snapshot["seconds"], 1e-9)
         for m in results.values():
             m["epoch_seconds"] = round(elapsed, 2)
-            m["clips_per_sec"] = round(samples / elapsed, 2)
+            m["clips_per_sec"] = round(self._snapshot["samples"] / elapsed, 2)
         return results
 
     def eval_epoch(self):
+        """The test-set pass; None when preempted (it has no side effects,
+        so a resumed run simply runs it again)."""
         self.init_state()
         acc = {}
         inflight = _InflightThrottle(self.inflight_steps, self.device)
         for batch in self.batches(self.test_loader):
             _accumulate(acc, self.eval_step(batch))
             inflight.push()
+            if self._guard.should_stop():
+                return None
         return self._epoch_results(acc)
 
     # ------------------------------------------------------------------ logging
@@ -199,6 +292,12 @@ class Trainer:
             pd.DataFrame(self.logs[key]).to_csv(
                 os.path.join(self.run_dir, f"{head}_{split}_log.csv"),
                 index=False)
+        if self.tensorboard_dir:
+            if self._tb is None:
+                from ..utils.tblog import TBWriter
+
+                self._tb = TBWriter(self.tensorboard_dir)
+            self._tb.log(split, epoch, results)
 
     def _print_results(self, epoch, split, results):
         if not self.log_console:
@@ -215,40 +314,72 @@ class Trainer:
             return metrics["loss"]
         return 1.0 - metrics[self.checkpoint_criterion]
 
-    def _save(self, name, meta):
+    def _save(self, name, meta, extra=None):
         from ..io.checkpoint import save_state
 
-        save_state(os.path.join(self.run_dir, name), self.state.model,
-                   self.state.optimizer, meta)
+        save_state(os.path.join(self.run_dir, name), self.state,
+                   {"step": self.state.step, **meta}, extra)
 
     def save_checkpoint(self, epoch):
         self._save("checkpoint_current",
-                   {"epoch": epoch, "step": self.state.step,
-                    "best_errors": self.best_errors,
+                   {"epoch": epoch, "best_errors": self.best_errors,
                     "model_name": self.model_name})
 
     def maybe_save_best(self, epoch, results):
-        """Save `checkpoint_best_{head}` for every head that improved."""
+        """Save `checkpoint_best_{head}` for every head that improved;
+        returns whether any did (early stopping's counter)."""
+        improved = False
         for head, metrics in results.items():
             err = float(self._error(metrics))
             if err < self.best_errors.get(head, float("inf")):
+                improved = True
                 self.best_errors[head] = err
                 self._save(f"checkpoint_best_{head}",
-                           {"epoch": epoch, "step": self.state.step,
-                            "head": head,
+                           {"epoch": epoch, "head": head,
                             "criterion": self.checkpoint_criterion,
                             "error": err})
+        return improved
+
+    def save_preempt_checkpoint(self, epoch, snapshot):
+        """The partial checkpoint: the state after `batches_done` steps of
+        `epoch`, the accumulators and seconds so far, and the generator's
+        state: everything an exact mid-epoch resume needs."""
+        snapshot = dict(snapshot)
+        generator = snapshot.pop("generator")
+        self._save("checkpoint_preempt",
+                   {"partial": True, "epoch": epoch,
+                    "best_errors": self.best_errors,
+                    "model_name": self.model_name, **snapshot},
+                   {"generator": generator})
+        if self.log_console:
+            print(f"[preemption] saved partial checkpoint at epoch {epoch}, "
+                  f"batch {snapshot['batches_done']}: "
+                  f"{os.path.join(self.run_dir, 'checkpoint_preempt')}",
+                  flush=True)
+
+    def _clear_preempt_checkpoint(self):
+        path = os.path.join(self.run_dir, "checkpoint_preempt")
+        if os.path.isfile(path):
+            os.remove(path)
 
     def load_checkpoint(self, path):
-        """Restore model, optimizer and bookkeeping; training continues at
-        the epoch after the checkpoint's."""
+        """Restore model, optimizer, EMA and bookkeeping.  Training
+        continues at the epoch after the checkpoint's, or inside a partial
+        checkpoint's epoch where it stopped."""
         from ..io.checkpoint import restore_state
 
         self.init_state()
-        meta = restore_state(path, self.state.model, self.state.optimizer)
+        meta, extra = restore_state(path, self.state)
         self.state.step = int(meta.get("step", 0))
         self.best_errors = dict(meta.get("best_errors", {}))
-        self.start_epoch = int(meta.get("epoch", -1)) + 1
+        if meta.get("partial"):
+            self.start_epoch = int(meta["epoch"])
+            self._partial = {k: meta[k] for k in ("batches_done", "samples",
+                                                  "acc", "seconds")}
+            self._partial["generator"] = extra.get("generator")
+        else:
+            self.start_epoch = int(meta.get("epoch", -1)) + 1
+            self._partial = None
         self._load_logs()
         return meta
 
@@ -268,12 +399,33 @@ class Trainer:
                 self.logs[fname[:-len("_log.csv")]] = rows
 
     def resume_latest(self):
-        """Resume from this run dir's checkpoint_current, if it has one."""
-        path = os.path.join(self.run_dir, "checkpoint_current")
-        return self.load_checkpoint(path) if os.path.isfile(path) else None
+        """Resume from this run dir's checkpoint_preempt (always written
+        after the last epoch's save), else its checkpoint_current, if it has
+        one."""
+        for name in ("checkpoint_preempt", "checkpoint_current"):
+            path = os.path.join(self.run_dir, name)
+            if os.path.isfile(path):
+                return self.load_checkpoint(path)
+        return None
 
     # ------------------------------------------------------------------ fit
     def fit(self, epochs: int):
+        # again, in case an earlier fit() released it
+        self._release_runlock = acquire_run_lock(self.run_dir)
+        guard = self.preemption_guard or PreemptionGuard()
+        try:
+            with guard as self._guard:
+                self._fit_epochs(epochs)
+        finally:
+            self._guard = NullGuard()
+            if self._tb is not None:
+                self._tb.close()
+                self._tb = None
+            self._release_runlock()
+        return self
+
+    def _fit_epochs(self, epochs: int):
+        flat_epochs = 0
         for epoch in range(self.start_epoch, epochs):
             t0 = time.time()
             if self.on_epoch_start is not None:
@@ -281,8 +433,24 @@ class Trainer:
             sampler = getattr(self.train_loader, "sampler", None)
             if sampler is not None and hasattr(sampler, "set_epoch"):
                 sampler.set_epoch(epoch)
-            train_results = self.train_epoch(self.epoch_generator(epoch))
+            generator = self.epoch_generator(epoch)
+            if self.profile_dir and epoch == min(self.profile_epoch,
+                                                 epochs - 1):
+                from ..utils.profiling import trace
+
+                with trace(self.profile_dir):
+                    train_results = self.train_epoch(generator)
+            else:
+                train_results = self.train_epoch(generator)
+            if train_results is None:  # preempted mid-epoch
+                self.save_preempt_checkpoint(epoch, self._snapshot)
+                break
             test_results = self.eval_epoch()
+            if test_results is None:
+                # preempted during eval: the epoch is trained; resume runs
+                # only its eval and logging
+                self.save_preempt_checkpoint(epoch, self._snapshot)
+                break
             self._append_log("train", epoch, train_results)
             self._append_log("test", epoch, test_results)
             self._print_results(epoch, "train", train_results)
@@ -290,8 +458,17 @@ class Trainer:
             if self.log_console:
                 print(f"[epoch {epoch}] {time.time() - t0:.1f}s", flush=True)
             self.save_checkpoint(epoch)
-            self.maybe_save_best(epoch, test_results)
-        return self
+            improved = self.maybe_save_best(epoch, test_results)
+            self._clear_preempt_checkpoint()
+            flat_epochs = 0 if improved else flat_epochs + 1
+            if 0 < self.early_stop_patience <= flat_epochs:
+                if self.log_console:
+                    print(f"[epoch {epoch}] early stop: no "
+                          f"{self.checkpoint_criterion} improvement in "
+                          f"{flat_epochs} epochs", flush=True)
+                break
+            if self._guard.should_stop():  # preempted after the epoch's
+                break                      # save: nothing more to keep
 
     def plot_logs(self):
         """Training-curve PNGs per head, one panel per logged metric with

@@ -9,8 +9,16 @@ Batch layout (data/avabos.py `build_batch`, as tensors on the device):
   {'modalities': {m: {'data', 'present'}}, 'labels': {head: (B,)},
    'label_mask': {head: (B,)}, 'sample_mask': (B,)}
 
-A head whose `label_mask` is all zero contributes zero loss.  f32 only: a
-bf16 compute dtype is not ported.
+A head whose `label_mask` is all zero contributes zero loss.
+
+`compute_dtype` "bfloat16" (JAX train/steps.py's mixed precision): master
+parameters, optimizer state, gradients, BatchNorm running statistics,
+losses and metrics stay f32; inside the step the floating parameters and
+the modality inputs are cast to bf16 and the model runs on the casts
+(`torch.func.functional_call`), so the gradients land on the f32 masters
+through the differentiable cast.  Logits are upcast to f32 before the
+losses.  This is not `torch.autocast`, whose per-op lists compute another
+function than the JAX package's.
 """
 
 from dataclasses import dataclass
@@ -18,9 +26,11 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ..ops import losses as L
 from ..ops.metrics import confusion_matrix
+from ..utils.precision import cast_floating, resolve_dtype
 
 
 @dataclass(frozen=True)
@@ -89,27 +99,52 @@ def head_losses_and_metrics(outputs, batch, loss_specs: Dict[str, LossSpec],
     return total, metrics
 
 
-def train_step(state, batch, loss_specs, num_classes: int):
-    """Forward in train mode, one backward, one optimizer step; BatchNorm
-    running statistics move in the forward.  Returns the metrics (device
-    tensors)."""
+def forward(model, modalities, compute_dtype=None, params=None):
+    """model(modalities), run on `params` ({name: tensor}, replacing the
+    model's own; the EMA shadow) and in `compute_dtype`: the floating
+    parameters and inputs cast to it.  Buffers (BatchNorm's running
+    statistics) are the model's own, f32."""
+    dtype = resolve_dtype(compute_dtype)
+    if dtype == torch.float32:
+        dtype = None
+    if dtype is None and not params:
+        return model(modalities)
+    full = dict(model.named_parameters())
+    full.update(params or {})
+    return functional_call(model, cast_floating(full, dtype),
+                           (cast_floating(modalities, dtype),))
+
+
+def train_step(state, batch, loss_specs, num_classes: int,
+               compute_dtype=None):
+    """Forward in train mode, one backward, one optimizer step (or, under
+    accumulation, one micro-step); BatchNorm running statistics move in the
+    forward; the EMA shadow moves after each real update.  Returns the
+    metrics (device tensors)."""
     model, optimizer = state.model, state.optimizer
     model.train()
-    optimizer.zero_grad(set_to_none=False)
+    optimizer.zero_grad()
     total, metrics = head_losses_and_metrics(
-        model(batch["modalities"]), batch, loss_specs, num_classes)
+        forward(model, batch["modalities"], compute_dtype), batch,
+        loss_specs, num_classes)
     total.backward()
-    optimizer.step()  # heads without labels still move, on zero gradients
+    # heads without labels still move, on zero gradients
+    if optimizer.step():
+        state.update_ema()
     state.step += 1
     metrics["total_loss"] = total.detach()
     return metrics
 
 
 @torch.no_grad()
-def eval_step(state, batch, loss_specs, num_classes: int):
-    """The eval-mode model (BatchNorm folded, the stem's epilogue fused)."""
+def eval_step(state, batch, loss_specs, num_classes: int,
+              compute_dtype=None):
+    """The eval-mode model (BatchNorm folded, the stem's epilogue fused),
+    on the EMA shadow when one is tracked."""
     state.model.eval()
     total, metrics = head_losses_and_metrics(
-        state.model(batch["modalities"]), batch, loss_specs, num_classes)
+        forward(state.model, batch["modalities"], compute_dtype,
+                state.eval_params()),
+        batch, loss_specs, num_classes)
     metrics["total_loss"] = total
     return metrics

@@ -9,7 +9,9 @@ imports every module and never builds.
 
 Every wrapper adds one to `launch_counts[<name>]` each time it launches its
 kernel, and nowhere else, so a run can show that its path went through the
-kernel (chip_smoke.py resets and reads the counts).
+kernel (chip_smoke.py resets and reads the counts).  A kernel's bf16
+instantiation counts under `<name>.bf16` (`launch_key`), so a bf16 path
+shows which instantiation it ran.
 
 There is no automatic kernel selection: a wrapper takes its plain PyTorch
 version only for a tensor on the CPU, and for a CUDA tensor launches the
@@ -31,6 +33,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts: collections.Counter = collections.Counter()
+_KEY_SUFFIX = {"torch.float32": "", "torch.bfloat16": ".bf16"}
+
+
+def launch_key(name: str, dtype) -> str:
+    """The `launch_counts` key of kernel `name`'s instantiation for the
+    torch dtype `dtype`: `name` for float32, `<name>.bf16` for bfloat16."""
+    return name + _KEY_SUFFIX[str(dtype)]
 
 _libs: dict = {}
 _lock = threading.Lock()

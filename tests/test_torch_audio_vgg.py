@@ -46,7 +46,7 @@ from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
     set_generator)
 from multimodalaggressionrecognition_tpu_torch.models.vgg import VGG11BN
 from multimodalaggressionrecognition_tpu_torch.train.state import (
-    create_train_state)
+    OptimizerConfig, create_train_state)
 from multimodalaggressionrecognition_tpu_torch.train.steps import (
     LossSpec, head_losses_and_metrics, train_step)
 from test_torch_trimodal import random_variables
@@ -170,7 +170,8 @@ def test_spectrogram_vgg_loss_and_every_gradient_match_jax(reference):
 
 def test_train_step_lowers_the_loss_and_moves_bn_statistics(reference):
     variables, b, _, _, _ = reference
-    state = create_train_state(_port_model(variables), 1e-4, "cpu")
+    state = create_train_state(_port_model(variables),
+                               OptimizerConfig(learning_rate=1e-4), "cpu")
     bn = state.model.vgg.bn0
     mean0 = bn.running_mean.clone()
     tb = _torch_tree(b)

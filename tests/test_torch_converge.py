@@ -1,6 +1,7 @@
 """Convergence of the port's trainer: the port's counterparts of
 tests/test_convergence.py's runs of the tri-modal model (with the Swin
-tower fine-tuned, --video_freeze false), the spectrogram VGG, the text
+tower fine-tuned, --video_freeze false), the audio,text flagship, the
+spectrogram VGG, the text
 transformer, the audio,text two-tower model, the video transformer, the
 multi-head RNN entries over wav2vec-1 audio features and over video
 feature sequences, and the bbox-masked 3-D CNN.  On the class-separable
@@ -45,6 +46,27 @@ def test_converge_trimodal_fine_tuned(tmp_path):
         "--device", "cpu"])
     assert _best_uar(runs, "verb") >= 0.9
     assert _best_uar(runs, "phys") >= 0.9
+
+
+def test_converge_multimodal(tmp_path):
+    """tests/test_convergence.py::test_converge_multimodal's run: the
+    audio,text flagship (hidden 768) for 8 epochs at b4 on 24 000-sample
+    clips; only 'verb' carries labels without the video modality."""
+    from multimodalaggressionrecognition_tpu_torch.cli import train_multimodal
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        generate_synthetic_avabos)
+
+    root = str(tmp_path / "avabos")
+    generate_synthetic_avabos(root, num_clusters=3, samples_per_cluster=8,
+                              seed=7, audio_len=24000, video_frames=8,
+                              video_hw=32)
+    runs = tmp_path / "runs"
+    train_multimodal.main([
+        "--dataset_root", root, "--saving_dir", str(runs),
+        "--epoch_num", "8", "--batch_size", "4", "--log_console", "false",
+        "--audio_samples", "24000", "--modalities", "audio,text",
+        "--device", "cpu"])
+    assert _best_uar(runs, "verb") >= 0.9
 
 
 def test_converge_audio_vgg(tmp_path):

@@ -591,3 +591,145 @@ def test_doctor_smoke_on_the_card(cuda, capsys):
     assert report["backend"] == "cuda" and report["devices"]
     assert report["smoke"]["roll"]["bitwise_equal_to_torch_roll"] is True
     assert "roll" in report["kernels"]["built"]
+
+
+# bf16 I/O of K2, K3 and K4: qkv (and g) in bf16, f32 math inside, each
+# result rounded once to bf16; held to the plain versions (f32 math, the
+# output rounded to bf16) within 1e-2 of each output's largest value (one
+# bf16 rounding of an f32 result is 2^-8 relative); the roll bit for bit
+BF16_K2_SHAPES = [(8, 24, 3, 8, 4), (6, 49, 3, 32, 3), (4, 17, 2, 16, 2),
+                  (2048, 196, 3, 32, 16), (512, 196, 6, 32, 4),
+                  (128, 64, 24, 32, 0), (16, 392, 3, 32, 4)]
+
+
+def _bf16_close(got, want):
+    assert got.dtype == want.dtype
+    scale = want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,n,heads,d,nw", BF16_K2_SHAPES)
+def test_window_attention_bf16_kernels_match_plain(cuda, w, n, heads, d, nw):
+    qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=n + d)
+    q16, g16 = qkv.bfloat16(), k3_grad(w, n, heads, d, cuda).bfloat16()
+    before = dict(launch_counts)
+    got = fused_window_attention(q16, bias, mask, heads)
+    dq, db = window_attention_bwd(q16, bias.bfloat16(), mask, g16, heads)
+    torch.cuda.synchronize()
+    # the bf16 instantiations ran, under their own keys, and no f32 one
+    for key in ("window_attention", "window_attention_bwd"):
+        assert launch_counts[f"{key}.bf16"] == before.get(
+            f"{key}.bf16", 0) + 1
+        assert launch_counts[key] == before.get(key, 0)
+    assert got.dtype == dq.dtype == db.dtype == torch.bfloat16
+    _bf16_close(got, attention_core_reference(q16, bias, mask, heads))
+    want_dq, want_db = window_attention_bwd_reference(
+        q16, bias.bfloat16(), mask, g16, heads)
+    _bf16_close(dq, want_dq)
+    _bf16_close(db, want_db)
+
+
+@pytest.mark.cuda
+def test_window_attention_takes_only_f32_or_bf16(cuda):
+    qkv, bias, mask = k2_inputs(8, 24, 3, 8, 4, cuda)
+    g = k3_grad(8, 24, 3, 8, cuda)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            fused_window_attention(qkv.to(dtype), bias, mask, 3)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            window_attention_bwd(qkv.to(dtype), bias, mask, g.to(dtype), 3)
+    with pytest.raises(TypeError, match="g must be torch.bfloat16"):
+        window_attention_bwd(qkv.bfloat16(), bias, mask, g, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,h,w,c,shifts", ROLL_CASES)
+def test_roll_bf16_kernel_equals_torch_roll(cuda, b, t, h, w, c, shifts):
+    x = torch.randn((b, t, h, w, c), device=cuda).bfloat16()
+    before = dict(launch_counts)
+    got = circular_roll(x, shifts)
+    assert launch_counts["roll.bf16"] == before.get("roll.bf16", 0) + 1
+    assert launch_counts["roll"] == before.get("roll", 0)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16),
+                       roll_reference(x, shifts).view(torch.int16))
+    xg = x.clone().requires_grad_(True)
+    g = torch.randn_like(x)
+    roll(xg, shifts).backward(g)
+    assert torch.equal(xg.grad, roll_reference(g, tuple(-s for s in shifts)))
+
+
+@pytest.mark.cuda
+def test_roll_bf16_kernel_takes_a_misaligned_view(cuda):
+    """A view 2 bytes off a 16-byte boundary takes the 2-byte path."""
+    x = torch.randn(1 + 2 * 4 * 6 * 6 * 16, device=cuda).bfloat16()
+    x = x[1:].view(2, 4, 6, 6, 16)
+    assert torch.equal(circular_roll(x, (0, 3, 3)),
+                       roll_reference(x, (0, 3, 3)))
+
+
+@pytest.mark.cuda
+def test_bf16_finetune_step_on_the_card(cuda):
+    """One bf16 step of the tri-modal fine-tune (Swin unfrozen, remat on)
+    at full width, b2 with 16 frames: K1 once, K2 twice per block (remat's
+    recompute), K3 and K4 as in f32; the loss within 5 % of the same f32
+    step (tests/test_precision.py:168); master parameters, their
+    gradients, the optimizer's moments and BatchNorm's statistics f32."""
+    from multimodalaggressionrecognition_tpu_torch.cli.train_multimodal import (
+        MultimodalConfig, build_model)
+    from multimodalaggressionrecognition_tpu_torch.models.layers import (
+        seeded_init_)
+    from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
+        set_generator)
+    from multimodalaggressionrecognition_tpu_torch.train.state import (
+        OptimizerConfig, create_train_state)
+    from multimodalaggressionrecognition_tpu_torch.train.steps import (
+        LossSpec, train_step)
+
+    cfg = MultimodalConfig(video_frames=16, video_freeze=False)
+    g = torch.Generator().manual_seed(2)
+    n = 2
+    data = {"audio": torch.randn((n, 80000), generator=g) * 0.1,
+            "text": torch.randn((n, 48, 768), generator=g),
+            "video": torch.randn((n, 16, 112, 112, 3), generator=g)}
+    batch = {"modalities": {m: {"data": d.to(cuda),
+                                "present": torch.ones(n, device=cuda)}
+                            for m, d in data.items()},
+             "labels": {h: torch.tensor([0, 1], device=cuda)
+                        for h in ("phys", "verb")},
+             "label_mask": {h: torch.ones(n, device=cuda)
+                            for h in ("phys", "verb")},
+             "sample_mask": torch.ones(n, device=cuda)}
+    specs = {"phys": LossSpec("focal", class_weights=(0.5, 0.5)),
+             "verb": LossSpec("ce")}
+    losses, counts = {}, {}
+    for dtype in (None, torch.bfloat16):
+        model = seeded_init_(build_model(cfg, ("audio", "text", "video")), 0)
+        state = create_train_state(model,
+                                   OptimizerConfig(learning_rate=1e-4), cuda)
+        set_generator(state.model, torch.Generator(cuda).manual_seed(0))
+        launch_counts.clear()
+        losses[dtype] = train_step(state, batch, specs, 2,
+                                   compute_dtype=dtype)["total_loss"].item()
+        torch.cuda.synchronize()
+        counts[dtype] = dict(launch_counts)
+    # the bf16 step runs the bf16 instantiations of K2, K3 and K4 as often
+    # as the f32 step runs the f32 ones; K1 stays f32 (cast around it)
+    assert counts[torch.bfloat16] == {
+        k if k == "framed_conv1d" else f"{k}.bf16": v
+        for k, v in counts[None].items()}
+    assert counts[None]["framed_conv1d"] == 1
+    assert counts[None]["window_attention"] == 2 * counts[None][
+        "window_attention_bwd"]
+    rel = abs(losses[torch.bfloat16] - losses[None]) / abs(losses[None])
+    assert rel < 0.05, losses
+    for p in state.model.parameters():
+        assert p.dtype == torch.float32
+        assert p.grad is None or p.grad.dtype == torch.float32
+    for st in state.optimizer.inner.state.values():
+        for v in st.values():
+            assert not v.is_floating_point() or v.dtype == torch.float32
+    for buf in state.model.buffers():
+        assert buf.dtype == torch.float32

@@ -40,7 +40,7 @@ from multimodalaggressionrecognition_tpu_torch.models.layers import (
 from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
     set_generator)
 from multimodalaggressionrecognition_tpu_torch.train.state import (
-    create_train_state)
+    OptimizerConfig, create_train_state)
 from multimodalaggressionrecognition_tpu_torch.train.steps import (
     LossSpec, head_losses_and_metrics, train_step)
 from test_torch_train_step import torch_tree
@@ -225,7 +225,8 @@ def test_train_step_keeps_the_frozen_extractor(multihead):
     ext = model.extractor
     before = {k: v.clone() for k, v in ext.state_dict().items()}
     heads_before = {k: v.clone() for k, v in model.heads.state_dict().items()}
-    state = create_train_state(model, 1e-3, "cpu")
+    state = create_train_state(model, OptimizerConfig(learning_rate=1e-3),
+                               "cpu")
     set_generator(model, torch.Generator().manual_seed(0))
     tb = torch_tree(b)
     batch = {"modalities": tb["x"], "labels": tb["labels"],

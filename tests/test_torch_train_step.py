@@ -29,7 +29,7 @@ from multimodalaggressionrecognition_tpu_torch.io.from_jax import (
 from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
     set_generator)
 from multimodalaggressionrecognition_tpu_torch.train.state import (
-    adam, create_train_state)
+    OptimizerConfig, adam, create_train_state)
 from multimodalaggressionrecognition_tpu_torch.train.steps import (
     LossSpec, head_losses_and_metrics, train_step)
 from test_torch_trimodal import MODALITIES, SIZES, batch, random_variables
@@ -144,7 +144,8 @@ def test_one_adam_step_matches_optax(reference):
 
 def test_train_step_lowers_the_loss_and_moves_bn_statistics(reference):
     variables, b, _, _ = reference
-    state = create_train_state(port_model(variables), 1e-4, "cpu")
+    state = create_train_state(port_model(variables),
+                               OptimizerConfig(learning_rate=1e-4), "cpu")
     bn = state.model.extractors["audio"].extractor.bn0
     mean0 = bn.running_mean.clone()
     tb = torch_tree(b)

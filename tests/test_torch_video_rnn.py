@@ -26,6 +26,8 @@ from multimodalaggressionrecognition_tpu_torch.cli.common import parse_config
 from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
     make_synthetic_features)
 from multimodalaggressionrecognition_tpu_torch.train.loop import Trainer
+from multimodalaggressionrecognition_tpu_torch.train.state import (
+    OptimizerConfig)
 from test_torch_audio_rnn import (HEADS, assert_cli_model_matches_jax,
                                   check_run, labelled)
 from test_torch_files import _assert_same_batches
@@ -99,7 +101,8 @@ class _Recorder:
 
 def test_on_epoch_start_runs_before_the_samplers_epoch(tmp_path):
     calls = []
-    trainer = Trainer(torch.nn.Linear(1, 1), {}, 1e-3, _Recorder(calls),
+    trainer = Trainer(torch.nn.Linear(1, 1), {},
+                      OptimizerConfig(learning_rate=1e-3), _Recorder(calls),
                       None, num_classes=2, saving_dir=str(tmp_path),
                       model_name="m", device="cpu", log_console=False,
                       on_epoch_start=lambda e: calls.append(("start", e)))
