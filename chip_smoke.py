@@ -217,9 +217,36 @@ Phases (any failure raises, and the script exits non-zero):
                 K4 4 times with video), the files and manifest.
  16. doctor    - cli.doctor --smoke: its report on one line, K4 launched
                 once and bit for bit equal to torch.roll.
+ 17. quantized - (22) serve.Predictor(quantize=...) of the flagship (b32)
+                and the tri-modal model (b8) at full width: int8 and w8a8
+                in f32, and the tri-modal int8 in bf16: K1 1 (tri-modal
+                also K2 12, K4 4) launches a forward through the
+                mar_torch:: ops; the probabilities within 0.05 (int8) and
+                0.2 (w8a8) of the card's f32 ones (tests/test_quantize.py);
+                the same quantized forward on the card and on the CPU
+                (tri-modal at b2) within 1e-3 of the largest logit, w8a8 on
+                the card's activation codes with the codes that differ
+                counted; tree_nbytes f32 and int8, the resident bytes on
+                the card, device ms and peak memory beside f32, the kernel
+                families.  The video RNN heads (b16, 19 x 512) int8: cuDNN
+                weights flat, card against CPU, the dequantization's ms.
+ 18. export    - (23) io/export.export_predictor at full width: the
+                tri-modal model (b8) in f32 and int8 and the flagship (b32)
+                in w8a8 exported on the card, each artifact within 1e-6 of
+                its live Predictor; the flagship exported on the CPU and
+                scored on the card (no node on the CPU) within 1e-3 of the
+                largest logit; K1, K2, K4 launched per forward through the
+                ops; export seconds, artifact bytes, forward ms; cli.serve
+                --exported flag=<dir>,tri=<dir> routed by name over HTTP;
+                and inside the train phase, cli.export_model --from_run of
+                run (3)'s checkpoint, cli.predict --exported on (e)'s clips
+                and cli.evaluate --exported on its test split, equal to the
+                same CLIs on the checkpoint.
 Prints a `slice` JSON line per slice, a `train` JSON line per train path,
 an `evaluate` and a `predict` JSON line, an `extract` JSON line per
-backbone, a `serve` line for bf16 serving,
+backbone, a `serve` line for bf16 serving, a `quantized` line per
+quantized Predictor, an `export` line per artifact, `serve_exported` and
+`exported_scoring` lines,
 the `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Every kernel
 entry's `launches` counts the tri-modal fine-tune; `launches_by_path` gives
@@ -233,11 +260,13 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 import warnings
 
@@ -1252,6 +1281,11 @@ def kernel_breakdown(fn, reps: int = 5, split_conv: bool = False):
                   if any(k in name for k in ("fprop", "dgrad", "wgrad",
                                              "conv", "winograd", "fft",
                                              "cf32"))
+                  # torch._int_mm's int8 GEMMs (w8a8 serving)
+                  else "int8 GEMM (w8a8)" if any(
+                      k in name for k in ("s8s8", "_s8", "i8i8", "imma",
+                                          "int8", "i8816", "i8832"))
+                  and any(k in name for k in ("gemm", "nvjet", "xmma"))
                   # cuBLAS's bf16 GEMMs on Hopper are "nvjet_..." kernels
                   else "gemm (Linear, fusion attention)" if any(
                       k in name for k in ("gemm", "nvjet"))
@@ -1724,6 +1758,8 @@ def train_phase(card_line):
         families = kernel_breakdown(lambda: trainer.train_step(batch), reps=2)
         scored = {"evaluate": evaluate_phase(trainer.run_dir, card_line),
                   "predict": predict_phase(trainer.run_dir, tmp, card_line)}
+        scored.update(exported_scoring_phase(trainer.run_dir, tmp,
+                                             card_line))
         scored["train_bf16"], _ = bf16_train_phase(args, trainer, batch,
                                                    timing, card_line)
     busy = sum(families.values())
@@ -3400,6 +3436,444 @@ def generate_features_phase(card_line):
     return counts
 
 
+# (22) quantized serving: (label, config, served batch, card-vs-CPU parity
+# batch, launches per forward), at full width with seeded weights
+QUANT_SLICES = [("audio,text", FLAGSHIP, BATCH, BATCH, {"framed_conv1d": 1}),
+                ("audio,text,video", TRIMODAL, 8, 2,
+                 {"framed_conv1d": 1, "window_attention": 12, "roll": 4})]
+# (mode, compute dtype, the JAX tests' bound on |prob - f32 prob|:
+# tests/test_quantize.py:79 (int8), :212 (w8a8))
+QUANT_MODES = [("int8", None, 0.05), ("w8a8", None, 0.2),
+               ("int8", "bfloat16", 0.05)]
+
+
+class activation_codes:
+    """The w8a8 layers' activation codes of one forward
+    (utils/quantize.quantize_activations): recorded, or (`replay`) handed
+    to another run's layers in the same order, counting the codes that
+    differ from that run's own.  The int32 sums are exact, so two runs of
+    the same w8a8 forward differ only where a code rounds the other way;
+    one flip moves everything after it by ~1/127, so parity is held on
+    the same codes, as the ReLU replays hold it on the same decisions."""
+
+    def __init__(self, replay=None):
+        self.codes = [] if replay is None else replay
+        self.replay = replay is not None
+        self.i = self.differ = self.total = 0
+
+    def __enter__(self):
+        from multimodalaggressionrecognition_tpu_torch.utils import quantize
+
+        self.module, self.orig = quantize, quantize.quantize_activations
+
+        def patched(x):
+            xq, xscale = self.orig(x)
+            self.total += xq.numel()
+            if not self.replay:
+                self.codes.append(xq.cpu())
+                return xq, xscale
+            want = self.codes[self.i].to(xq.device)
+            self.i += 1
+            self.differ += int((want != xq).sum())
+            return want, xscale
+
+        quantize.quantize_activations = patched
+        return self
+
+    def __exit__(self, *exc):
+        self.module.quantize_activations = self.orig
+
+
+def weight_bytes(model):
+    """Bytes of a model's parameters and buffers (its resident weights)."""
+    return sum(t.numel() * t.element_size()
+               for t in [*model.parameters(), *model.buffers()])
+
+
+def quantized_phase(card_line):
+    """(22) Predictor(quantize=...) of the flagship (b32) and the tri-modal
+    model (b8) at full width, int8 and w8a8 in f32 and the tri-modal int8
+    in bf16: launches per forward (K1 1; tri-modal K2 12, K4 4), the
+    probabilities against the card's f32 ones at the JAX tolerances, the
+    card against the CPU within 1e-3 of the largest logit (w8a8 on the
+    card's activation codes, the differing ones counted), the weights'
+    bytes (tree_nbytes f32 against int8, resident on the card), device ms
+    and peak memory per forward beside f32's, and the kernel families."""
+    from multimodalaggressionrecognition_tpu_torch.serve import Predictor
+    from multimodalaggressionrecognition_tpu_torch.utils.quantize import (
+        quantize_params, tree_nbytes)
+
+    out = {}
+    for label, cfg, bs, parity_n, per_forward in QUANT_SLICES:
+        modalities = tuple(sorted(label.split(",")))
+        model = seeded_model(cfg, modalities)
+        batch = full_batch(cfg, modalities, bs, SEED + 30)
+        clips = {m: v["data"].numpy() for m, v in batch.items()}
+        small = {m: a[:parity_n] for m, a in clips.items()}
+        p32 = Predictor(copy.deepcopy(model), batch_size=bs, device=DEVICE)
+        want = p32.predict(clips)
+        padded = p32._pad_batch(clips, bs)
+        torch.cuda.reset_peak_memory_stats()
+        f32_ms = cuda_ms(lambda: p32._forward(padded), reps=10)
+        f32_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        params = dict(model.named_parameters())
+        nbytes = {"f32": tree_nbytes(params),
+                  "int8": tree_nbytes(quantize_params(params))}
+        resident = {"f32": weight_bytes(p32.model)}
+        del p32
+        for mode, dtype, tol in QUANT_MODES:
+            if dtype is not None and "video" not in modalities:
+                continue
+            key = f"{mode}{'' if dtype is None else '_bf16'}"
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated()
+            pq = Predictor(copy.deepcopy(model), batch_size=bs, device=DEVICE,
+                           quantize=mode, compute_dtype=dtype)
+            resident[key] = torch.cuda.memory_allocated() - before
+            pq.predict(clips)  # first call: the constants' set-up
+            torch.cuda.synchronize()
+            kernels.launch_counts.clear()  # count this path only
+            got = pq.predict(clips)
+            torch.cuda.synchronize()
+            counts = dict(kernels.launch_counts)  # read just after the path
+            expect = per_forward if dtype is None else bf16_counts(
+                per_forward)
+            if counts != expect:
+                raise AssertionError(f"quantized {label} {key}: a forward "
+                                     f"launched {counts}, want {expect}")
+            prob_err = max(float(np.abs(got[h] - want[h]).max())
+                           for h in want)
+            if not prob_err <= tol:
+                raise AssertionError(f"quantized {label} {key}: |dprob| vs "
+                                     f"f32 {prob_err} > {tol}")
+            # the same quantized forward on the card and on the CPU, at the
+            # parity batch
+            card = Predictor(copy.deepcopy(model), batch_size=parity_n,
+                             device=DEVICE, quantize=mode,
+                             compute_dtype=dtype)
+            cpu = Predictor(copy.deepcopy(model), batch_size=parity_n,
+                            device="cpu", quantize=mode, compute_dtype=dtype)
+            with activation_codes() as rec:
+                card_logits = card.predict(small, return_probs=False)
+            with activation_codes(rec.codes) as rep:
+                cpu_logits = cpu.predict(small, return_probs=False)
+            del card, cpu
+            scale = max(float(np.abs(v).max()) for v in cpu_logits.values())
+            err = max(float(np.abs(card_logits[h] - cpu_logits[h]).max())
+                      for h in cpu_logits)
+            # f32: 1e-3 of the largest logit; bf16 rounds each stored
+            # activation to 2**-8 relative (3.9e-3), in another order on
+            # each device, so its bound is 2e-2
+            rel = 1e-3 if dtype is None else 2e-2
+            if not err <= rel * scale or rep.i != len(rec.codes):
+                raise AssertionError(
+                    f"quantized {label} {key}: cuda vs cpu |dlogit| {err} > "
+                    f"{rel} x {scale} (codes {rep.i} of {len(rec.codes)})")
+            qpad = pq._pad_batch(clips, bs)
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: pq._forward(qpad), reps=10)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            families = kernel_breakdown(lambda: pq._forward(qpad), reps=3)
+            line = {"quantized": label, "mode": mode,
+                    "compute_dtype": dtype or "float32", "batch": bs,
+                    "launches": counts, "max_abs_prob_err_vs_f32": prob_err,
+                    "cuda_vs_cpu_max_abs_logit_err": err,
+                    "max_abs_logit": scale,
+                    "codes_differ": rep.differ, "codes": rep.total,
+                    "tree_nbytes": nbytes, "resident_bytes": resident[key],
+                    "resident_bytes_f32": resident["f32"],
+                    "forward_ms": ms, "forward_ms_f32": f32_ms,
+                    "peak_gib": peak, "peak_gib_f32": f32_peak,
+                    "kernel_ms_by_family": families}
+            log(f"quantized {label} {key} b{bs} on {card_line}: launches "
+                f"{counts} ok; max |dprob| vs the f32 card {prob_err:.3e} <= "
+                f"{tol} ok; cuda vs cpu (b{parity_n}) max |dlogit| "
+                f"{err:.3e} <= {rel} x {scale:.3e} ok, {rep.differ} of "
+                f"{rep.total} activation codes differ; tree_nbytes f32 "
+                f"{nbytes['f32']} int8 {nbytes['int8']}, resident "
+                f"{resident[key]} B (f32 {resident['f32']}); forward "
+                f"{ms:.3f} ms (f32 {f32_ms:.3f}), peak {peak:.2f} GiB (f32 "
+                f"{f32_peak:.2f}); kernels by family: " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in sorted(
+                        families.items(), key=lambda kv: -kv[1])))
+            log(json.dumps(line))
+            out[f"serve_{key}_{'trimodal' if 'video' in label else 'flagship'}"
+                ] = counts
+            del pq
+        torch.cuda.empty_cache()
+    out["serve_int8_video_rnn"] = quantized_rnn_phase(card_line)
+    return out
+
+
+def quantized_rnn_phase(card_line):
+    """The video RNN heads (train_video_rnn at its defaults, b16 on 19 x
+    512 features) served int8: cuDNN's GRU and LSTM on weights dequantized
+    each forward and flattened into one buffer (cuDNN's warning about
+    weights in several chunks is an error here), card against CPU within
+    1e-3 of the largest logit, and the forward's device ms beside f32's:
+    what the dequantization costs."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        train_video_rnn as cli)
+    from multimodalaggressionrecognition_tpu_torch.serve import Predictor
+
+    model = seeded_init_(cli.make_model(cli.VideoRnnConfig()), SEED).eval()
+    clips = {"video": np.random.default_rng(SEED + 31).standard_normal(
+        (16, 19, 512)).astype(np.float32)}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=UNFLATTENED_RNN)
+        p32 = Predictor(copy.deepcopy(model), batch_size=16, device=DEVICE)
+        pq = Predictor(copy.deepcopy(model), batch_size=16, device=DEVICE,
+                       quantize="int8")
+        pq.predict(clips)
+        torch.cuda.synchronize()
+        kernels.launch_counts.clear()
+        got = pq.predict(clips, return_probs=False)
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)
+        want = Predictor(copy.deepcopy(model), batch_size=16, device="cpu",
+                         quantize="int8").predict(clips,
+                                                  return_probs=False)
+        padded = pq._pad_batch(clips, 16)
+        ms = {"f32": cuda_ms(lambda: p32._forward(padded), reps=20),
+              "int8": cuda_ms(lambda: pq._forward(padded), reps=20)}
+    scale = max(float(np.abs(v).max()) for v in want.values())
+    err = max(float(np.abs(got[h] - want[h]).max()) for h in want)
+    if counts or not err <= 1e-3 * scale:
+        raise AssertionError(f"quantized video_rnn: launches {counts}, cuda "
+                             f"vs cpu |dlogit| {err} > 1e-3 x {scale}")
+    log(f"quantized video_rnn int8 b16 on {card_line}: no kernel, weights "
+        f"flat; cuda vs cpu max |dlogit| {err:.3e} <= 1e-3 x {scale:.3e} "
+        f"ok; forward {ms['int8']:.3f} ms (f32 {ms['f32']:.3f}): the "
+        f"dequantization costs {ms['int8'] - ms['f32']:.3f} ms a forward")
+    log(json.dumps({"quantized": "video_rnn", "mode": "int8", "batch": 16,
+                    "launches": counts, "cuda_vs_cpu_max_abs_logit_err": err,
+                    "forward_ms": ms["int8"], "forward_ms_f32": ms["f32"]}))
+    return counts
+
+
+def _exported_counts(exported, clips, label, expect):
+    """One scored batch of an ExportedPredictor with the launch counts
+    reset just before and read just after; returns its logits."""
+    exported.predict(clips)
+    torch.cuda.synchronize()
+    kernels.launch_counts.clear()  # count this path only
+    logits = exported.predict(clips, return_probs=False)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)  # read just after the path
+    if counts != expect:
+        raise AssertionError(f"export {label}: a forward launched {counts}, "
+                             f"want {expect}")
+    return logits, counts
+
+
+def export_phase(card_line):
+    """(23) torch.export artifacts at full width: the tri-modal model (b8,
+    f32 and int8) and the flagship (b32, w8a8) exported on the card, and
+    the flagship (f32) exported on the CPU and loaded on the card (nothing
+    left on the CPU in its program); each held to the live Predictor
+    (atol 1e-6 exported on the card, 1e-3 of the largest logit from the
+    CPU), launching K1, K2 and K4 through the mar_torch:: ops; then both
+    served by name (`serve --exported flag=<dir>,tri=<dir>`) over HTTP.
+    The export time, the artifact bytes and the served forward ms."""
+    from multimodalaggressionrecognition_tpu_torch.io.export import (
+        ARTIFACT, ExportedPredictor, export_predictor, graph_ops)
+    from multimodalaggressionrecognition_tpu_torch.serve import Predictor
+
+    cases = [("tri_f32", "audio,text,video", TRIMODAL, 8, None, DEVICE),
+             ("tri_int8", "audio,text,video", TRIMODAL, 8, "int8", DEVICE),
+             ("flag_w8a8", "audio,text", FLAGSHIP, BATCH, "w8a8", DEVICE),
+             ("flag_f32_from_cpu", "audio,text", FLAGSHIP, BATCH, None,
+              "cpu")]
+    out, dirs = {}, {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_export_")
+    try:
+        for key, label, cfg, bs, mode, on in cases:
+            modalities = tuple(sorted(label.split(",")))
+            model = seeded_model(cfg, modalities)
+            batch = full_batch(cfg, modalities, bs, SEED + 32)
+            clips = {m: v["data"].numpy() for m, v in batch.items()}
+            example = {m: a[:1] for m, a in clips.items()}
+            live = Predictor(copy.deepcopy(model), batch_size=bs,
+                             device=DEVICE, quantize=mode)
+            source = live if on == DEVICE else Predictor(
+                copy.deepcopy(model), batch_size=bs, device="cpu",
+                quantize=mode)
+            dirs[key] = os.path.join(tmp, key)
+            t0 = time.monotonic()
+            export_predictor(source, example, dirs[key])
+            export_s = time.monotonic() - t0
+            size = os.path.getsize(os.path.join(dirs[key], ARTIFACT))
+            exported = ExportedPredictor(dirs[key], device=DEVICE)
+            ops = {o for o in graph_ops(exported.program)
+                   if o.startswith("mar_torch::")}
+            stray = sorted({str(n.kwargs["device"])
+                            for n in exported.program.graph.nodes
+                            if "device" in n.kwargs
+                            and torch.device(n.kwargs["device"]).type
+                            != torch.device(DEVICE).type})
+            if stray:
+                raise AssertionError(f"export {key}: nodes on {stray}")
+            expect = PER_FORWARD_LAUNCHES[label]
+            got, counts = _exported_counts(exported, clips, key, expect)
+            want = live.predict(clips, return_probs=False)
+            scale = max(float(np.abs(v).max()) for v in want.values())
+            err = max(float(np.abs(got[h] - want[h]).max()) for h in want)
+            limit = 1e-6 if on == DEVICE else 1e-3 * scale
+            if not err <= limit:
+                raise AssertionError(f"export {key}: artifact vs live "
+                                     f"|dlogit| {err} > {limit}")
+            padded = exported._pad_batch(clips, bs)
+            ms = cuda_ms(lambda: exported._forward(padded), reps=10)
+            live_ms = cuda_ms(lambda: live._forward(padded), reps=10)
+            log(f"export {key} ({label}, b{bs}, exported on {on}) on "
+                f"{card_line}: {export_s:.1f} s, {size} B, ops "
+                f"{sorted(ops)}, launches {counts} ok; artifact vs live "
+                f"max |dlogit| {err:.3e} <= {limit:.1e} ok; forward "
+                f"{ms:.3f} ms (live {live_ms:.3f})")
+            log(json.dumps({"export": key, "batch": bs, "quantize": mode,
+                            "exported_on": on, "export_s": export_s,
+                            "artifact_bytes": size, "launches": counts,
+                            "max_abs_logit_err": err, "forward_ms": ms,
+                            "live_forward_ms": live_ms}))
+            out[f"export_{key}"] = counts
+            del live, source, exported
+            torch.cuda.empty_cache()
+        out["serve_exported"] = serve_exported_phase(
+            dirs["flag_w8a8"], dirs["tri_int8"], card_line)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+PER_FORWARD_LAUNCHES = {label: per_forward
+                        for label, _, _, _, per_forward in QUANT_SLICES}
+
+
+def serve_exported_phase(flag_dir, tri_dir, card_line):
+    """cli.serve --exported flag=<dir>,tri=<dir>: /healthz lists both,
+    /score/<name> routes, /score is ambiguous (404); a request to each
+    launches its kernels once per forward (flagship K1 1; tri-modal K1 1,
+    K2 12, K4 4)."""
+    srv = build_server(ServeConfig(exported=f"flag={flag_dir},tri={tri_dir}",
+                                   device=DEVICE, port=0))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        health = _http(srv, "/healthz")
+        if sorted(health["models"]) != ["flag", "tri"]:
+            raise AssertionError(f"serve --exported: healthz {health}")
+        rng = np.random.default_rng(SEED + 33)
+        bodies = {
+            "flag": _npz({m: a[0] for m, a in request(
+                rng, FLAGSHIP, ("audio", "text"), 1).items()}),
+            "tri": _npz({m: a[0] for m, a in request(
+                rng, TRIMODAL, ("audio", "text", "video"), 1).items()})}
+        try:
+            _http(srv, "/score", bodies["flag"], "application/x-npz")
+            raise AssertionError("serve --exported: /score answered with "
+                                 "two models")
+        except urllib.error.HTTPError as e:
+            if e.code != 404:
+                raise
+        torch.cuda.synchronize()
+        kernels.launch_counts.clear()  # count this path only
+        t0 = time.monotonic()
+        for name, body in bodies.items():
+            _check_scores(_http(srv, f"/score/{name}", body,
+                                "application/x-npz"), 1)
+        host_ms = (time.monotonic() - t0) * 1e3
+        torch.cuda.synchronize()
+        counts = dict(kernels.launch_counts)  # read just after the path
+        stats = _http(srv, "/statz")
+        expect = dict(PER_FORWARD_LAUNCHES["audio,text,video"])
+        expect["framed_conv1d"] += 1  # the flagship's forward
+        if counts != expect or any(stats[n]["dispatches"] != 1
+                                   for n in ("flag", "tri")):
+            raise AssertionError(f"serve --exported: launches {counts}, "
+                                 f"want {expect}; statz {stats}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        for ep in srv.endpoints.values():
+            ep.batcher.close()
+        thread.join(timeout=60)
+    log(f"serve --exported flag,tri on {card_line}: /score/flag and "
+        f"/score/tri routed, /score 404, launches {counts} ok; two requests "
+        f"{host_ms:.1f} ms on the host clock")
+    log(json.dumps({"serve_exported": ["flag", "tri"], "launches": counts,
+                    "host_ms_two_requests": host_ms}))
+    return counts
+
+
+def exported_scoring_phase(run_dir, tmp, card_line):
+    """(23, continued) run (3)'s checkpoint_best_phys exported on the card
+    (cli.export_model --from_run, b8), then cli.predict --exported on
+    predict_phase's 8 raw clips and cli.evaluate --exported on the run's
+    test split: the same probabilities (to the printed 4 places) and
+    metrics as the same CLIs on the checkpoint; K1 1, K2 12 and K4 4 per
+    scored batch (the artifact runs every tower, a missing modality as
+    zeros with present=0)."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        evaluate, export_model, predict)
+
+    ckpt = os.path.join(run_dir, "checkpoint_best_phys")
+    art = os.path.join(tmp, "exported_best_phys")
+    meta, _, export_s, _ = counted(lambda: export_model.main(
+        ["--from_run", run_dir, "--path_to_checkpoint", ckpt,
+         "--batch_size", "8", "--output_dir", art, "--device", DEVICE]))
+    per = PER_FORWARD_LAUNCHES["audio,text,video"]
+    files = ["--device", DEVICE]
+    for m in ("audio", "text", "video"):
+        files += [f"--{m}", os.path.join(tmp, f"predict_{m}")]
+    rows = {}
+    _, counts, pred_s, text = counted(lambda: predict.main(
+        files + ["--exported", art]))
+    rows["exported"] = [json.loads(line) for line in text.splitlines()]
+    _, _, _, text = counted(lambda: predict.main(
+        files + ["--from_run", run_dir, "--path_to_checkpoint", ckpt,
+                 "--modalities", "audio,text,video", "--batch_size", "8"]))
+    rows["checkpoint"] = [json.loads(line) for line in text.splitlines()]
+    if counts != per or len(rows["exported"]) != PREDICT_CLIPS:
+        raise AssertionError(f"predict --exported: launched {counts}, want "
+                             f"{per}; rows {rows['exported']}")
+    worst = max(abs(g[k] - w[k]) for g, w in zip(*rows.values())
+                for k in ("phys_prob_aggr", "verb_prob_aggr"))
+    if worst > 1e-4:
+        raise AssertionError(f"predict --exported: {rows}")
+    args = ["--from_run", run_dir, "--saving_dir",
+            os.path.join(run_dir, "evaluate_exported"), "--num_threads", "4",
+            "--device", DEVICE]
+    got, ev_counts, eval_s, _ = counted(lambda: evaluate.main(
+        args + ["--exported", art]))
+    want, _, _, _ = counted(lambda: evaluate.main(
+        args + ["--path_to_checkpoint", ckpt]))
+    n_batches = ev_counts.get("framed_conv1d", 0)
+    if not n_batches or ev_counts != {k: v * n_batches
+                                      for k, v in per.items()}:
+        raise AssertionError(f"evaluate --exported: launched {ev_counts}")
+    for head in want:
+        for metric in EVAL_METRICS:
+            if got[head][metric] != want[head][metric]:
+                raise AssertionError(
+                    f"evaluate --exported: {head} {metric} "
+                    f"{got[head][metric]} vs the checkpoint's "
+                    f"{want[head][metric]}")
+    log(f"exported scoring on {card_line}: export_model --from_run "
+        f"{export_s:.1f} s; predict --exported {PREDICT_CLIPS} clips, "
+        f"launches {counts}, probabilities within {worst:.1e} of the "
+        f"checkpoint's ({pred_s:.2f} s host); evaluate --exported "
+        f"{n_batches} batches, launches {ev_counts}, metrics equal to the "
+        f"checkpoint's ({eval_s:.2f} s host)")
+    log(json.dumps({"exported_scoring": "audio,text,video",
+                    "export_s": export_s, "predict_launches": counts,
+                    "evaluate_launches": ev_counts,
+                    "max_prob_err": worst, "predict_host_s": pred_s,
+                    "evaluate_host_s": eval_s,
+                    "metrics": {h: {k: got[h][k] for k in EVAL_METRICS}
+                                for h in got}, "meta": meta}))
+    return {"predict_exported": counts, "evaluate_exported": ev_counts}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -3432,6 +3906,8 @@ def main():
                                  card_line)
                 for label, cfg, bs, parity_n, per_forward in SLICES}
     launches["serve_bf16"] = serve_bf16_phase(card_line)
+    launches.update(quantized_phase(card_line))
+    launches.update(export_phase(card_line))
     main_path = "train"  # the tri-modal fine-tune runs every kernel
     launches[main_path], scored = train_phase(card_line)
     launches.update(scored)

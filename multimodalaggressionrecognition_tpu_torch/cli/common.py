@@ -237,6 +237,17 @@ def compute_dtype(cfg):
     return None if dtype == torch.float32 else dtype
 
 
+def quantize_mode(cfg):
+    """--quantize as the mode serve.Predictor takes: None for '', else
+    'int8' or 'w8a8'; any other name exits."""
+    from ..utils.quantize import MODES
+
+    if cfg.quantize and cfg.quantize not in MODES:
+        raise SystemExit(f"--quantize: unknown quantize mode "
+                         f"{cfg.quantize!r}; one of {MODES}")
+    return cfg.quantize or None
+
+
 def require_float32(cfg, runs: str):
     """--compute_dtype other than float32 raises, for the entries that `run`
     (train, extract) in f32 only: bf16 on their norms and cuDNN RNNs needs

@@ -13,7 +13,13 @@ Runs on CUDA unless --device cpu.
 The phys head's focal loss takes its default gamma (2.0), not
 --focal_gamma, as the JAX CLI does: under --from_run of a run trained at
 another gamma the printed phys loss differs from the training log's, the
-metrics do not.  `--exported` (a serving artifact) is not ported.
+metrics do not.
+
+`--exported <dir>` evaluates an artifact of cli/export_model.py instead
+(no model class or checkpoint load): a batch missing one of the artifact's
+modalities is scored with zero stubs and present=0 rows, which the model
+treats as the training-time EMPTY protocol.  It prints the same metrics
+without the loss (the artifact gives logits only).
 """
 
 import json
@@ -26,7 +32,7 @@ from .train_multimodal import MultimodalConfig, build_model, make_loaders
 @dataclass
 class EvalConfig(MultimodalConfig):
     path_to_checkpoint: str = ""
-    exported: str = ""  # a serving artifact: not ported
+    exported: str = ""  # an artifact dir of cli/export_model.py
 
 
 def _print_results(results):
@@ -37,6 +43,76 @@ def _print_results(results):
                for k, v in m.items()}
         for head, m in results.items()}
     print(json.dumps(printable, indent=2))
+
+
+def _eval_exported(cfg):
+    """Score the test split through an exported artifact: the Trainer eval
+    path's per-head confusion-matrix metrics, without a loss column."""
+    import numpy as np
+    import torch
+
+    from ..io.export import ExportedPredictor
+    from ..ops.metrics import confusion_matrix, metrics_from_confusion
+    from ..serve import resolve_device
+
+    if cfg.path_to_checkpoint:
+        raise SystemExit(
+            "--exported conflicts with --path_to_checkpoint: the artifact's "
+            "weights were baked in at export time")
+    exported = ExportedPredictor(cfg.exported,
+                                 device=resolve_device(cfg.device))
+    # the artifact fixes the batch and clip shapes: the loader pads to them
+    cfg.batch_size = exported.batch_size
+    cfg.modalities = ",".join(exported.modalities)
+    shapes = exported.clip_shapes
+    if "audio" in shapes:
+        cfg.audio_samples = shapes["audio"][0]
+    if "text" in shapes:
+        cfg.text_tokens = shapes["text"][0]
+    if "video" in shapes:
+        # the loader pads the frame axis only; the frames' size comes from
+        # the stored clips and is checked against the artifact per batch
+        cfg.video_frames = shapes["video"][0]
+    df, split = ensure_dataset(cfg)
+    _, test_loader = make_loaders(cfg, df, split, tuple(exported.modalities))
+    device = exported.device
+    zeros = {m: {"data": torch.zeros((exported.batch_size, *shapes[m]),
+                                     device=device),
+                 "present": torch.zeros((exported.batch_size,),
+                                        device=device)}
+             for m in exported.modalities}
+    acc = {}
+    for batch in test_loader:
+        request = {}
+        for m in exported.modalities:
+            if m not in batch["modalities"]:
+                request[m] = zeros[m]
+                continue
+            leaf = {k: torch.as_tensor(v).to(device)
+                    for k, v in batch["modalities"][m].items()
+                    if k in ("data", "present")}
+            got = tuple(leaf["data"].shape[1:])
+            if got != shapes[m]:
+                raise SystemExit(
+                    f"dataset {m} clips are shaped {got} but the artifact "
+                    f"was exported for {shapes[m]}; re-export at the "
+                    "dataset's shapes (or re-prepare the dataset)")
+            request[m] = leaf
+        outputs = exported._forward(request)
+        for head, logits in outputs.items():
+            if head not in batch["labels"]:
+                continue
+            cm = confusion_matrix(
+                logits.float().argmax(dim=-1),
+                torch.as_tensor(batch["labels"][head]).to(device),
+                exported.head_classes[head],
+                row_mask=torch.as_tensor(batch["label_mask"][head]).to(
+                    device))
+            acc[head] = acc.get(head, 0.0) + cm  # summed on the device
+    results = {head: metrics_from_confusion(np.asarray(cm.cpu()))
+               for head, cm in acc.items()}
+    _print_results(results)
+    return results
 
 
 def main(argv=None):
@@ -50,9 +126,7 @@ def main(argv=None):
 
     cfg = parse_config(EvalConfig, argv)
     if cfg.exported:
-        raise SystemExit("--exported is not ported: the PyTorch package has "
-                         "no serving artifact yet (ROADMAP.md, queue 1 item "
-                         "9); evaluate a checkpoint with --path_to_checkpoint")
+        return _eval_exported(cfg)
     dtype = compute_dtype(cfg)
     device = resolve_device(cfg.device)  # fail before any data or model work
     modalities = tuple(cfg.modalities.split(","))

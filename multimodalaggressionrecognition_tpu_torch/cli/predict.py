@@ -13,8 +13,11 @@ embeddings, and .mp4/.npy/.pt video clips (host decode + spatial resize +
 frame pad; pass --modalities audio,text,video so the model has the video
 tower); missing modalities follow the EMPTY protocol (zero stubs).  Prints
 one JSON line per clip.  Runs on CUDA unless --device cpu, in f32 or with
---compute_dtype bfloat16.  Not ported: `--exported` (a serving artifact,
-with its feature-sequence video input) and `--quantize`.
+--compute_dtype bfloat16, and with --quantize int8|w8a8 on int8 weights.
+`--exported <dir>` scores an artifact of cli/export_model.py instead (no
+model class or checkpoint load; clip shapes from its meta): files for every
+exported modality are required, and a feature-sequence artifact (`--entry
+train_video_rnn`) takes (T, D) video features as .npy/.pt.
 """
 
 import json
@@ -23,19 +26,19 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from .common import compute_dtype, parse_config
+from .common import compute_dtype, parse_config, quantize_mode
 from .train_multimodal import MultimodalConfig, build_model
 
 
 @dataclass
 class PredictConfig(MultimodalConfig):
     path_to_checkpoint: str = ""
-    exported: str = ""  # a serving artifact: not ported
+    exported: str = ""  # an artifact dir of cli/export_model.py
     audio: str = ""     # file or directory of .wav/.pt
     text: str = ""      # file or directory of .npy
     video: str = ""     # file or directory of .mp4/.npy/.pt
     batch_size: int = 8
-    quantize: str = ""  # int8 / w8a8: not ported
+    quantize: str = ""  # '', 'int8' (weight-only), 'w8a8'
 
 
 def _gather(path, exts):
@@ -87,15 +90,25 @@ def _load_video(path, target_frames, target_size):
     return pad_video(target_frames)(x)
 
 
-def _refuse_unported(cfg):
-    if cfg.exported:
-        raise SystemExit("--exported is not ported: the PyTorch package has "
-                         "no serving artifact yet (ROADMAP.md, queue 1 item "
-                         "9); score a checkpoint with --path_to_checkpoint")
-    if cfg.quantize:
-        raise SystemExit(f"--quantize {cfg.quantize} is not ported: the port "
-                         "scores in float32; int8 arrives with the export "
-                         "work (ROADMAP.md, queue 1 item 9)")
+def _load_video_features(path, target_frames, feat_dim):
+    """(T, D) precomputed video features, frame-padded or truncated to the
+    artifact's sequence length: the input of a feature-sequence artifact
+    (export_model --entry train_video_rnn)."""
+    from ..data.files import _load_pt
+    from ..data.transforms import pad_text
+
+    if not path.endswith((".npy", ".pt")):
+        raise SystemExit(
+            f"{path}: this artifact takes (T, {feat_dim}) video feature "
+            "sequences as .npy/.pt (precomputed extractor output), not raw "
+            "video files")
+    x = np.load(path) if path.endswith(".npy") else _load_pt(path)
+    x = np.asarray(x, np.float32)
+    if x.ndim != 2 or x.shape[1] != feat_dim:
+        raise SystemExit(
+            f"{path}: this artifact takes (T, {feat_dim}) video feature "
+            f"sequences (precomputed extractor output), got shape {x.shape}")
+    return pad_text(target_frames)(x)
 
 
 def main(argv=None):
@@ -105,9 +118,31 @@ def main(argv=None):
     from ..serve import Predictor, resolve_device
 
     cfg = parse_config(PredictConfig, argv)
-    _refuse_unported(cfg)
     device = resolve_device(cfg.device)  # fail before any data or model work
     dtype = compute_dtype(cfg)
+    quantize = quantize_mode(cfg)
+
+    exported = None
+    audio_len, text_tokens = cfg.audio_samples, cfg.text_tokens
+    video_frames, video_size = cfg.video_frames, cfg.video_size
+    video_feat_dim = None  # set for (T, D) feature-sequence artifacts
+    if cfg.exported:
+        from ..io.export import ExportedPredictor
+
+        if cfg.path_to_checkpoint or cfg.quantize:
+            raise SystemExit(
+                "--exported conflicts with --path_to_checkpoint/--quantize: "
+                "the artifact's weights (and any int8 quantization) were "
+                "baked in at export time; re-export to change them")
+        exported = ExportedPredictor(cfg.exported, device=device)
+        # pad/truncate to the artifact's clip shapes, not the flags
+        audio_len = exported.clip_shapes.get("audio", (audio_len,))[0]
+        text_tokens = exported.clip_shapes.get("text", (text_tokens,))[0]
+        vshape = exported.clip_shapes.get("video")
+        if vshape is not None and len(vshape) == 2:
+            video_frames, video_feat_dim = vshape
+        elif vshape is not None:
+            video_frames, video_size = vshape[0], vshape[1]
 
     files = {"audio": _gather(cfg.audio, {".wav", ".pt"}),
              "text": _gather(cfg.text, {".npy"}),
@@ -122,33 +157,46 @@ def main(argv=None):
         raise SystemExit(
             f"modalities disagree on file counts: {counts}; paired scoring "
             "needs matching counts (score one modality at a time otherwise)")
-    configured = set(cfg.modalities.split(","))
-    extra = set(files) - configured
-    if extra:
+    if exported is None:
+        configured = set(cfg.modalities.split(","))
+        extra = set(files) - configured
+        if extra:
+            raise SystemExit(
+                f"files given for {sorted(extra)} but --modalities is "
+                f"{cfg.modalities!r}; pass --modalities "
+                f"{','.join(sorted(configured | extra))} so the model has "
+                "those towers")
+    elif sorted(files) != exported.modalities:
         raise SystemExit(
-            f"files given for {sorted(extra)} but --modalities is "
-            f"{cfg.modalities!r}; pass --modalities "
-            f"{','.join(sorted(configured | extra))} so the model has "
-            "those towers")
+            f"artifact {cfg.exported!r} has the fixed input signature "
+            f"{exported.modalities}; got files for {sorted(files)}: supply "
+            "every exported modality, or export a single-modality artifact")
 
     loaders = {
-        "audio": lambda p: _load_audio(p, 16000, cfg.audio_samples),
-        "text": lambda p: pad_text(cfg.text_tokens)(
+        "audio": lambda p: _load_audio(p, 16000, audio_len),
+        "text": lambda p: pad_text(text_tokens)(
             np.load(p).astype(np.float32)),
-        "video": lambda p: _load_video(p, cfg.video_frames, cfg.video_size),
+        "video": ((lambda p: _load_video_features(p, video_frames,
+                                                  video_feat_dim))
+                  if video_feat_dim is not None else
+                  (lambda p: _load_video(p, video_frames, video_size))),
     }
     request = {m: np.stack([loaders[m](p) for p in fs])
                for m, fs in files.items()}
 
-    model = seeded_init_(build_model(cfg, tuple(cfg.modalities.split(","))),
-                         cfg.seed)
-    state_dict = None
-    if cfg.path_to_checkpoint:
-        # the weights of a training or an inference checkpoint
-        state_dict, _ = restore_variables(cfg.path_to_checkpoint)
-    predictor = Predictor(model, state_dict,
-                          batch_size=min(cfg.batch_size, max(n, 1)),
-                          device=device, compute_dtype=dtype)
+    if exported is not None:
+        predictor = exported
+    else:
+        model = seeded_init_(
+            build_model(cfg, tuple(cfg.modalities.split(","))), cfg.seed)
+        state_dict = None
+        if cfg.path_to_checkpoint:
+            # the weights of a training or an inference checkpoint
+            state_dict, _ = restore_variables(cfg.path_to_checkpoint)
+        predictor = Predictor(model, state_dict,
+                              batch_size=min(cfg.batch_size, max(n, 1)),
+                              device=device, compute_dtype=dtype,
+                              quantize=quantize)
     names = [os.path.basename(p) for p in next(iter(files.values()))]
     for start in range(0, n, predictor.batch_size):
         chunk = {k: v[start:start + predictor.batch_size]

@@ -3,27 +3,32 @@
 One process loads a checkpoint (or seeded random weights for smoke tests),
 warms a fixed-batch `serve.Predictor` on the GPU and scores concurrent HTTP
 requests through a `serve.MicroBatcher`: whatever arrives within
---max_delay_ms is coalesced into ONE padded forward.
+--max_delay_ms is coalesced into ONE padded forward.  `--quantize int8|w8a8`
+serves int8 weights (utils/quantize.py).  `--exported` serves artifacts of
+cli/export_model.py instead, with no model class or checkpoint load:
+`--exported <dir>` one model at POST /score, `--exported a=<dir1>,b=<dir2>`
+co-resident models at POST /score/a and /score/b.
 
   python -m multimodalaggressionrecognition_tpu_torch.cli.serve \
       --path_to_checkpoint model.pt --modalities audio,text,video --port 8000
 
 Protocol:
-  GET  /healthz -> {"ok": true, "models": {"model": {modalities, heads,
-                    batch_size}}, + the same fields flat}
-  GET  /statz   -> {"model": requests, clips, dispatches, coalescing factor
-                    (clips/dispatches), recent-latency p50/p99}
+  GET  /healthz -> {"ok": true, "models": {name: {modalities, heads,
+                    batch_size}}} (+ the same fields flat with one model)
+  GET  /statz   -> per model: requests, clips, dispatches, coalescing
+                    factor (clips/dispatches), recent-latency p50/p99
   POST /score   -> {"phys": [[p_neg, p_aggr], ...], "verb": ...}
+  POST /score/<name> -> the same, from one of several co-resident models
       Body is JSON ({"audio": clip-or-batch, "text": ...}) or an np.savez
       archive with Content-Type application/x-npz.  A clip is audio (L,),
-      text (T, H) or video (T, S, S, 3) frames at the model's --video_size;
-      a leading batch dim is accepted, and variable lengths (samples,
-      tokens, frames) are padded/truncated to the model's sizes.  Every
-      request carries the server's full modality set; batches larger than
-      --batch_size are chunked across micro-batch groups.
+      text (T, H) or video (T, S, S, 3) frames at the model's --video_size
+      (a feature-sequence artifact's video is (T, D)); a leading batch dim
+      is accepted, and variable lengths (samples, tokens, frames) are
+      padded/truncated to the model's sizes.  Every request carries the
+      model's full modality set; batches larger than its batch size are
+      chunked across micro-batch groups.
 
-Runs on CUDA unless --device cpu; serving pre-exported artifacts
-(--exported) is not ported yet.
+Runs on CUDA unless --device cpu.
 """
 
 import io
@@ -43,10 +48,16 @@ from .train_multimodal import MultimodalConfig, build_model
 @dataclass
 class ServeConfig(MultimodalConfig):
     path_to_checkpoint: str = ""
+    # serve export_model artifacts instead of a model from config +
+    # checkpoint; every shape comes from the artifact's meta:
+    #   --exported <dir>               one model at POST /score
+    #   --exported a=<dir1>,b=<dir2>   co-resident models, /score/<name>
+    exported: str = ""
     host: str = "127.0.0.1"
     port: int = 8000
     batch_size: int = 32
     max_delay_ms: float = 2.0   # micro-batch coalescing window
+    quantize: str = ""          # '', 'int8' (weight-only), 'w8a8'
     device: str = "cuda"
     # explicit opt-in for serving untrained weights (smoke tests only);
     # without it a missing --path_to_checkpoint is an error, never a
@@ -56,8 +67,9 @@ class ServeConfig(MultimodalConfig):
 
 @dataclass
 class _Endpoint:
-    """The served model: its batcher plus everything the handler needs."""
+    """One served model: its batcher plus everything the handler needs."""
 
+    name: str
     predictor: object
     batcher: object
     modalities: set
@@ -123,20 +135,42 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def _endpoint(self):
+        """/score (the sole model) or /score/<name> -> its endpoint."""
+        endpoints = self.server.endpoints
+        if self.path == "/score":
+            if len(endpoints) == 1:
+                return next(iter(endpoints.values()))
+            raise LookupError(
+                f"this server hosts multiple models {sorted(endpoints)}; "
+                "POST /score/<name>")
+        if self.path.startswith("/score/"):
+            name = self.path[len("/score/"):]
+            if name in endpoints:
+                return endpoints[name]
+            raise LookupError(
+                f"unknown model {name!r}; served: {sorted(endpoints)}")
+        raise LookupError(f"unknown path {self.path!r}")
+
     def do_GET(self):
-        ep = self.server.endpoint
+        endpoints = self.server.endpoints
         if self.path == "/healthz":
-            self._reply(200, {"ok": True, "models": {"model": ep.info()},
-                              **ep.info()})
+            payload = {"ok": True, "models": {name: ep.info() for name, ep
+                                              in endpoints.items()}}
+            if len(endpoints) == 1:  # one model keeps the flat fields
+                payload.update(next(iter(endpoints.values())).info())
+            self._reply(200, payload)
         elif self.path == "/statz":
-            self._reply(200, {"model": ep.stats()})
+            self._reply(200, {name: ep.stats()
+                              for name, ep in endpoints.items()})
         else:
             self._reply(404, {"error": f"unknown path {self.path!r}"})
 
     def do_POST(self):
-        ep = self.server.endpoint
-        if self.path != "/score":
-            return self._reply(404, {"error": f"unknown path {self.path!r}"})
+        try:
+            ep = self._endpoint()
+        except LookupError as e:
+            return self._reply(404, {"error": str(e)})
         try:
             raw = self.rfile.read(int(self.headers.get("Content-Length", 0)))
             if self.headers.get("Content-Type", "").startswith(
@@ -175,18 +209,91 @@ class _Handler(BaseHTTPRequestHandler):
             self._reply(500, {"error": str(e)})
 
 
+def _exported_entries(cfg) -> dict:
+    """--exported -> {name: artifact dir}: one unnamed dir is "model";
+    several must all be named, each name once."""
+    if cfg.path_to_checkpoint or cfg.quantize:
+        raise SystemExit(
+            "--exported conflicts with --path_to_checkpoint/--quantize: the "
+            "artifact's weights (and any int8 quantization) were baked in "
+            "at export time; re-export to change them")
+    entries = [e for e in cfg.exported.split(",") if e]
+    if not any("=" in e for e in entries):
+        if len(entries) != 1:
+            raise SystemExit(
+                "--exported: multiple artifacts need names (a=dir1,b=dir2)")
+        return {"model": entries[0]}
+    if not all("=" in e for e in entries):
+        raise SystemExit("--exported: mixing named (name=dir) and unnamed "
+                         "entries is ambiguous; name all of them")
+    pairs = [e.split("=", 1) for e in entries]
+    names = [n for n, _ in pairs]
+    dupes = sorted({n for n in names if names.count(n) > 1})
+    if dupes:
+        # a duplicate name would serve only the last artifact while the
+        # operator believes both are live
+        raise SystemExit(f"--exported: duplicate model names {dupes}; each "
+                         "name maps to one artifact")
+    return dict(pairs)
+
+
 def build_server(cfg: ServeConfig, state_dict=None) -> ThreadingHTTPServer:
     """Construct the HTTP server (not yet serving): builds the model, loads
     its weights, warms the Predictor on `cfg.device` and starts the
-    MicroBatcher.  Pass `state_dict` to skip checkpoint restore (tests)."""
+    MicroBatcher; or, with --exported, loads and warms each artifact.
+    Pass `state_dict` to skip checkpoint restore (tests)."""
     from ..data.transforms import pad_audio, pad_text, pad_video
-    from ..io.checkpoint import restore_variables
-    from ..models.layers import seeded_init_
-    from ..serve import MicroBatcher, Predictor, resolve_device
-    from .common import clip_shapes_from_config, compute_dtype
+    from ..serve import MicroBatcher, resolve_device
 
     device = resolve_device(cfg.device)  # fail before any model work
-    dtype = compute_dtype(cfg)
+    pad_builders = {"audio": pad_audio, "text": pad_text, "video": pad_video}
+
+    def endpoint(name, predictor, shapes):
+        # pad/truncate each modality to its clip length (the leading dim of
+        # its clip shape) and validate clips by the shapes' ndims, so a
+        # feature-sequence artifact's (T, D) "video" works too
+        return _Endpoint(
+            name=name, predictor=predictor,
+            batcher=MicroBatcher(predictor, max_delay_ms=cfg.max_delay_ms),
+            modalities=set(shapes),
+            pads={m: pad_builders[m](shapes[m][0]) for m in shapes},
+            ndims={m: len(shapes[m]) for m in shapes},
+            batch_size=predictor.batch_size, heads=predictor.heads)
+
+    endpoints = {}
+    if cfg.exported:
+        from ..io.export import ExportedPredictor
+
+        for name, path in _exported_entries(cfg).items():
+            pred = ExportedPredictor(path, device=device).warmup()
+            endpoints[name] = endpoint(name, pred, pred.clip_shapes)
+    else:
+        endpoints["model"] = endpoint(
+            "model", *_live_predictor(cfg, device, state_dict))
+
+    server = ThreadingHTTPServer((cfg.host, cfg.port), _Handler)
+    # NON-daemon handler threads: server_close() joins only non-daemon
+    # handlers, and the drain contract needs that join; server_close() runs
+    # BEFORE the batchers close (see main), so in-flight handlers can still
+    # submit() and their futures resolve
+    server.daemon_threads = False
+    server.endpoints = endpoints
+    if len(endpoints) == 1:  # flat aliases for the one-model case
+        ep = next(iter(endpoints.values()))
+        server.endpoint = ep
+        server.predictor = ep.predictor
+        server.batcher = ep.batcher
+    return server
+
+
+def _live_predictor(cfg, device, state_dict):
+    """(the warmed Predictor of the config's model, its clip shapes)."""
+    from ..io.checkpoint import restore_variables
+    from ..models.layers import seeded_init_
+    from ..serve import Predictor
+    from .common import clip_shapes_from_config, compute_dtype, quantize_mode
+
+    dtype, quantize = compute_dtype(cfg), quantize_mode(cfg)
     modalities = tuple(sorted(cfg.modalities.split(",")))
     model = build_model(cfg, modalities)
     if state_dict is None:
@@ -200,31 +307,13 @@ def build_server(cfg: ServeConfig, state_dict=None) -> ThreadingHTTPServer:
                 "initialized weights produces garbage scores behind a "
                 "healthy-looking endpoint (pass --allow_random_weights "
                 "true for smoke tests)")
-
     shapes = clip_shapes_from_config(cfg, modalities)
     predictor = Predictor(model, state_dict, batch_size=cfg.batch_size,
-                          device=device, compute_dtype=dtype)
+                          device=device, compute_dtype=dtype,
+                          quantize=quantize)
     predictor.warmup({m: np.zeros((1,) + shapes[m], np.float32)
                       for m in modalities})
-    pad_builders = {"audio": pad_audio, "text": pad_text, "video": pad_video}
-    endpoint = _Endpoint(
-        predictor=predictor,
-        batcher=MicroBatcher(predictor, max_delay_ms=cfg.max_delay_ms),
-        modalities=set(shapes),
-        pads={m: pad_builders[m](shapes[m][0]) for m in shapes},
-        ndims={m: len(shapes[m]) for m in shapes},
-        batch_size=cfg.batch_size, heads=predictor.heads)
-
-    server = ThreadingHTTPServer((cfg.host, cfg.port), _Handler)
-    # NON-daemon handler threads: server_close() joins only non-daemon
-    # handlers, and the drain contract needs that join; server_close() runs
-    # BEFORE the batcher closes (see main), so in-flight handlers can still
-    # submit() and their futures resolve
-    server.daemon_threads = False
-    server.endpoint = endpoint
-    server.predictor = predictor
-    server.batcher = endpoint.batcher
-    return server
+    return predictor, shapes
 
 
 def main(argv=None):
@@ -234,7 +323,8 @@ def main(argv=None):
     server = build_server(cfg)
     host, port = server.server_address[:2]
     print(json.dumps({"serving": f"http://{host}:{port}",
-                      "models": {"model": server.endpoint.info()}}),
+                      "models": {name: ep.info() for name, ep
+                                 in server.endpoints.items()}}),
           flush=True)
 
     # graceful drain on SIGTERM: stop accepting, finish in-flight scoring,
@@ -252,9 +342,10 @@ def main(argv=None):
     except KeyboardInterrupt:
         pass
     finally:
-        # join in-flight handler threads FIRST, then drain the batcher
+        # join in-flight handler threads FIRST, then drain every batcher
         server.server_close()
-        server.batcher.close()
+        for ep in server.endpoints.values():
+            ep.batcher.close()
 
 
 if __name__ == "__main__":

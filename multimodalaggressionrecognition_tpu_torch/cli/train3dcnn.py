@@ -101,5 +101,12 @@ def main(argv=None):
     return run_training(cfg, trainer)
 
 
+def export_spec(cfg):
+    """Per-modality clip shapes for export (cli/export_model.py).  The
+    exported forward scores raw clips without bbox masks (the mask input
+    is optional in R3DWithBboxes; serving requests carry none)."""
+    return {"video": (cfg.frame_num, cfg.video_size, cfg.video_size, 3)}
+
+
 if __name__ == "__main__":
     main()

@@ -127,5 +127,11 @@ def main(argv=None):
     return run_training(cfg, trainer)
 
 
+def export_spec(cfg):
+    """Per-modality clip shapes for export (cli/export_model.py)."""
+    return {"audio": (cfg.audio_samples,),
+            "text": (cfg.text_tokens, cfg.hidden_size)}
+
+
 if __name__ == "__main__":
     main()

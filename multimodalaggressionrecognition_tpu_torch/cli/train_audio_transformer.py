@@ -151,5 +151,10 @@ def main(argv=None):
     return run_training(cfg, trainer)
 
 
+def export_spec(cfg):
+    """Per-modality clip shapes for export (cli/export_model.py)."""
+    return {"audio": (cfg.sample_rate * cfg.audio_seconds,)}
+
+
 if __name__ == "__main__":
     main()

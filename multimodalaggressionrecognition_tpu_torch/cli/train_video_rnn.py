@@ -29,6 +29,8 @@ class VideoRnnConfig(NamesPinConfig):
     files_root: str = ""           # dir with train[/epoch]/ and test/ .npy
     hidden_size: int = 512
     feature_dim: int = 512
+    sequence_len: int = 19         # feature tokens per clip (export only;
+                                   # 304 frames / 16-frame windows)
     epoch_dirs: bool = False       # advance train/<epoch>/ each epoch
     synthetic_features: bool = False
 
@@ -97,6 +99,13 @@ def main(argv=None):
                             train_loader, test_loader,
                             on_epoch_start=on_epoch_start)
     return run_training(cfg, trainer)
+
+
+def export_spec(cfg):
+    """Per-modality clip shapes for export (cli/export_model.py): the
+    precomputed feature sequences are (sequence_len, feature_dim), 19
+    tokens for the reference's 304 frames in 16-frame windows."""
+    return {"video": (cfg.sequence_len, cfg.feature_dim)}
 
 
 if __name__ == "__main__":

@@ -122,5 +122,10 @@ def main(argv=None):
     return run_training(cfg, trainer)
 
 
+def export_spec(cfg):
+    """Per-modality clip shapes for export (cli/export_model.py)."""
+    return {"video": (cfg.video_frames, cfg.video_size, cfg.video_size, 3)}
+
+
 if __name__ == "__main__":
     main()

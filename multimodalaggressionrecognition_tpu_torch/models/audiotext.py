@@ -11,6 +11,7 @@ path and is not ported (ROADMAP.md, queue 1 item 9).
 import torch
 from torch import nn
 
+from .layers import Linear
 from .stochastic import Dropout
 
 
@@ -23,9 +24,9 @@ class AudioTextualModel(nn.Module):
         super().__init__()
         self.audio_extractor = audio_extractor
         self.text_extractor = text_extractor
-        self.fusion_fc = nn.Linear(2 * hidden_size, hidden_size)
-        self.cls_fc1 = nn.Linear(hidden_size, 256)
-        self.cls_fc2 = nn.Linear(256, class_num)
+        self.fusion_fc = Linear(2 * hidden_size, hidden_size)
+        self.cls_fc1 = Linear(hidden_size, 256)
+        self.cls_fc2 = Linear(256, class_num)
         self.dropout = Dropout(dropout)
 
     def forward(self, modalities):

@@ -11,12 +11,16 @@ In eval mode each BatchNorm is folded into its conv's epilogue; on the stem
 that puts Conv + BN + ReLU into one launch of the framed-conv kernel (or,
 where a gradient is needed, the kernel with the bias only and the folded
 affine as torch ops).  In train mode each BatchNorm uses batch statistics
-after its conv.
+after its conv.  `CNN1DExtractor(folded=True)` is the inference-only
+variant without BatchNorm modules, for weights folded once by
+utils/fold_bn.fold_cnn1d_variables; its stem runs the kernel with the
+ReLU and no scale or shift.
 """
 
 import torch
 from torch import nn
 
+from .layers import Linear
 from .nn1d import BatchNorm1d, Conv1d, Dropout1d, SampleDropout, max_pool1d
 from .stochastic import Dropout
 
@@ -31,29 +35,36 @@ _CNN1D_BLOCKS = (
 
 
 class CNN1DExtractor(nn.Module):
-    """Conv trunk: (B, L) or (B, L, 1) waveform -> (B, T', 512) features."""
+    """Conv trunk: (B, L) or (B, L, 1) waveform -> (B, T', 512) features.
+    `folded=True`: no BatchNorm modules (inference only)."""
 
-    def __init__(self, dropout: float = 0.1):
+    def __init__(self, dropout: float = 0.1, folded: bool = False):
         super().__init__()
+        self.folded = folded
         idx, c_in = 0, 1
         for block_i, block in enumerate(_CNN1D_BLOCKS):
             for feats, k, s, p in block:
                 self.add_module(f"conv{idx}", Conv1d(c_in, feats, k, s, p))
-                self.add_module(f"bn{idx}", BatchNorm1d(feats))
+                if not folded:
+                    self.add_module(f"bn{idx}", BatchNorm1d(feats))
                 idx, c_in = idx + 1, feats
             self.add_module(f"drop{block_i}", Dropout1d(dropout))
 
     def forward(self, x):
+        if self.folded and self.training:
+            raise ValueError("folded=True is an inference-only variant")
         if x.dim() == 2:
             x = x[..., None]
         idx = 0
         for block_i, block in enumerate(_CNN1D_BLOCKS):
             for _ in block:
                 conv = getattr(self, f"conv{idx}")
-                bn = getattr(self, f"bn{idx}")
-                if self.training:
-                    x = torch.relu(bn(conv(x)))
+                if self.folded:
+                    x = conv(x, relu=True)
+                elif self.training:
+                    x = torch.relu(getattr(self, f"bn{idx}")(conv(x)))
                 else:
+                    bn = getattr(self, f"bn{idx}")
                     x = conv(x, *bn.folded_scale_shift(), relu=True)
                 idx += 1
             if block_i < len(_CNN1D_BLOCKS) - 1:
@@ -70,7 +81,7 @@ class CNN1D(nn.Module):
         super().__init__()
         self.extractor = CNN1DExtractor(dropout)
         self.cls_drop = SampleDropout(classifier_dropout)
-        self.head = nn.Linear(512, class_num)
+        self.head = Linear(512, class_num)
 
     def forward(self, x):
         h = self.extractor(x).mean(dim=1)  # AdaptiveAvgPool1d(1) + Flatten
@@ -83,7 +94,7 @@ class AudioCnn1DExtractorWrapper(nn.Module):
     def __init__(self, hidden_size: int = 768):
         super().__init__()
         self.extractor = CNN1DExtractor()
-        self.adaptor = nn.Linear(512, hidden_size)
+        self.adaptor = Linear(512, hidden_size)
         self.dropout = Dropout(0.3)
 
     def forward(self, x):

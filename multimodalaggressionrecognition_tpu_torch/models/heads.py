@@ -24,7 +24,7 @@ from typing import Mapping, Optional
 import torch
 from torch import nn
 
-from .layers import TransformerEncoder
+from .layers import Linear, TransformerEncoder
 from .rnn import GRU, LSTM
 from .stochastic import Dropout
 
@@ -52,9 +52,8 @@ class FeatureSequenceProcessing(nn.Module):
             self.sequence_nn = AverageFeatureSequence()
         else:
             raise ValueError(f"unknown cell {cell!r}")
-        self.fc1 = nn.Linear(input_size if cell == "avg" else hidden_size,
-                             256)
-        self.fc2 = nn.Linear(256, class_num)
+        self.fc1 = Linear(input_size if cell == "avg" else hidden_size, 256)
+        self.fc2 = Linear(256, class_num)
         self.dropout = Dropout(dropout)
 
     def forward(self, x):
@@ -97,8 +96,8 @@ class TransformerSequenceClassifier(nn.Module):
                  num_heads: int = 8, dropout: float = 0.3):
         super().__init__()
         self.encoder = TransformerEncoder(hidden_size, num_heads, num_layers)
-        self.fc1 = nn.Linear(hidden_size, 256)
-        self.fc2 = nn.Linear(256, class_num)
+        self.fc1 = Linear(hidden_size, 256)
+        self.fc2 = Linear(256, class_num)
         self.dropout = Dropout(dropout)
 
     def forward(self, x, return_type: str = "classifier",

@@ -10,10 +10,10 @@ two documented divergences from torch hold:
 - in eval mode the masked rows are zeroed after the final norm (torch's
   nested-tensor fast path does the same).
 
-The JAX package's `TorchLinear` is `nn.Linear` here and its
-`TorchLayerNorm` is `LayerNorm` (nn.LayerNorm, eps 1e-5, in f32 under a
-lower compute dtype).  The key-padding mask is
-True for a masked key.  Parameter names follow torch's, so io/from_jax.py
+The JAX package's `TorchLinear` is `Linear` here (nn.Linear, with the
+int8 path of w8a8 serving) and its `TorchLayerNorm` is `LayerNorm`
+(nn.LayerNorm, eps 1e-5, in f32 under a lower compute dtype).  The
+key-padding mask is True for a masked key.  Parameter names follow torch's, so io/from_jax.py
 maps the JAX trees onto them.
 """
 
@@ -42,6 +42,19 @@ class LayerNorm(nn.LayerNorm):
                             self.eps).to(x.dtype)
 
 
+class Linear(nn.Linear):
+    """nn.Linear, quant-aware as the JAX TorchLinear is: holding an int8
+    weight and its `weight_scale` (w8a8 serving, utils/quantize.py) it runs
+    int8 x int8 -> int32 on dynamically quantized activations."""
+
+    def forward(self, x):
+        if self.weight.dtype != torch.int8:
+            return super().forward(x)
+        from ..utils.quantize import int8_linear
+
+        return int8_linear(x, self.weight, self.weight_scale, self.bias)
+
+
 class MultiheadSelfAttention(nn.Module):
     """torch nn.MultiheadAttention (self-attention, batch_first) equivalent."""
 
@@ -50,7 +63,7 @@ class MultiheadSelfAttention(nn.Module):
         self.num_heads = num_heads
         self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = Linear(embed_dim, embed_dim)
         self.dropout = Dropout(dropout)
         nn.init.xavier_uniform_(self.in_proj_weight)
         nn.init.zeros_(self.out_proj.bias)
@@ -59,7 +72,13 @@ class MultiheadSelfAttention(nn.Module):
         b, t, e = x.shape
         h = self.num_heads
         d = e // h
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        if self.in_proj_weight.dtype == torch.int8:  # w8a8 serving
+            from ..utils.quantize import int8_linear
+
+            qkv = int8_linear(x, self.in_proj_weight,
+                              self.in_proj_weight_scale, self.in_proj_bias)
+        else:
+            qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
         # (B, T, 3E) -> 3 x (B, H, T, d)
         q, k, v = qkv.view(b, t, 3, h, d).permute(2, 0, 3, 1, 4)
         # the scores and the softmax in f32 whatever the compute dtype, the
@@ -90,8 +109,8 @@ class TransformerEncoderLayer(nn.Module):
                              f"{activation!r}")
         self.activation, self.norm_first = activation, norm_first
         self.self_attn = MultiheadSelfAttention(d_model, nhead, dropout)
-        self.linear1 = nn.Linear(d_model, dim_feedforward)
-        self.linear2 = nn.Linear(dim_feedforward, d_model)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.dropout = Dropout(dropout)

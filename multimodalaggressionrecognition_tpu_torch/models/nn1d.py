@@ -33,8 +33,9 @@ class Conv1d(nn.Module):
     """Strided 1-D convolution on (B, L, C_in) -> (B, L_out, C_out).
 
     Weight (C_out, C_in, K) as torch's; the JAX package's frame-major
-    (K*C_in, C_out) kernel converts in io/from_jax.py.  `bias=False` has no
-    bias parameter, as the JAX `use_bias=False` has no leaf.  `scale`,
+    (K*C_in, C_out) kernel converts in io/from_jax.py; under w8a8 serving
+    it is int8 with a `weight_scale` buffer (`kernel`).  `bias=False` has
+    no bias parameter, as the JAX `use_bias=False` has no leaf.  `scale`,
     `shift` and `relu` apply `act(y * scale + shift)` per output channel
     after the bias: fused into the kernel on the stem, plain ops elsewhere.
     """
@@ -49,23 +50,32 @@ class Conv1d(nn.Module):
         bound = (in_channels * kernel_size) ** -0.5
         nn.init.uniform_(self.weight, -bound, bound)
 
+    def kernel(self):
+        """The weight; under w8a8 serving (utils/quantize.py) int8 codes
+        and their `weight_scale`, dequantized here in f32, as the JAX
+        Conv1d does with its int8 kernel."""
+        if self.weight.dtype == torch.int8:
+            return self.weight.float() * self.weight_scale[:, None, None]
+        return self.weight
+
     def forward(self, x, scale=None, shift=None, relu: bool = False):
         dtype = x.dtype
+        weight = self.kernel()
         if x.shape[-1] == 1 and self.bias is not None:
             # (C_out, 1, K) -> (K, C_out): the kernel's (F, C_out) layout; it
             # runs in f32 (cast in and out under bf16, as JAX does)
-            w = self.weight[:, 0, :].t().float().contiguous()
+            w = weight[:, 0, :].t().float().contiguous()
             args = (x[..., 0].float().contiguous(), w, self.bias.float(),
                     self.kernel_size, self.stride, self.padding)
             if not (torch.is_grad_enabled() and (
-                    x.requires_grad or self.weight.requires_grad)):
+                    x.requires_grad or weight.requires_grad)):
                 return framed_conv1d(
                     *args, scale=None if scale is None else scale.float(),
                     shift=None if shift is None else shift.float(),
                     relu=relu).to(dtype)
             y = framed_conv1d_trainable(*args)
         else:
-            y = F.conv1d(x.transpose(1, 2), self.weight, self.bias,
+            y = F.conv1d(x.transpose(1, 2), weight.to(dtype), self.bias,
                          stride=self.stride, padding=self.padding
                          ).transpose(1, 2)
         if scale is not None:

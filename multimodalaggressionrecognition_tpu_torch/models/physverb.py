@@ -15,6 +15,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from .layers import Linear
 from .stochastic import Dropout
 
 MODALITY2AGGR = {"video": "phys", "text": "verb", "audio": "verb"}
@@ -46,10 +47,10 @@ class PhysVerbClassifier(nn.Module):
         self.dropout = Dropout(dropout)
         for name in sorted(self.adaptor_sizes):
             self.add_module(f"adaptor_{name}",
-                            nn.Linear(*self.adaptor_sizes[name]))
+                            Linear(*self.adaptor_sizes[name]))
         for aggr, in_dim in self.head_in_dims().items():
-            self.add_module(f"head_{aggr}_fc1", nn.Linear(in_dim, in_dim // 3))
-            self.add_module(f"head_{aggr}_fc2", nn.Linear(in_dim // 3, class_num))
+            self.add_module(f"head_{aggr}_fc1", Linear(in_dim, in_dim // 3))
+            self.add_module(f"head_{aggr}_fc2", Linear(in_dim // 3, class_num))
 
     def head_in_dims(self) -> Dict[str, int]:
         """{head: input width}: the summed adaptor widths of the head's

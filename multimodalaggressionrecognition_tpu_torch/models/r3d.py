@@ -27,6 +27,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from .layers import Linear
 from .nn3d import BatchNorm3d, Conv3d, global_avg_pool
 from .stochastic import Dropout
 
@@ -126,7 +127,7 @@ class R3D18Classifier(nn.Module):
     def __init__(self, class_num: int = 400):
         super().__init__()
         self.trunk = R3D18Trunk()
-        self.fc = nn.Linear(512, class_num)
+        self.fc = Linear(512, class_num)
 
     def forward(self, x):
         return self.fc(global_avg_pool(self.trunk(to_channels_first(x))))
@@ -164,9 +165,9 @@ class R3DWithBboxes(nn.Module):
         super().__init__()
         self.alpha = alpha
         _add_layers(self)
-        self.fc1 = nn.Linear(512, 128)
+        self.fc1 = Linear(512, 128)
         self.drop = Dropout(dropout)
-        self.fc2 = nn.Linear(128, class_num)
+        self.fc2 = Linear(128, class_num)
 
     def forward(self, frames, mask=None):
         h = to_channels_first(frames)

@@ -38,7 +38,7 @@ from torch import nn
 from ..ops.cuda.roll import roll
 from ..ops.cuda.window_attention import window_attention
 from ..ops.erf import check_gelu_mode, gelu
-from .layers import LayerNorm
+from .layers import LayerNorm, Linear
 from .nn3d import Conv3d
 from .stochastic import Stochastic, checkpoint
 
@@ -107,8 +107,8 @@ class ShiftedWindowAttention3d(nn.Module):
         super().__init__()
         self.num_heads = num_heads
         self.window, self.shift = tuple(window), tuple(shift)
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
         fwt, fwh, fww = self.window
         self.relative_position_bias_table = nn.Parameter(torch.zeros(
             (2 * fwt - 1) * (2 * fwh - 1) * (2 * fww - 1), num_heads))
@@ -184,8 +184,8 @@ class SwinBlock3d(nn.Module):
         self.attn = ShiftedWindowAttention3d(dim, num_heads, window, shift)
         self.sd1 = StochasticDepth(sd_prob)
         self.norm2 = LayerNorm(dim, eps=1e-5)
-        self.mlp_fc1 = nn.Linear(dim, int(dim * mlp_ratio))
-        self.mlp_fc2 = nn.Linear(int(dim * mlp_ratio), dim)
+        self.mlp_fc1 = Linear(dim, int(dim * mlp_ratio))
+        self.mlp_fc2 = Linear(int(dim * mlp_ratio), dim)
         self.sd2 = StochasticDepth(sd_prob)
 
     def forward(self, x):
@@ -212,7 +212,7 @@ class PatchMerging3d(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.norm = LayerNorm(4 * dim, eps=1e-5)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
 
     def forward(self, x):
         h, w = x.shape[2:4]

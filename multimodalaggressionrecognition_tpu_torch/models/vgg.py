@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .layers import Linear
 from .nn3d import BatchNorm2d, Conv2d
 from .stochastic import Dropout
 
@@ -37,9 +38,9 @@ class VGG11BN(nn.Module):
             setattr(self, f"bn{idx}", BatchNorm2d(v))
             self.blocks.append(idx)
             idx, c_in = idx + 1, v
-        self.fc1 = nn.Linear(c_in * 49, 4096)
-        self.fc2 = nn.Linear(4096, 4096)
-        self.fc3 = nn.Linear(4096, class_num)
+        self.fc1 = Linear(c_in * 49, 4096)
+        self.fc2 = Linear(4096, 4096)
+        self.fc3 = Linear(4096, class_num)
         self.drop1 = Dropout(dropout)
         self.drop2 = Dropout(dropout)
 

@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.erf import gelu
-from .layers import TransformerEncoderLayer
+from .layers import Linear, TransformerEncoderLayer
 from .nn1d import Conv1d, GroupNorm
 from .stochastic import Dropout
 
@@ -132,7 +132,7 @@ class Wav2Vec2Model(nn.Module):
             cfg.conv_layers, cfg.extractor_mode, cfg.conv_bias)
         width = cfg.conv_layers[-1][0]
         self.fp_norm = nn.LayerNorm(width, eps=1e-5)
-        self.fp_proj = nn.Linear(width, e)
+        self.fp_proj = Linear(width, e)
         self.dropout = Dropout(cfg.dropout)
         self.pos_conv = ConvPositionalEmbedding(e, cfg.pos_conv_kernel,
                                                 cfg.pos_conv_groups)

@@ -21,6 +21,12 @@ at 700 W (chip_smoke.py) it takes about 0.046 ms at the CNN1D stem (B=32,
 at the STFT's basis (F=512, hop 256, C=514) against 0.32: 17 % and 26 % of
 the tensor cores' bound.
 
+`framed_conv1d` calls the `mar_torch::framed_conv1d` op (torch.library):
+its CPU implementation is the plain version, its CUDA one launches the
+kernel (the only place that counts a launch), and its fake one gives the
+output's shape and dtype, so torch.export keeps the op whole in a serving
+artifact's graph (io/export.py).
+
 `framed_conv1d_trainable` is the differentiable entry (the JAX custom VJP
 `framed_conv1d`): its forward is `framed_conv1d` with the bias only, and its
 backward the JAX package's XLA formula in torch ops
@@ -29,6 +35,7 @@ backward the JAX package's XLA formula in torch ops
 """
 
 import ctypes
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -93,15 +100,38 @@ def _check(name, t, shape, device):
 def framed_conv1d(x, weight, bias, kernel_size: int, stride: int, pad: int = 0,
                   scale=None, shift=None, relu: bool = False):
     """x (B, L) f32, weight (F, C_out), bias (C_out,), optional scale/shift
-    (C_out,) -> (B, T, C_out).
+    (C_out,) -> (B, T, C_out): the `mar_torch::framed_conv1d` op.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     on the current stream or raises."""
-    if x.device.type == "cpu":
-        return framed_conv1d_reference(x, weight, bias, kernel_size, stride,
-                                       pad, scale, shift, relu)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"framed_conv1d: no kernel for device {x.device}")
+    return torch.ops.mar_torch.framed_conv1d(
+        x, weight, bias, kernel_size, stride, pad, scale, shift, relu)
+
+
+@torch.library.custom_op("mar_torch::framed_conv1d", mutates_args=(),
+                         device_types="cpu")
+def _framed_conv1d_op(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, kernel_size: int, stride: int,
+                      pad: int, scale: Optional[torch.Tensor],
+                      shift: Optional[torch.Tensor],
+                      relu: bool) -> torch.Tensor:
+    return framed_conv1d_reference(x, weight, bias, kernel_size, stride, pad,
+                                   scale, shift, relu)
+
+
+@_framed_conv1d_op.register_fake
+def _(x, weight, bias, kernel_size, stride, pad, scale, shift, relu):
+    b, length = x.shape
+    return x.new_empty((b, out_length(length, kernel_size, stride, pad),
+                        weight.shape[-1]))
+
+
+@_framed_conv1d_op.register_kernel("cuda")
+def _framed_conv1d_cuda(x, weight, bias, kernel_size, stride, pad, scale,
+                        shift, relu):
+    """The kernel launch: the only place that counts one."""
     if x.dim() != 2:
         raise ValueError(f"framed_conv1d: x must be (B, L), got {tuple(x.shape)}")
     b, length = x.shape

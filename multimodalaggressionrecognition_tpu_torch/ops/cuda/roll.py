@@ -14,6 +14,11 @@ kernel take a contiguous float32 or bfloat16 tensor (the model's compute
 dtypes; a copy is exact in either) of fewer than 2**31 elements and raise on
 anything else; nothing is copied quietly.
 
+`circular_roll` calls the `mar_torch::roll` op (torch.library): the plain
+version on the CPU, the kernel on CUDA (the only place that counts a
+launch), and a fake implementation for torch.export, which keeps the op in
+a serving artifact's graph (io/export.py).
+
 `roll` is the differentiable entry (a `torch.autograd.Function`): the
 gradient of a roll is the roll of the gradient by the negated shifts, on a
 CUDA tensor the same kernel again.  JAX differentiates `jnp.roll` the same
@@ -68,15 +73,32 @@ def _validate(x, shifts):
 
 def circular_roll(x, shifts):
     """x (B, T, H, W, C) f32 or bf16, contiguous; shifts (st, sh, sw) -> out with
-    out[b, t, h, w] = x[b, (t+st) % T, (h+sh) % H, (w+sw) % W].
+    out[b, t, h, w] = x[b, (t+st) % T, (h+sh) % H, (w+sw) % W]: the
+    `mar_torch::roll` op.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     on the current stream or raises."""
     shifts = _validate(x, shifts)
-    if x.device.type == "cpu":
-        return roll_reference(x, shifts)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"roll: no kernel for device {x.device}")
+    return torch.ops.mar_torch.roll(x, *shifts)
+
+
+@torch.library.custom_op("mar_torch::roll", mutates_args=(),
+                         device_types="cpu")
+def _roll_op(x: torch.Tensor, st: int, sh: int, sw: int) -> torch.Tensor:
+    return roll_reference(x, (st, sh, sw))
+
+
+@_roll_op.register_fake
+def _(x, st, sh, sw):
+    return torch.empty_like(x)
+
+
+@_roll_op.register_kernel("cuda")
+def _roll_cuda(x, st, sh, sw):
+    """The kernel launch: the only place that counts one."""
+    shifts = _validate(x, (st, sh, sw))
     b, t, h, w, c = x.shape
     out = torch.empty_like(x)
     entry, per_vec = _ENTRIES[x.dtype]

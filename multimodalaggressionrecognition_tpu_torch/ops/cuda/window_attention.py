@@ -13,6 +13,13 @@ its forward is `fused_window_attention`, its backward
 `window_attention_bwd`, which returns the gradients of qkv and bias; the
 mask gets none.
 
+`fused_window_attention` calls the `mar_torch::window_attention` op
+(torch.library): the plain version on the CPU, the forward kernel on CUDA
+(the only place that counts its launch), and a fake implementation for
+torch.export, which keeps the op in a serving artifact's graph
+(io/export.py).  The backward stays a plain wrapper: export and
+quantization are for inference.
+
 Dtypes, as in the JAX kernels: qkv (and the output gradient g) are float32
 or bfloat16, and the output and dqkv come back in qkv's dtype; the math is
 f32 throughout (each operand widened on load, one rounding per stored
@@ -25,6 +32,7 @@ does not.)
 """
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -195,12 +203,34 @@ def _bias_f32(bias):
 
 def fused_window_attention(qkv, bias, mask, heads: int):
     """qkv (W, N, 3C) f32 or bf16, bias (heads, N, N), mask (nW_img, N, N)
-    or None -> (W, N, C) in qkv's dtype.
+    or None -> (W, N, C) in qkv's dtype: the `mar_torch::window_attention`
+    op.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     on the current stream or raises."""
-    if qkv.device.type == "cpu":
-        return attention_core_reference(qkv, bias, mask, heads)
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"fused_window_attention: no kernel for device {qkv.device}")
+    return torch.ops.mar_torch.window_attention(qkv, bias, mask, heads)
+
+
+@torch.library.custom_op("mar_torch::window_attention", mutates_args=(),
+                         device_types="cpu")
+def _window_attention_op(qkv: torch.Tensor, bias: torch.Tensor,
+                         mask: Optional[torch.Tensor],
+                         heads: int) -> torch.Tensor:
+    return attention_core_reference(qkv, bias, mask, heads)
+
+
+@_window_attention_op.register_fake
+def _(qkv, bias, mask, heads):
+    w, n, c3 = qkv.shape
+    return qkv.new_empty((w, n, c3 // 3))
+
+
+@_window_attention_op.register_kernel("cuda")
+def _window_attention_cuda(qkv, bias, mask, heads):
+    """The kernel launch: the only place that counts one."""
     bias = _bias_f32(bias)
     w, n, c, d, nw = _validate(qkv, bias, mask, heads)
     lib = load_library("window_attention", _bind)

@@ -5,10 +5,14 @@ fixed batch shape: variable-size request batches are padded up to it with
 all-zero, `present=0` rows and scored in one forward on the device.
 `MicroBatcher` sits in front of it for online serving: concurrent
 single-clip requests are coalesced into one forward, bounded by a
-max-delay deadline.  Semantics follow the JAX package's serve.py, bf16
-compute included (`compute_dtype`: the floating parameters and inputs cast
-to bf16 inside the forward, f32 probabilities out); int8 quantization,
-sharded serving and the compile cache are not ported.
+max-delay deadline.  Semantics follow the JAX package's serve.py:
+`compute_dtype` bf16 casts the floating parameters and inputs inside the
+forward (f32 probabilities out), and `quantize` keeps the weights resident
+as int8 plus per-channel scales, dequantized inside the forward ("int8")
+or multiplied as int8 x int8 -> int32 ("w8a8"), utils/quantize.py.  The
+forward is one module (`ServingForward`), which io/export.py hands to
+`torch.export` whole.  Sharded serving and the compile cache are not
+ported.
 """
 
 import queue
@@ -70,6 +74,26 @@ class ScorerBase:
         return out
 
 
+class ServingForward(torch.nn.Module):
+    """The Predictor's whole forward as one module: `model` on the batch in
+    `compute_dtype` (train/steps.forward), each weight-only int8 weight
+    dequantized once per call, f32 logits out."""
+
+    def __init__(self, model: torch.nn.Module, compute_dtype=None):
+        super().__init__()
+        self.model = model
+        self.compute_dtype = compute_dtype
+
+    def forward(self, modalities):
+        from torch.nn.utils import parametrize
+
+        from .train.steps import forward
+
+        with parametrize.cached():
+            out = forward(self.model, modalities, self.compute_dtype)
+        return {k: v.float() for k, v in out.items()}
+
+
 class Predictor(ScorerBase):
     """Batched scorer for PhysVerb-style models.
 
@@ -80,24 +104,31 @@ class Predictor(ScorerBase):
     batch_size: fixed batch size; requests are padded up to it.
     device: "cuda" (default) or "cpu"; CUDA without a card raises.
     compute_dtype: None / "float32", or "bfloat16" (utils/precision.py).
+    quantize: None, "int8" (weight-only) or "w8a8" (utils/quantize.py);
+           the model is quantized in place after its weights load.
     """
 
     def __init__(self, model: torch.nn.Module, state_dict=None,
-                 batch_size: int = 32, device="cuda", compute_dtype=None):
+                 batch_size: int = 32, device="cuda", compute_dtype=None,
+                 quantize: str | None = None):
         from .utils.precision import resolve_dtype
 
         self.device = resolve_device(device)
         self.compute_dtype = resolve_dtype(compute_dtype)
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
+        if quantize is not None:
+            from .utils.quantize import quantize_model_
+
+            quantize_model_(model, quantize,
+                            self.compute_dtype or torch.float32)
         self.model = model.to(self.device).eval()
+        self.serving = ServingForward(self.model, self.compute_dtype)
         self.batch_size = batch_size
 
     @torch.inference_mode()
     def _forward(self, batch):
-        from .train.steps import forward
-
-        return forward(self.model, batch, self.compute_dtype)
+        return self.serving(batch)
 
     def warmup(self, example_modalities: Dict[str, np.ndarray]):
         """Run once on zero inputs shaped like a real request: builds the

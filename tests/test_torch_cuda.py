@@ -12,6 +12,10 @@ Its backward (K3) is held to its plain version at 1e-4 of the largest
 gradient (the stage shapes sum over up to 2048 windows into dbias).  The
 roll (K4) only moves values, so it is held to torch.roll bit for bit, and a
 served tri-modal forward gives the same logits with it as with torch.roll.
+The `mar_torch::` custom ops equal a direct ctypes launch of their kernels
+bit for bit, their fakes give the kernels' shapes and dtypes, the padded
+int8 GEMM (`utils/quantize.int8_mm`) is exact, and an artifact exported on
+the CPU scores on the card with nothing left on the CPU.
 """
 
 import pytest
@@ -733,3 +737,154 @@ def test_bf16_finetune_step_on_the_card(cuda):
             assert not v.is_floating_point() or v.dtype == torch.float32
     for buf in state.model.buffers():
         assert buf.dtype == torch.float32
+
+
+def _direct_launch(name, entry, bind, args, out):
+    """The kernel launched straight through ctypes, as the wrappers did
+    before the custom ops: the reference the op's CUDA body must equal."""
+    from multimodalaggressionrecognition_tpu_torch.utils.kernels import (
+        check_status, load_library)
+
+    lib = load_library(name, bind)
+    stream = torch.cuda.current_stream().cuda_stream
+    check_status(name, getattr(lib, entry)(*args, stream))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+def test_custom_ops_equal_the_direct_kernel_launch(cuda):
+    """mar_torch::framed_conv1d, ::window_attention (f32 and bf16) and
+    ::roll launch the same kernels as a direct ctypes call, bit for bit,
+    and each counts one launch."""
+    import ctypes
+
+    from multimodalaggressionrecognition_tpu_torch.ops.cuda import (
+        framed_conv as fc, roll as rl, window_attention as wa)
+
+    g = torch.Generator().manual_seed(40)
+    x = torch.randn((8, 80000), generator=g).to(cuda)
+    w = (torch.randn((160, 64), generator=g) * 0.1).to(cuda)
+    b = torch.randn(64, generator=g).to(cuda)
+    s = torch.rand(64, generator=g).to(cuda) + 0.5
+    launch_counts.clear()
+    got = torch.ops.mar_torch.framed_conv1d(x, w, b, 160, 40, 80, s, None,
+                                            True)
+    want = torch.empty_like(got)
+    _direct_launch("framed_conv", "framed_conv1d_f32", fc._bind,
+                   (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(),
+                    None, want.data_ptr(), 8, 80000, 160, 64, got.shape[1],
+                    40, 80, 1), want)
+    assert torch.equal(got, want)
+    for dtype, suffix in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        qkv = torch.randn((32, 196, 288), generator=g).to(cuda, dtype)
+        bias = torch.randn((3, 196, 196), generator=g).to(cuda)
+        got = torch.ops.mar_torch.window_attention(qkv, bias, None, 3)
+        want = torch.empty_like(got)
+        _direct_launch("window_attention", f"window_attention_{suffix}",
+                       wa._bind, (qkv.data_ptr(), bias.data_ptr(), None,
+                                  want.data_ptr(), 32, 196, 3, 32, 0,
+                                  ctypes.c_float(32 ** -0.5)), want)
+        assert torch.equal(got, want)
+    xr = torch.randn((8, 4, 28, 28, 96), generator=g).to(cuda)
+    got = torch.ops.mar_torch.roll(xr, 0, 3, 3)
+    want = torch.empty_like(got)
+    _direct_launch("roll", "roll_f32", rl._bind,
+                   (xr.data_ptr(), want.data_ptr(), 8, 4, 28, 28, 96, 0, 3,
+                    3, 1), want)
+    assert torch.equal(got, want)
+    assert dict(launch_counts) == {"framed_conv1d": 1, "window_attention": 1,
+                                   "window_attention.bf16": 1, "roll": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_op_fakes_give_the_kernels_shape_and_dtype(cuda, dtype):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    g = torch.Generator().manual_seed(41)
+    real = {"qkv": torch.randn((16, 196, 192), generator=g).to(cuda, dtype),
+            "bias": torch.randn((2, 196, 196), generator=g).to(cuda),
+            "x": torch.randn((2, 4, 14, 14, 8), generator=g).to(cuda, dtype),
+            "a": torch.randn((2, 8000), generator=g).to(cuda),
+            "w": torch.randn((160, 64), generator=g).to(cuda),
+            "b": torch.randn(64, generator=g).to(cuda)}
+    want = [torch.ops.mar_torch.window_attention(real["qkv"], real["bias"],
+                                                 None, 2),
+            torch.ops.mar_torch.roll(real["x"], 0, 3, 3),
+            torch.ops.mar_torch.framed_conv1d(real["a"], real["w"],
+                                              real["b"], 160, 40, 80, None,
+                                              None, False)]
+    with FakeTensorMode() as mode:
+        fake = {k: mode.from_tensor(v) for k, v in real.items()}
+        got = [torch.ops.mar_torch.window_attention(fake["qkv"],
+                                                    fake["bias"], None, 2),
+               torch.ops.mar_torch.roll(fake["x"], 0, 3, 3),
+               torch.ops.mar_torch.framed_conv1d(fake["a"], fake["w"],
+                                                 fake["b"], 160, 40, 80,
+                                                 None, None, False)]
+    for f, r in zip(got, want):
+        assert (f.shape, f.dtype, f.device) == (r.shape, r.dtype, r.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(8, 1536, 2), (3, 12, 5), (40, 768, 2304)])
+def test_int8_mm_is_exact_on_the_card(cuda, m, k, n):
+    """torch._int_mm takes M > 16 and K, N multiples of 8 on CUDA;
+    int8_mm's zero padding keeps the int32 sums equal to the CPU's for the
+    heads' N = 2 at 8 rows and ragged shapes."""
+    from multimodalaggressionrecognition_tpu_torch.utils.quantize import (
+        int8_mm)
+
+    g = torch.Generator().manual_seed(m)
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=g)
+    w = torch.randint(-127, 128, (n, k), dtype=torch.int8, generator=g)
+    got = int8_mm(a.to(cuda), w.to(cuda))
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), int8_mm(a, w))
+    assert torch.equal(got.cpu().long(), a.long() @ w.long().T)
+
+
+@pytest.mark.cuda
+def test_cpu_artifact_loads_on_the_card(cuda, tmp_path):
+    """An artifact exported on the CPU and scored on the card: no node,
+    weight or constant stays on the CPU, the ops launch their kernels, and
+    the scores match the live CPU Predictor within 1e-3 of the largest
+    logit."""
+    import numpy as np
+
+    from multimodalaggressionrecognition_tpu_torch.cli.train_multimodal import (
+        MultimodalConfig, build_model)
+    from multimodalaggressionrecognition_tpu_torch.io.export import (
+        ExportedPredictor, export_predictor)
+    from multimodalaggressionrecognition_tpu_torch.models.layers import (
+        seeded_init_)
+    from multimodalaggressionrecognition_tpu_torch.serve import Predictor
+
+    cfg = MultimodalConfig(hidden_size=64, fusion_heads=4,
+                           audio_samples=16000, text_tokens=8)
+    model = seeded_init_(build_model(cfg, ("audio", "text")), 0)
+    pred = Predictor(model, batch_size=4, device="cpu", quantize="int8")
+    example = {"audio": np.zeros((1, 16000), np.float32),
+               "text": np.zeros((1, 8, 64), np.float32)}
+    export_predictor(pred, example, str(tmp_path / "art"))
+    exported = ExportedPredictor(str(tmp_path / "art"), device=cuda)
+    program = exported.program
+    assert not [n for n in program.graph.nodes
+                if str(n.kwargs.get("device", "cuda")) == "cpu"]
+    tensors = list(program.state_dict.values()) + list(
+        program.constants.values())
+    assert all(t.device.type == "cuda" for t in tensors
+               if isinstance(t, torch.Tensor))
+    rng = np.random.default_rng(42)
+    req = {"audio": (rng.standard_normal((3, 16000)) * 0.1).astype(
+               np.float32),
+           "text": rng.standard_normal((3, 8, 64)).astype(np.float32)}
+    launch_counts.clear()
+    got = exported.predict(req, return_probs=False)
+    torch.cuda.synchronize()
+    assert launch_counts["framed_conv1d"] == 1
+    want = pred.predict(req, return_probs=False)
+    scale = max(np.abs(v).max() for v in want.values())
+    for head in want:
+        assert np.abs(got[head] - want[head]).max() <= 1e-3 * scale

@@ -199,5 +199,8 @@ def test_trimodal_evaluate_reproduces_the_logged_test_row(dataset, tmp_path):
 
 
 def test_exported_is_refused(tmp_path):
-    with pytest.raises(SystemExit, match="queue 1 item 9"):
-        evaluate.main(["--exported", str(tmp_path), "--device", "cpu"])
+    """--exported is ported (tests/test_torch_export.py); beside a
+    checkpoint it is refused, as the artifact's weights are baked in."""
+    with pytest.raises(SystemExit, match="conflicts"):
+        evaluate.main(["--exported", str(tmp_path), "--path_to_checkpoint",
+                       str(tmp_path / "ckpt"), "--device", "cpu"])

@@ -157,8 +157,13 @@ def test_predict_refuses_what_it_cannot_pair(clips):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--quantize", "int8"], "item 9"),
-    (["--exported", "artifact"], "item 9"),
+    # int8 and w8a8 are ported; a mode that exists nowhere still exits
+    pytest.param(["--quantize", "int4"], "unknown quantize mode",
+                 id="flags0-item 9"),
+    # --exported is ported; the artifact's weights are baked in, so it
+    # refuses --quantize beside it
+    pytest.param(["--exported", "artifact", "--quantize", "int8"],
+                 "conflicts", id="flags1-item 9"),
     # bfloat16 is ported; a compute dtype that exists nowhere still exits
     pytest.param(["--compute_dtype", "fp8"], "unknown compute dtype",
                  id="flags2-item 7")])
