@@ -242,6 +242,25 @@ Phases (any failure raises, and the script exits non-zero):
                 run (3)'s checkpoint, cli.predict --exported on (e)'s clips
                 and cli.evaluate --exported on its test split, equal to the
                 same CLIs on the checkpoint.
+ 19. bf16 entries - (24-26) each train entry of 4-12 (the audio RNN with
+                wav2vec-1 and CNN1D) again through its CLI for one epoch
+                with --compute_dtype bfloat16 (bf16_cli_phase): launches by
+                kernel and dtype against its per-step counts in the dtype
+                JAX's flow gives (K1 f32 inside; the video transformer's
+                K2 12 and K4 4 in f32, its resize returning f32), the bf16
+                step ms and peak beside the f32 run's, the kernel
+                families, one step's loss from the seeded weights bf16
+                against f32 (5 %) and the first row's eval loss and logits
+                card against CPU (2e-2 of the largest logit, 1e-3 where the
+                flow is f32); K2 bf16 at every extraction shape (N = 392
+                and 128) against its bf16 plain version (1e-2 of the
+                largest), at stage 0 cold and warm against its bound and
+                SDPA in bf16; K4 bf16 at both extraction shapes bit for
+                bit; each backbone's extraction in bf16 (the Swin's K2 12
+                and K4 4 bf16 per forward, files within 0.1 of the f32
+                run's, one window card against CPU within 2e-2); a bf16
+                video-transformer artifact exported and scored on the card
+                (K2 12, K4 4 bf16, equal to the live Predictor).
 Prints a `slice` JSON line per slice, a `train` JSON line per train path,
 an `evaluate` and a `predict` JSON line, an `extract` JSON line per
 backbone, a `serve` line for bf16 serving, a `quantized` line per
@@ -251,11 +270,15 @@ the `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Every kernel
 entry's `launches` counts the tri-modal fine-tune; `launches_by_path` gives
 each path's (evaluate, predict and doctor among them); K2's, K3's and K4's
-`bf16` entries give their bf16 numbers and the bf16 paths' launches.  Without a CUDA device it exits non-zero and prints no result.
+`bf16` entries give their bf16 numbers and the bf16 paths' launches,
+K2's `bf16_extract` its N = 392 bf16 numbers, and K1's, K2's and K4's
+`launches_under_bf16` the launches of every bf16 path by instantiation.
+Without a CUDA device it exits non-zero and prints no result.
 """
 
 import contextlib
 import copy
+import gc
 import io
 import json
 import os
@@ -1070,6 +1093,7 @@ def k3_phase(card: str):
 # dqkv in bf16 (the bias too, as the cast model's table gives it); the
 # kernels widen to f32 inside and round each result once
 BF16_TOL = 1e-2  # of each output's largest value: one bf16 rounding, 2^-8
+BF16 = torch.bfloat16
 
 
 def bf16_check(label, got, want):
@@ -2332,10 +2356,10 @@ def resample_phase():
     return err
 
 
-def run_cli(main_fn, args, card_line, label, heads=("main",)):
+def run_cli(main_fn, args, card_line, label, heads=("main",), epochs=2):
     """One CLI train run with the launch counts reset just before and read
-    just after; checks each head's logs (2 epochs, finite losses) and its
-    best checkpoint.  Returns (trainer, counts, epoch clips/s)."""
+    just after; checks each head's logs (`epochs` epochs, finite losses)
+    and its best checkpoint.  Returns (trainer, counts, epoch clips/s)."""
     import pandas as pd
 
     torch.cuda.synchronize()
@@ -2354,11 +2378,13 @@ def run_cli(main_fn, args, card_line, label, heads=("main",)):
         raise AssertionError(f"{label}: missing {sorted(need - files)}")
     for f in logs:
         df = pd.read_csv(os.path.join(trainer.run_dir, f))
-        if df["epoch"].tolist() != [0, 1] or not np.isfinite(df["loss"]).all():
+        if (df["epoch"].tolist() != list(range(epochs))
+                or not np.isfinite(df["loss"]).all()):
             raise AssertionError(f"{label}: {f} holds {df.to_dict()}")
     clips_s = [float(v) for v in pd.read_csv(os.path.join(
         trainer.run_dir, logs[0]))["clips_per_sec"]]
-    log(f"{label} main path on {card_line}: 2 epochs, {trainer.state.step} "
+    log(f"{label} main path on {card_line}: {epochs} epochs, "
+        f"{trainer.state.step} "
         f"train steps, launches {counts}, fit {fit_s:.1f} s; epoch clips/s "
         f"{clips_s} (epoch 0 includes the first step's set-up)")
     return trainer, counts, clips_s
@@ -2418,7 +2444,8 @@ def train_cli_phase(label, cli, args, card_line, per_step, parity,
     """One train entry at full width through cli.main (run_cli), its
     launches against `per_step` launches per train and eval step, then its
     median step time, peak memory and kernel families; prints its `train`
-    JSON line and returns (its launch counts, the trainer)."""
+    JSON line.  Returns (its launch counts, the trainer, its first train
+    batch, (median step ms, peak GiB)): bf16_cli_phase's f32 run."""
     trainer, counts, clips_s = run_cli(cli.main, args, card_line,
                                        f"train {label}", heads)
     steps = trainer.state.step
@@ -2448,7 +2475,138 @@ def train_cli_phase(label, cli, args, card_line, per_step, parity,
                     "peak_gib": peak_gb, "epoch_clips_per_s": clips_s,
                     "kernel_ms_by_family": families,
                     "kernel_busy_pct": busy / step_ms * 100, **parity}))
-    return counts, trainer
+    return counts, trainer, batch, (step_ms, peak_gb)
+
+
+# the train entries' bf16 runs, by path: read into main's launch table
+BF16_LAUNCHES = {}
+
+
+def _rows(tree, n, frames=None):
+    """The first n rows of every tensor of a batch; a video clip (and its
+    mask) also cut to its first `frames` frames."""
+    if isinstance(tree, dict):
+        return {k: _rows(v, n, frames) for k, v in tree.items()}
+    t = tree[:n]
+    return t[:, :frames] if frames and t.dim() == 5 else t
+
+
+def _eval_loss(model, batch, specs, num_classes, dtype):
+    """The eval-mode summed loss of `model` on `batch` in `dtype` (the
+    train step's forward, deterministic) and its heads' logits (f32, on
+    the CPU, concatenated)."""
+    from multimodalaggressionrecognition_tpu_torch.train.steps import forward
+
+    model.eval()
+    with torch.no_grad():
+        out = forward(model, batch["modalities"], dtype)
+        loss = head_losses_and_metrics(out, batch, specs, num_classes)[0]
+        return loss.item(), torch.cat([out[h].float().cpu() for h in specs])
+
+
+def bf16_cli_phase(label, cli, args, card_line, batch, timing32, per_step,
+                   heads=("main",), cpu_frames=None, cpu_tol=2e-2):
+    """The entry under --compute_dtype bfloat16 through cli.main for one
+    epoch on the f32 run's data, `batch` its first train batch and
+    `timing32` its (median step ms, peak GiB); the caller has dropped its
+    f32 trainer, so the peak is the bf16 run's own (launch counts reset
+    just before, read just after): its launches by kernel and dtype (kernels.launch_key) against
+    `per_step` per train and eval step, the dtype JAX's flow gives; one
+    step's launches on the f32 run's batch; the median bf16 step and peak
+    memory beside the f32 ones; the kernel families; the master state f32;
+    from the entry's seeded initial weights, one bf16 train step's loss on
+    that batch against one f32 step's (the same dropout draws; 5 %,
+    tests/test_precision.py:168), and the eval-mode bf16 loss and logits
+    of its first row (`cpu_frames` frames of a clip) card against CPU,
+    within `cpu_tol` of the loss and of the largest logit."""
+    from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
+        set_generator)
+    from multimodalaggressionrecognition_tpu_torch.train.state import (
+        OptimizerConfig, create_train_state)
+    from multimodalaggressionrecognition_tpu_torch.train.steps import (
+        train_step)
+
+    gc.collect()  # the f32 trainer's cycles, before the peak is read
+    args = list(args) + ["--compute_dtype", "bfloat16"]
+    args[args.index("--epoch_num") + 1] = "1"
+    args[args.index("--run_name") + 1] += "_bf16"
+    name = f"train {label} bf16"
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=UNFLATTENED_RNN)
+        trainer, counts, clips_s = run_cli(cli.main, args, card_line, name,
+                                           heads, epochs=1)
+        steps, eval_steps = trainer.state.step, len(trainer.test_loader)
+        want = {k: v * (steps + eval_steps) for k, v in per_step.items()}
+        if counts != want or steps < 1:
+            raise AssertionError(f"{name}: {steps} train and {eval_steps} "
+                                 f"eval steps launched {counts}, want {want}")
+        one = step_counts(trainer, batch)
+        if one != per_step:
+            raise AssertionError(f"{name}: a step launched {one}, want "
+                                 f"{per_step}")
+        step_ms, peak_gb = median_step_ms(trainer, batch)
+        families = kernel_breakdown(lambda: trainer.train_step(batch),
+                                    reps=3)
+        state_dtypes_f32(trainer.state, name)
+        specs, ncls = trainer.loss_specs, trainer.num_classes
+        # seeded on the CPU (its generator draws there), as the CLI seeds
+        initial = seeded_init_(copy.deepcopy(trainer.state.model).cpu(),
+                               SEED)
+        losses = {}
+        for dtype in (None, BF16):
+            st = create_train_state(copy.deepcopy(initial),
+                                    OptimizerConfig(learning_rate=1e-3),
+                                    DEVICE)
+            set_generator(st.model, torch.Generator(DEVICE).manual_seed(SEED))
+            losses[dtype] = train_step(st, batch, specs, ncls,
+                                       compute_dtype=dtype)["total_loss"].item()
+            state_dtypes_f32(st, name)
+            del st
+        loss16, loss32 = losses[BF16], losses[None]
+        row = _rows(batch, 1, cpu_frames)
+        cpu_row, cpu_logits = _eval_loss(initial, to_device(row, "cpu"),
+                                         specs, ncls, BF16)
+        card_row, card_logits = _eval_loss(initial.to(DEVICE), row, specs,
+                                           ncls, BF16)
+        del initial
+    rel32 = abs(loss16 - loss32) / (abs(loss32) + 1e-6)
+    rel_cpu = abs(card_row - cpu_row) / (abs(cpu_row) + 1e-6)
+    logit_err = ((card_logits - cpu_logits).abs().max()
+                 / cpu_logits.abs().max()).item()
+    if not (rel32 <= 0.05 and rel_cpu <= cpu_tol and logit_err <= cpu_tol
+            and np.isfinite(loss16)):
+        raise AssertionError(f"{name}: step loss bf16 {loss16} vs f32 {loss32} "
+                             f"({rel32:.3e}); first row card {card_row} vs "
+                             f"cpu {cpu_row} ({rel_cpu:.3e}), logits "
+                             f"{logit_err:.3e} of the largest (<= {cpu_tol})")
+    busy = sum(families.values())
+    b = batch["sample_mask"].shape[0]
+    step32, peak32 = timing32
+    log(f"{name} step b{b} on {card_line}: median {step_ms:.3f} ms, peak "
+        f"{peak_gb:.2f} GiB (f32 {step32:.3f} ms, {peak32:.2f} GiB); "
+        f"launches per step {one}; one step's loss bf16 {loss16:.6f} vs "
+        f"f32 {loss32:.6f} ({rel32 * 100:.3f} % <= 5 %), first row card "
+        f"{card_row:.6f} vs cpu {cpu_row:.6f} ({rel_cpu:.2e}), logits "
+        f"{logit_err:.2e} of the largest (<= {cpu_tol}); "
+        "master state f32 ok; kernels by family (ms per step): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            families.items(), key=lambda kv: -kv[1]))
+        + f"; sum {busy:.4f} ms = {busy / step_ms * 100:.1f}% of the step")
+    log(json.dumps({"train": f"{label} bf16", "batch": b,
+                    "compute_dtype": "bfloat16", "steps": steps,
+                    "eval_steps": eval_steps, "launches": counts,
+                    "launches_per_step": one, "step_ms": step_ms,
+                    "peak_gib": peak_gb, "f32_step_ms": step32,
+                    "f32_peak_gib": peak32, "epoch_clips_per_s": clips_s,
+                    "kernel_ms_by_family": families,
+                    "kernel_busy_pct": busy / step_ms * 100,
+                    "loss_bf16": loss16, "loss_f32": loss32,
+                    "loss_rel_diff": rel32, "row_loss_card": card_row,
+                    "row_loss_cpu": cpu_row, "row_rel_diff": rel_cpu,
+                    "row_logit_rel_err": logit_err}))
+    BF16_LAUNCHES[f"train_{label}_bf16"] = counts
+    shutil.rmtree(trainer.run_dir, ignore_errors=True)  # its checkpoints
+    del trainer
 
 
 def after_ms(pre, fn, reps: int = 20) -> float:
@@ -2642,7 +2800,14 @@ def audio_vgg_phase(card_line, k1):
 
         with torch.no_grad():
             k1_after_conv = after_ms(lambda: vgg.conv7(act), stft_k1)
-        del trainer
+        # bf16: the spectrogram returns f32 (as JAX's), so K1 and the VGG
+        # run in f32 on the bf16-rounded weights.  The f32 run's ~1 GB
+        # checkpoints and its trainer go first
+        shutil.rmtree(trainer.run_dir, ignore_errors=True)
+        del trainer, vgg, h, x, xpad, zeros, act
+        bf16_cli_phase("audio_vgg", cli, args, card_line, batch,
+                       (step_ms, peak_gb), {"framed_conv1d": 1},
+                       cpu_tol=1e-3)
     busy = sum(families.values())
     k1_in_step = families.get("framed_conv1d (K1)", 0.0)
     stft = k1["stft_b16"]
@@ -2707,8 +2872,11 @@ def text_phase(card_line):
                 os.path.join(tmp, "runs"), "--run_name", "r", "--epoch_num",
                 "2", "--device", DEVICE, "--num_threads", "4",
                 "--batch_size", "16"]
-        return train_cli_phase("text", cli, args, card_line, {},
-                               {"parity_max_abs_logit_err": err})[0]
+        counts, _, batch, timing = train_cli_phase(
+            "text", cli, args, card_line, {},
+            {"parity_max_abs_logit_err": err})
+        bf16_cli_phase("text", cli, args, card_line, batch, timing, {})
+        return counts
 
 
 # the video transformer trained at its defaults (cli/train_video_transformer
@@ -2741,9 +2909,14 @@ def video_transformer_phase(card_line):
         args = ["--files_root", root, "--saving_dir",
                 os.path.join(tmp, "runs"), "--run_name", "r", "--epoch_num",
                 "2", "--device", DEVICE, "--num_threads", "4"]
-        return train_cli_phase(
-            "video_transformer", cli, args, card_line,
-            {"window_attention": 12, "roll": 4}, parity)[0]
+        # bf16: the 128 -> 112 resize returns f32 (as JAX's), so the Swin
+        # and its K2 and K4 run in f32 on the bf16-rounded weights
+        per_step = {"window_attention": 12, "roll": 4}
+        counts, _, batch, timing = train_cli_phase(
+            "video_transformer", cli, args, card_line, per_step, parity)
+        bf16_cli_phase("video_transformer", cli, args, card_line, batch,
+                       timing, per_step, cpu_frames=16, cpu_tol=1e-3)
+        return counts
 
 
 # the audio,text model trained at full width (cli/train_audio_text.py
@@ -2776,8 +2949,11 @@ def audio_text_phase(card_line):
         args = ["--dataset_root", root, "--saving_dir",
                 os.path.join(tmp, "runs"), "--run_name", "r", "--epoch_num",
                 "2", "--device", DEVICE, "--num_threads", "4"]
-        return train_cli_phase("audio_text", cli, args, card_line,
-                               {"framed_conv1d": 1}, parity)[0]
+        counts, _, batch, timing = train_cli_phase(
+            "audio_text", cli, args, card_line, {"framed_conv1d": 1}, parity)
+        bf16_cli_phase("audio_text", cli, args, card_line, batch, timing,
+                       {"framed_conv1d": 1})
+        return counts
 
 
 # the audio RNN entry at its defaults (cli/train_audio_rnn.py: 10 s at 16
@@ -2851,12 +3027,14 @@ def audio_rnn_phase(card_line):
             line = dict(parity[extractor])
             line.update({f"{e}_{k}": v for e in others
                          for k, v in parity[e].items()})
-            counts, trainer = train_cli_phase(label, cli, args, card_line,
-                                              per_step, line, AUDIO_RNN_HEADS)
+            counts, trainer, batch, timing = train_cli_phase(
+                label, cli, args, card_line, per_step, line, AUDIO_RNN_HEADS)
             if extractor == "wav2vec1":
                 encoder_layers_ms(trainer)
-            launches.append(counts)
             del trainer
+            bf16_cli_phase(label, cli, args, card_line, batch, timing,
+                           per_step, AUDIO_RNN_HEADS)
+            launches.append(counts)
     return launches
 
 
@@ -2893,13 +3071,16 @@ def video_rnn_phase(card_line):
                 os.path.join(tmp, "runs"), "--run_name", "r", "--epoch_num",
                 "2", "--device", DEVICE, "--num_threads", "4",
                 "--epoch_dirs"]
-        counts, trainer = train_cli_phase("video_rnn", cli, args, card_line,
-                                          {}, parity, AUDIO_RNN_HEADS)
+        counts, trainer, batch, timing = train_cli_phase(
+            "video_rnn", cli, args, card_line, {}, parity, AUDIO_RNN_HEADS)
         read = trainer.train_loader.source.root
         if read != os.path.join(root, "train", "1"):
             raise AssertionError(f"train video_rnn: epoch 1 read {read}")
         log("train video_rnn: --epoch_dirs moved the train source to "
             "train/1 ok")
+        del trainer
+        bf16_cli_phase("video_rnn", cli, args, card_line, batch, timing, {},
+                       AUDIO_RNN_HEADS)
     return counts
 
 
@@ -3018,8 +3199,11 @@ def audio_transformer_w2v_phase(card_line):
                 os.path.join(tmp, "runs"), "--run_name", "r", "--epoch_num",
                 "2", "--device", DEVICE, "--num_threads", "4", "--arch",
                 "transformer", "--batch_size", "16"]
-        return train_cli_phase("audio_transformer_w2v", cli, args, card_line,
-                               {}, parity)[0]
+        counts, _, batch, timing = train_cli_phase(
+            "audio_transformer_w2v", cli, args, card_line, {}, parity)
+        bf16_cli_phase("audio_transformer_w2v", cli, args, card_line, batch,
+                       timing, {})
+        return counts
 
 # extract_features at its CLI defaults (b4 clips of 304 frames at 112 px,
 # 16-frame windows): 19 windows a clip, 76 a batch.  The Swin's patch grid
@@ -3113,22 +3297,77 @@ def k2_extract_phase(card: str):
             "forward_bound_ms": fwd_bound}
 
 
+def k2_extract_bf16_phase(card: str):
+    """K2 in bf16 at every shape of the bf16 extraction forward (K2_EXTRACT:
+    qkv and the cast bias table's bias bf16, each stage's real mask f32)
+    against its bf16 plain version within BF16_TOL of the largest output,
+    as bf16_kernel_phase holds it at N = 196; at stage 0's shifted block
+    (W = 1216, N = 392, 3 heads, d 32, nW_img 16) the kernel's, the plain
+    version's and SDPA's (bf16) times cold (L2 flushed) and warm (back to
+    back) against the bound with bf16 bytes."""
+    kw = dict(stage_mask=True, window=(8, 7, 7), grids=K2_EXTRACT_GRIDS)
+    worst = 0.0
+    for name, w, n, heads, d, nw, _ in K2_EXTRACT:
+        qkv, bias, mask = k2_inputs(w, n, heads, d, nw, seed=70 + w, **kw)
+        q16, b16 = qkv.to(BF16), bias.to(BF16)
+        del qkv, bias
+        err = bf16_check(f"k2 bf16 extract {name}",
+                         fused_window_attention(q16, b16, mask, heads),
+                         attention_core_reference(q16, b16, mask, heads))
+        worst = max(worst, err)
+        log(f"bf16 k2 extract {name}: W={w} N={n} heads={heads} d={d} "
+            f"nW={nw}, bf16 in and out: {err:.3e} of the largest <= "
+            f"{BF16_TOL} ok")
+        del q16, b16, mask
+    name, w, n, heads, d, nw, _ = K2_EXTRACT[0]
+
+    def make(i):
+        qkv, bias, mask = k2_inputs(w, n, heads, d, nw, seed=70 + i, **kw)
+        return qkv.to(BF16), bias.to(BF16), mask
+
+    call = rotating(make, n=2)
+    fns = {"ms": call(lambda q, b, m: fused_window_attention(q, b, m, heads)),
+           "plain_ms": call(lambda q, b, m: attention_core_reference(
+               q, b, m, heads)),
+           # yardstick only: the one PyTorch call for the same function
+           "library_ms": rotating(lambda i: sdpa_args_bf16(*make(i), heads),
+                                  n=2)(sdpa)}
+    cold = in_turns(fns, reps=10, timer=cold_ms)
+    warm = in_turns(fns, reps=10)
+    work = k2_work_bf16(w, n, heads, d, nw)
+    bd = bound(card, *work)
+    labels = {"ms": "kernel", "plain_ms": "plain", "library_ms": "SDPA"}
+    for label, t in (("cold", cold), ("warm", warm)):
+        log(f"bf16 k2 extract {name} timing ({label}) on {card}: "
+            + ", ".join(f"{labels[k]} {v:.4f} ms" for k, v in t.items())
+            + f"; {work[1] / 1e6:.1f} MB; {bound_text(bd)}; kernel at "
+            f"{bd['bound_ms'] / t['ms'] * 100:.1f}% of the bound")
+    del call, fns
+    return {**cold, "warm": warm, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "max_abs_err": worst,
+            "shape": [w, n, heads, d, nw]}
+
+
 def k4_extract_phase(card: str):
-    """K4 at the extraction forward's two shifted stages, both signs, bit
-    for bit against torch.roll; the kernel's, the plain version's and
-    torch.roll's times cold and warm against the bytes bound."""
+    """K4 at the extraction forward's two shifted stages, both signs, in
+    f32 and in bf16 (the bf16 extraction's), bit for bit against
+    torch.roll; the kernel's, the plain version's and torch.roll's times
+    (f32) cold and warm against the bytes bound."""
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
     for stage, shape in K4_EXTRACT.items():
-        x = torch.randn(shape, generator=g, device=DEVICE)
-        for shifts in ((0, 3, 3), (0, -3, -3)):
-            got = circular_roll(x, shifts)
-            torch.cuda.synchronize()
-            if not torch.equal(got, roll_reference(x, shifts)):
-                raise AssertionError(f"k4 extract {stage} {shifts}: differs "
-                                     "from torch.roll")
-        log(f"k4 extract {stage}: {shape} by (0, +-3, +-3) bitwise equal to "
-            "torch.roll ok")
-        del x, got
+        x32 = torch.randn(shape, generator=g, device=DEVICE)
+        for x in (x32, x32.to(BF16)):
+            for shifts in ((0, 3, 3), (0, -3, -3)):
+                got = circular_roll(x, shifts)
+                torch.cuda.synchronize()
+                want = roll_reference(x, shifts)
+                if not (got.dtype == x.dtype and torch.equal(
+                        got.view(torch.uint8), want.view(torch.uint8))):
+                    raise AssertionError(f"k4 extract {stage} {x.dtype} "
+                                         f"{shifts}: differs from torch.roll")
+        log(f"k4 extract {stage}: {shape} by (0, +-3, +-3) in f32 and bf16 "
+            "bitwise equal to torch.roll ok")
+        del x, x32, got, want
     out = {"max_abs_err": 0.0}
     labels = {"ms": "kernel", "plain_ms": "plain (torch.roll)",
               "library_ms": "torch.roll"}
@@ -3198,8 +3437,11 @@ def train3dcnn_phase(card_line):
         args = ["--files_root", root, "--saving_dir",
                 os.path.join(tmp, "runs"), "--run_name", "r", "--epoch_num",
                 "2", "--device", DEVICE, "--num_threads", "4"]
-        return train_cli_phase("train3dcnn", cli, args, card_line, {},
-                               parity, split_conv=True)[0]
+        counts, _, batch, timing = train_cli_phase(
+            "train3dcnn", cli, args, card_line, {}, parity, split_conv=True)
+        bf16_cli_phase("train3dcnn", cli, args, card_line, batch, timing, {},
+                       cpu_frames=8)
+        return counts
 
 
 # extract_features: 4 train and 4 test clips of 304 frames at 112 px, one
@@ -3346,16 +3588,110 @@ def extract_backbone(backbone, root, tmp, card_line):
     return counts
 
 
+def extract_bf16(backbone, root, tmp, card_line):
+    """cli.extract_features.main --compute_dtype bfloat16 at its defaults on
+    extract_backbone's clips (launch counts reset just before, read just
+    after): every variable (BatchNorm statistics too) and the clips cast,
+    as the JAX CLI does, so each Swin forward launches K2 12 and K4 4 in
+    bf16 (K2 at N = 392) and R3D-18 and S3D none; the files f32 and (19,
+    D), each within 0.1 of its largest value of the f32 run's file
+    (tests/test_precision.py:92); one window's bf16 features of the model
+    with extract_backbone's norms, card against CPU within 2e-2 of the
+    largest; the device ms of a b4 forward in bf16 and f32, in turns."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        extract_features as cli)
+
+    name = f"extract {backbone} bf16"
+    dim = EXTRACT_DIMS[backbone]
+    per_forward = {kernels.launch_key(k, BF16): v for k, v in
+                   PER_EXTRACT_FORWARD[backbone].items()}
+    out = os.path.join(tmp, f"out_{backbone}_bf16")
+    f32_out = os.path.join(tmp, f"out_{backbone}")
+    args = ["--files_root", root, "--out_root", out, "--backbone", backbone,
+            "--num_epochs", "1", "--swin_gelu", "poly", "--device", DEVICE,
+            "--seed", str(SEED), "--compute_dtype", "bfloat16"]
+    torch.cuda.synchronize()
+    kernels.launch_counts.clear()  # count this path only
+    t0 = time.monotonic()
+    cli.main(args)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launch_counts)  # read just after the main path
+    run_s = time.monotonic() - t0
+    forwards = 3
+    if counts != {k: v * forwards for k, v in per_forward.items()}:
+        raise AssertionError(f"{name}: {forwards} forwards launched "
+                             f"{counts}, want {per_forward} each")
+    worst = 0.0
+    for sub in ("test", "train/0", "train/1"):
+        for f in sorted(os.listdir(os.path.join(f32_out, sub))):
+            a = np.load(os.path.join(out, sub, f))
+            want = np.load(os.path.join(f32_out, sub, f))
+            err = float(np.abs(a - want).max() / np.abs(want).max())
+            if a.dtype != np.float32 or a.shape != want.shape or not (
+                    err <= 0.1):
+                raise AssertionError(f"{name}: {sub}/{f} {a.dtype} "
+                                     f"{a.shape}, {err:.3e} of the f32 "
+                                     "file's largest")
+            worst = max(worst, err)
+
+    cfg = cli.parse_config(cli.ExtractConfig, ["--backbone", backbone,
+                                               "--swin_gelu", "poly"])
+    model = randomize_norms(seeded_init_(cli.make_extractor(cfg), SEED))
+    clip = torch.rand((1, cfg.window, 112, 112, 3),
+                      generator=torch.Generator().manual_seed(SEED + 19))
+    cpu16 = copy.deepcopy(model).to(BF16)
+    gpu32 = model.to(DEVICE)
+    gpu16 = copy.deepcopy(gpu32).to(BF16)
+    with torch.inference_mode():
+        want = cpu16(clip.to(BF16)).float()
+        got = gpu16(clip.to(DEVICE, BF16)).float().cpu()
+        parity = ((got - want).abs().max() / want.abs().max()).item()
+        if got.shape != (1, 1, dim) or not parity <= 2e-2:
+            raise AssertionError(f"{name}: card vs cpu {parity:.3e} of the "
+                                 "largest > 2e-2")
+        batch = torch.rand((cfg.batch_size, cfg.frame_num, 112, 112, 3),
+                           generator=torch.Generator().manual_seed(SEED + 18)
+                           ).to(DEVICE)
+        b16 = batch.to(BF16)
+        ms = in_turns({"bf16": lambda: gpu16(b16), "f32": lambda: gpu32(batch)},
+                      reps=3)
+        torch.cuda.reset_peak_memory_stats()
+        gpu16(b16)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        families = kernel_breakdown(lambda: gpu16(b16), reps=2,
+                                    split_conv=True)
+    del batch, b16, gpu16, gpu32, cpu16, model
+    log(f"{name} main path on {card_line}: launches {counts} "
+        f"({per_forward} per forward), run {run_s:.1f} s; files f32 within "
+        f"{worst:.3e} of the f32 run's largest <= 0.1; one window card vs "
+        f"cpu {parity:.3e} <= 2e-2 ok; device forward b4 x {cfg.frame_num} "
+        f"frames bf16 {ms['bf16']:.3f} ms (f32 {ms['f32']:.3f} ms), peak "
+        f"{peak:.2f} GiB; kernels by family (ms per forward): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(families.items(),
+                                              key=lambda kv: -kv[1])))
+    log(json.dumps({"extract": f"{backbone} bf16", "compute_dtype": "bfloat16",
+                    "launches": counts, "launches_per_forward": per_forward,
+                    "max_rel_err_vs_f32": worst, "parity_rel_err": parity,
+                    "forward_ms": ms["bf16"], "f32_forward_ms": ms["f32"],
+                    "peak_gib": peak, "kernel_ms_by_family": families,
+                    "run_s": run_s}))
+    return counts
+
+
 def extract_phase(card_line):
-    """extract_features with each backbone on the same clips."""
+    """extract_features with each backbone on the same clips, then each in
+    bf16."""
     from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
         make_synthetic_videos)
 
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "vids")
         make_synthetic_videos(root, seed=SEED, **EXTRACT_CLIPS)
-        return {f"extract_{b}": extract_backbone(b, root, tmp, card_line)
-                for b in EXTRACT_DIMS}
+        out = {f"extract_{b}": extract_backbone(b, root, tmp, card_line)
+               for b in EXTRACT_DIMS}
+        out.update({f"extract_{b}_bf16": extract_bf16(b, root, tmp, card_line)
+                    for b in EXTRACT_DIMS})
+        return out
 
 
 def generate_features_phase(card_line):
@@ -3738,11 +4074,69 @@ def export_phase(card_line):
             out[f"export_{key}"] = counts
             del live, source, exported
             torch.cuda.empty_cache()
+        out["export_video_transformer_bf16"] = export_bf16_phase(
+            tmp, card_line)
         out["serve_exported"] = serve_exported_phase(
             dirs["flag_w8a8"], dirs["tri_int8"], card_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def export_bf16_phase(tmp, card_line):
+    """cli.export_model --entry train_video_transformer --compute_dtype
+    bfloat16 at the entry's defaults (b8, 128 frames at 112 px) on the
+    card, scored there: the frames come at the model's size (no resize),
+    so the Swin runs in bf16 and each forward launches K2 12 and K4 4 in
+    bf16 through the mar_torch:: ops; the artifact against a live bf16
+    Predictor of the same seeded model within 1e-6."""
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        export_model, train_video_transformer as vt)
+    from multimodalaggressionrecognition_tpu_torch.io.export import (
+        ARTIFACT, ExportedPredictor)
+    from multimodalaggressionrecognition_tpu_torch.serve import Predictor
+
+    out_dir = os.path.join(tmp, "video_transformer_bf16")
+    t0 = time.monotonic()
+    export_model.main(["--entry", "train_video_transformer",
+                       "--allow_random_weights", "true", "--compute_dtype",
+                       "bfloat16", "--device", DEVICE, "--seed", str(SEED),
+                       "--output_dir", out_dir])
+    export_s = time.monotonic() - t0
+    cfg = vt.VideoTransformerConfig()
+    live = Predictor(seeded_init_(vt.make_model(cfg), SEED),
+                     batch_size=cfg.batch_size, device=DEVICE,
+                     compute_dtype="bfloat16")
+    exported = ExportedPredictor(out_dir, device=DEVICE)
+    g = torch.Generator().manual_seed(SEED + 33)
+    clips = {"video": torch.rand((cfg.batch_size, cfg.video_frames,
+                                  cfg.video_size, cfg.video_size, 3),
+                                 generator=g).numpy()}
+    expect = {kernels.launch_key("window_attention", BF16): 12,
+              kernels.launch_key("roll", BF16): 4}
+    got, counts = _exported_counts(exported, clips, "video_transformer_bf16",
+                                   expect)
+    want = live.predict(clips, return_probs=False)
+    err = max(float(np.abs(got[h] - want[h]).max()) for h in want)
+    if not (err <= 1e-6 and all(np.isfinite(v).all() for v in got.values())):
+        raise AssertionError(f"export video_transformer_bf16: artifact vs "
+                             f"live |dlogit| {err} > 1e-6")
+    padded = exported._pad_batch(clips, cfg.batch_size)
+    ms = cuda_ms(lambda: exported._forward(padded), reps=5)
+    live_ms = cuda_ms(lambda: live._forward(padded), reps=5)
+    size = os.path.getsize(os.path.join(out_dir, ARTIFACT))
+    log(f"export video_transformer_bf16 (b{cfg.batch_size}, exported on "
+        f"{DEVICE}) on {card_line}: {export_s:.1f} s, {size} B, launches "
+        f"{counts} ok; artifact vs live bf16 max |dlogit| {err:.3e} <= 1e-6 "
+        f"ok; forward {ms:.3f} ms (live {live_ms:.3f})")
+    log(json.dumps({"export": "video_transformer_bf16",
+                    "batch": cfg.batch_size, "compute_dtype": "bfloat16",
+                    "export_s": export_s, "artifact_bytes": size,
+                    "launches": counts, "max_abs_logit_err": err,
+                    "forward_ms": ms, "live_forward_ms": live_ms}))
+    del live, exported
+    torch.cuda.empty_cache()
+    return counts
 
 
 PER_FORWARD_LAUNCHES = {label: per_forward
@@ -3902,6 +4296,7 @@ def main():
     k2["extract"] = k2_extract_phase(name)
     k3 = {**k3_phase(name), "resources": resources["window_attention_bwd"]}
     bf16 = bf16_kernel_phase(name)
+    k2["bf16_extract"] = k2_extract_bf16_phase(name)
     launches = {label: run_slice(label, cfg, bs, parity_n, per_forward,
                                  card_line)
                 for label, cfg, bs, parity_n, per_forward in SLICES}
@@ -3938,6 +4333,16 @@ def main():
     launches.update(extract_phase(card_line))
     launches["generate_features"] = generate_features_phase(card_line)
     launches["doctor"] = doctor_phase()
+    launches.update(BF16_LAUNCHES)
+    for numbers, kernel in ((k1, "framed_conv1d"), (k2, "window_attention"),
+                            (k4, "roll")):
+        # the paths that launched it under --compute_dtype bfloat16, by the
+        # dtype of its instantiation (K1 is always f32 inside)
+        numbers["launches_under_bf16"] = {
+            p: {k: v for k, v in c.items() if k.startswith(kernel + ".")
+                or k == kernel}
+            for p, c in launches.items() if "bf16" in p and any(
+                k == kernel or k.startswith(kernel + ".") for k in c)}
 
     def entry(kernel, source, replaces, numbers):
         return {"name": kernel, "route": "cuda",

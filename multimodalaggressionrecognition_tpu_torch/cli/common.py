@@ -5,9 +5,10 @@ training half (dataset provisioning, optimizer, trainer).
 (`--lr_schedule`, `--lr_decay_steps`, `--lr_decay_rate`, `--warmup_steps`,
 `--grad_clip_norm`, `--weight_decay`, `--grad_accum_steps`), the EMA
 (`--ema_decay`), early stopping, the profiler, TensorBoard and
-`--compute_dtype` (bfloat16 where an entry accepts it; the others call
-`require_float32`).  Not ported: multi-GPU (`--data_parallel`,
-`--model_parallelism`) and, by design, the XLA compilation cache.
+`--compute_dtype` (bfloat16 on every train entry, as in the JAX package;
+`generate_features` calls `require_float32`).  Not ported: multi-GPU
+(`--data_parallel`, `--model_parallelism`) and, by design, the XLA
+compilation cache.
 `--from_run <run dir>` fills every field not passed on the command line
 from the run's saved config.json.
 """
@@ -46,8 +47,8 @@ class TrainConfig:
     ema_decay: float = 0.0  # 0: off; else eval and serve the EMA shadow
     early_stop_patience: int = 0  # 0: off; else stop after N flat epochs
     # "float32", or "bfloat16" (f32 master parameters, optimizer state,
-    # BatchNorm statistics and losses; bf16 activations) where the entry
-    # takes it
+    # BatchNorm statistics and losses; bf16 parameters and inputs inside
+    # the step, each layer computing in its input's dtype)
     compute_dtype: str = "float32"
     # torch.profiler Chrome trace of one training epoch ('' = off), epoch
     # min(profile_epoch, epoch_num - 1)
@@ -248,27 +249,25 @@ def quantize_mode(cfg):
     return cfg.quantize or None
 
 
-def require_float32(cfg, runs: str):
-    """--compute_dtype other than float32 raises, for the entries that `run`
-    (train, extract) in f32 only: bf16 on their norms and cuDNN RNNs needs
-    its own checks (ROADMAP.md, queue 1 item 12)."""
+def require_float32(cfg, entry: str):
+    """--compute_dtype other than float32 exits, for an entry that always
+    runs in f32: the JAX package's `generate_features` parses the flag and
+    ignores it, so its tokens are f32 whatever the flag says, and this
+    entry refuses the flag rather than ignore it."""
     if compute_dtype(cfg) is not None:
-        raise SystemExit(f"--compute_dtype {cfg.compute_dtype} is not "
-                         f"ported for this entry: it {runs} in float32; "
-                         "bf16 runs in train_multimodal, evaluate, predict "
-                         "and serve (ROADMAP.md, queue 1 item 12)")
+        raise SystemExit(f"--compute_dtype {cfg.compute_dtype}: {entry} "
+                         "always runs in float32 (the JAX package's "
+                         f"{entry} ignores the flag), so it takes float32 "
+                         "only")
 
 
 def build_trainer(cfg: TrainConfig, model, loss_specs, train_loader,
-                  test_loader, num_classes: int = 2, on_epoch_start=None,
-                  bf16: bool = False):
-    """The entry's Trainer with every knob of `cfg`; `bf16`: the entry
-    takes --compute_dtype bfloat16 (else it must be float32)."""
+                  test_loader, num_classes: int = 2, on_epoch_start=None):
+    """The entry's Trainer with every knob of `cfg`, --compute_dtype
+    included."""
     from ..serve import resolve_device
     from ..train.loop import Trainer
 
-    if not bf16:
-        require_float32(cfg, "trains")
     run_dir = (os.path.join(cfg.saving_dir, cfg.run_name) if cfg.run_name
                else None)
     trainer = Trainer(

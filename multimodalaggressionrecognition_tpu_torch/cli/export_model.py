@@ -17,7 +17,8 @@ the artifact as `mar_torch::` custom ops.
 train_multimodal), and the other flags are that entry's own config; each
 entry declares its per-modality clip shapes (`export_spec(cfg)`), which the
 artifact's meta carries.  `--quantize int8|w8a8` exports the quantized
-forward.  The export traces on `--device` (CUDA unless `--device cpu`);
+forward, and `--compute_dtype bfloat16` the bf16 one, for every entry.
+The export traces on `--device` (CUDA unless `--device cpu`);
 `--platforms` (default cpu,cuda) lists the devices the artifact may be
 scored on.  `--native true` (JAX: keep Mosaic custom calls, TPU only) is
 refused: the port's artifact always keeps its kernels.
@@ -72,8 +73,7 @@ def main(argv=None):
     from ..io.export import ARTIFACT, export_predictor
     from ..models.layers import seeded_init_
     from ..serve import Predictor, resolve_device
-    from .common import (compute_dtype, flag_value, parse_config,
-                         quantize_mode, require_float32)
+    from .common import compute_dtype, flag_value, parse_config, quantize_mode
 
     entry_name = flag_value(sys.argv[1:] if argv is None else argv, "entry",
                             "train_multimodal")
@@ -92,8 +92,6 @@ def main(argv=None):
             "--native true keeps the TPU's Mosaic kernels and is TPU-only; "
             "the PyTorch artifact always keeps its CUDA kernels as "
             "mar_torch:: ops (io/export.py)")
-    if entry_name != "train_multimodal":
-        require_float32(cfg, "exports")
     device = resolve_device(cfg.device)  # fail before any model work
     quantize = quantize_mode(cfg)
 

@@ -21,7 +21,11 @@ MAR_EXTRACT_PIPELINE=0 waits for each batch before the next (the JAX
 package's switch).  The weights are seeded from --seed with an explicit
 generator (`models/layers.seeded_init_`); pretrained weights load through
 io/from_jax.py.  As in the JAX package the clips run at their own size:
---video_size is accepted and not read.  Runs on CUDA unless --device cpu.
+--video_size is accepted and not read.  --compute_dtype bfloat16 casts
+every floating weight and buffer of the backbone (BatchNorm's running
+statistics included) and each batch to bf16, as the JAX CLI casts its
+variables and batch; the features are saved as f32 either way.  Runs on
+CUDA unless --device cpu.
 
   python -m multimodalaggressionrecognition_tpu_torch.cli.extract_features \\
       --files_root clips --backbone swin3d_t
@@ -36,8 +40,8 @@ import torch
 from torch import nn
 
 from ..models.video_extractors import WindowedVideoExtractor
-from .common import (NamesPinConfig, parse_config, pinned_files,
-                     require_float32)
+from .common import (NamesPinConfig, compute_dtype, parse_config,
+                     pinned_files)
 
 
 @dataclass
@@ -88,9 +92,10 @@ def make_extractor(cfg) -> Extractor:
 
 
 def run_split(model, cfg, device, split_root, out_dir, augment=None,
-              names=None):
-    """Extract one split directory into `out_dir`; returns the number of
-    clips written."""
+              names=None, dtype=None):
+    """Extract one split directory into `out_dir`, each batch cast to
+    `dtype` (None: f32) on the device; returns the number of clips
+    written."""
     from ..data.files import FilenameLabelSource
     from ..data.pipeline import readback
     from ..data.transforms import pad_video
@@ -129,7 +134,8 @@ def run_split(model, cfg, device, split_root, out_dir, augment=None,
         if device.type == "cuda":
             batch = batch.pin_memory()
         with torch.inference_mode():
-            feats = model(batch.to(device, non_blocking=True))
+            x = batch.to(device, non_blocking=True)
+            feats = model(x if dtype is None else x.to(dtype)).float()
         pending.append((idx, *readback(feats, device)))
         if len(pending) > depth:
             save(*pending.popleft())
@@ -145,20 +151,23 @@ def main(argv=None):
 
     cfg = parse_config(ExtractConfig, argv)
     device = resolve_device(cfg.device)
-    require_float32(cfg, "extracts")
+    dtype = compute_dtype(cfg)
     out_root = cfg.out_root or (cfg.files_root + "_features")
     model = seeded_init_(make_extractor(cfg), cfg.seed).to(device).eval()
+    if dtype is not None:
+        model = model.to(dtype)
     train_root = os.path.join(cfg.files_root, "train")
     run_split(model, cfg, device, os.path.join(cfg.files_root, "test"),
-              os.path.join(out_root, "test"), names=pinned_files(cfg, "test"))
+              os.path.join(out_root, "test"), names=pinned_files(cfg, "test"),
+              dtype=dtype)
     run_split(model, cfg, device, train_root,
               os.path.join(out_root, "train", "0"),
-              names=pinned_files(cfg, "train"))
+              names=pinned_files(cfg, "train"), dtype=dtype)
     for epoch in range(1, cfg.num_epochs + 1):
         run_split(model, cfg, device, train_root,
                   os.path.join(out_root, "train", str(epoch)),
                   augment=PairedVideoAugment(seed=cfg.seed + epoch),
-                  names=pinned_files(cfg, "train"))
+                  names=pinned_files(cfg, "train"), dtype=dtype)
     print(f"features written to {out_root}")
     return out_root
 

@@ -54,7 +54,7 @@ def main(argv=None):
 
     cfg = parse_config(GenFeaturesConfig, argv)
     device = resolve_device(cfg.device)  # fail before any data or model work
-    require_float32(cfg, "extracts")
+    require_float32(cfg, "generate_features")
     modalities = tuple(cfg.modalities.split(","))
     df, split = ensure_dataset(cfg)
     train_loader, test_loader = make_loaders(cfg, df, split, modalities)

@@ -163,8 +163,7 @@ def make_trainer(cfg):
                          gamma=cfg.focal_gamma),
         "verb": LossSpec("ce"),
     }
-    return build_trainer(cfg, model, loss_specs, train_loader, test_loader,
-                         bf16=True)
+    return build_trainer(cfg, model, loss_specs, train_loader, test_loader)
 
 
 def main(argv=None):

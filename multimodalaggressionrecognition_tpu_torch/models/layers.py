@@ -12,9 +12,13 @@ two documented divergences from torch hold:
 
 The JAX package's `TorchLinear` is `Linear` here (nn.Linear, with the
 int8 path of w8a8 serving) and its `TorchLayerNorm` is `LayerNorm`
-(nn.LayerNorm, eps 1e-5, in f32 under a lower compute dtype).  The
-key-padding mask is True for a masked key.  Parameter names follow torch's, so io/from_jax.py
-maps the JAX trees onto them.
+(nn.LayerNorm, eps 1e-5, in f32 under a lower compute dtype).  As in the
+JAX package, a layer computes in its input's dtype with its weights cast
+to it: under bf16 compute (utils/precision.py) a bf16 input runs in bf16,
+and an f32 one (the output of an op that returns f32, such as a GRU's)
+runs in f32 on the bf16-rounded weights.  The key-padding mask is True
+for a masked key.  Parameter names follow torch's, so io/from_jax.py maps
+the JAX trees onto them.
 """
 
 import math
@@ -43,13 +47,16 @@ class LayerNorm(nn.LayerNorm):
 
 
 class Linear(nn.Linear):
-    """nn.Linear, quant-aware as the JAX TorchLinear is: holding an int8
-    weight and its `weight_scale` (w8a8 serving, utils/quantize.py) it runs
-    int8 x int8 -> int32 on dynamically quantized activations."""
+    """nn.Linear in its input's dtype (a float weight and bias cast to it),
+    quant-aware as the JAX TorchLinear is: holding an int8 weight and its
+    `weight_scale` (w8a8 serving, utils/quantize.py) it runs int8 x int8 ->
+    int32 on dynamically quantized activations."""
 
     def forward(self, x):
         if self.weight.dtype != torch.int8:
-            return super().forward(x)
+            return F.linear(x, self.weight.to(x.dtype),
+                            None if self.bias is None
+                            else self.bias.to(x.dtype))
         from ..utils.quantize import int8_linear
 
         return int8_linear(x, self.weight, self.weight_scale, self.bias)
@@ -78,7 +85,8 @@ class MultiheadSelfAttention(nn.Module):
             qkv = int8_linear(x, self.in_proj_weight,
                               self.in_proj_weight_scale, self.in_proj_bias)
         else:
-            qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+            qkv = F.linear(x, self.in_proj_weight.to(x.dtype),
+                           self.in_proj_bias.to(x.dtype))
         # (B, T, 3E) -> 3 x (B, H, T, d)
         q, k, v = qkv.view(b, t, 3, h, d).permute(2, 0, 3, 1, 4)
         # the scores and the softmax in f32 whatever the compute dtype, the

@@ -16,9 +16,10 @@ draw from explicit generators (models/stochastic.py).
 
 Under bf16 compute (utils/precision.py) every layer returns its input's
 dtype, as in the JAX package: the kernel's stem runs in f32 with a cast in
-and out (its folded BatchNorm scale and shift are f32), BatchNorm takes its
-statistics in f32 from the widened input, and the other convolutions run in
-bf16, any folded affine applied in f32 before the rounding.
+and out (its folded BatchNorm scale and shift are f32), BatchNorm and
+GroupNorm take their statistics in f32 from the widened input, and the
+other convolutions run in the input's dtype with the weights cast to it,
+any folded affine applied in f32 before the rounding.
 """
 
 import torch
@@ -75,7 +76,8 @@ class Conv1d(nn.Module):
                     relu=relu).to(dtype)
             y = framed_conv1d_trainable(*args)
         else:
-            y = F.conv1d(x.transpose(1, 2), weight.to(dtype), self.bias,
+            y = F.conv1d(x.transpose(1, 2), weight.to(dtype),
+                         None if self.bias is None else self.bias.to(dtype),
                          stride=self.stride, padding=self.padding
                          ).transpose(1, 2)
         if scale is not None:
@@ -148,7 +150,11 @@ class SampleDropout(Stochastic):
 class GroupNorm(nn.GroupNorm):
     """torch nn.GroupNorm on (B, L, C): normalizes over L and each group of
     C / num_groups channels (one group: wav2vec-1; C groups: wav2vec-2's
-    norm0), eps 1e-5."""
+    norm0), eps 1e-5.  Under a lower compute dtype the statistics and the
+    affine run in f32 and the result takes the input's dtype, as in the
+    JAX package's GroupNorm."""
 
     def forward(self, x):
-        return super().forward(x.transpose(1, 2)).transpose(1, 2)
+        y = F.group_norm(x.transpose(1, 2).float(), self.num_groups,
+                         self.weight.float(), self.bias.float(), self.eps)
+        return y.to(x.dtype).transpose(1, 2)

@@ -12,6 +12,13 @@ pool in that layout.  Images run in torch's (B, C, H, W) layout
 channel axis 1.  The JAX package's `max_pool_nd` (-inf padding, floor) is
 `F.max_pool2d` / `F.max_pool3d`, and its `global_avg_pool` a mean over
 every axis after the channel one.
+
+Dtypes follow the JAX package: a convolution runs in its input's dtype with
+its weight and bias cast to it, and BatchNorm normalizes in f32 (`F.batch_norm`
+on the widened input and affine) and returns its input's dtype.  An
+extractor cast whole to bf16 (cli/extract_features.py) also has bf16
+running statistics; BatchNorm then takes nn1d.BatchNorm1d's formula,
+which rounds them as the JAX BatchNorm does.
 """
 
 import math
@@ -45,8 +52,8 @@ class Conv2d(nn.Module):
         nn.init.uniform_(self.bias, -bound, bound)
 
     def forward(self, x):
-        return F.conv2d(x, self.weight, self.bias, stride=self.stride,
-                        padding=self.padding)
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                        stride=self.stride, padding=self.padding)
 
 
 class BatchNorm2d(BatchNorm1d):
@@ -55,9 +62,13 @@ class BatchNorm2d(BatchNorm1d):
     with the unbiased variance, momentum 0.1; the running ones in eval."""
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, training=self.training,
-                            momentum=self.momentum, eps=self.eps)
+        if self.running_var.dtype != torch.float32:
+            # a cast extractor's bf16 statistics: the JAX formula's casts
+            return super().forward(x.movedim(1, -1)).movedim(-1, 1)
+        return F.batch_norm(x.float(), self.running_mean, self.running_var,
+                            self.weight.float(), self.bias.float(),
+                            training=self.training, momentum=self.momentum,
+                            eps=self.eps).to(x.dtype)
 
 
 class BatchNorm3d(BatchNorm2d):
@@ -88,10 +99,12 @@ class Conv3d(nn.Module):
             nn.init.uniform_(self.bias, -bound, bound)
 
     def forward(self, x):
+        weight = self.weight.to(x.dtype)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
         if self.channels_first:
-            return F.conv3d(x, self.weight, self.bias, stride=self.stride,
+            return F.conv3d(x, weight, bias, stride=self.stride,
                             padding=self.padding)
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.weight, self.bias,
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), weight, bias,
                      stride=self.stride, padding=self.padding)
         return y.permute(0, 2, 3, 4, 1)
 

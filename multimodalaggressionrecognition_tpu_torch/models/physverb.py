@@ -5,9 +5,9 @@ models/physverb.py).
 -> per-aggression-type heads.  A batch carries only the present modalities;
 absent ones become static zero feature stubs (`feature_shapes`), and a
 per-row {0,1} `present` mask zeroes the features of absent rows — padded
-serving rows included.  A stub takes the batch's floating dtype (bf16 under
-bf16 compute); the JAX package's stub is always f32, which promotes that
-forward's fusion and heads to f32.
+serving rows included.  A stub is f32 under any compute dtype, as the JAX
+package's: under bf16 it promotes that forward's fusion and heads to f32,
+which run on the bf16-rounded weights.
 """
 
 from typing import Dict, Mapping, Optional, Tuple
@@ -134,10 +134,8 @@ class PhysVerbModel(nn.Module):
                 feats[name] = f
             else:
                 t, d = self.feature_shapes[name]
-                dtype = (first.dtype if first.is_floating_point()
-                         else torch.float32)
                 feats[name] = torch.zeros((first.shape[0], t, d),
-                                          dtype=dtype, device=first.device)
+                                          device=first.device)
         return feats
 
     def forward(self, batch):

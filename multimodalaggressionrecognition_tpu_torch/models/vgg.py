@@ -54,7 +54,7 @@ class VGG11BN(nn.Module):
                                                                  f"bn{block}")
                 x = torch.relu(bn(conv(x)))
         if x.shape[-2:] != (7, 7):
-            x = F.adaptive_avg_pool2d(x, 7)
+            x = F.adaptive_avg_pool2d(x.float(), 7)  # f32, as JAX's pool
         x = self.drop1(torch.relu(self.fc1(x.flatten(1))))
         x = self.drop2(torch.relu(self.fc2(x)))
         return self.fc3(x)

@@ -108,7 +108,8 @@ class ConvPositionalEmbedding(nn.Module):
         nn.init.normal_(self.weight, std=(4.0 / (kernel * embed_dim)) ** 0.5)
 
     def forward(self, x):
-        y = F.conv1d(x.transpose(1, 2), self.weight, self.bias,
+        y = F.conv1d(x.transpose(1, 2), self.weight.to(x.dtype),
+                     self.bias.to(x.dtype),
                      padding=self.kernel // 2, groups=self.groups)
         if self.kernel % 2 == 0:
             y = y[:, :, :-1]

@@ -46,16 +46,18 @@ def dft_basis(n_fft: int, device=None) -> torch.Tensor:
 
 def spectrogram(x, n_fft: int = 512, hop: int | None = None,
                 power: float = 2.0, basis=None):
-    """Power spectrogram of a f32 signal (..., L) -> (..., n_freq, T), with
-    T = L // hop + 1.  `basis` is `dft_basis(n_fft)` on x's device (built
-    here when not given)."""
+    """Power spectrogram of a signal (..., L) -> (..., n_freq, T) in f32,
+    with T = L // hop + 1: a bf16 signal widens exactly and the result is
+    f32, as the JAX op's f32 products return.  `basis` is
+    `dft_basis(n_fft)` on x's device (built here when not given)."""
     hop = n_fft // 2 if hop is None else hop
     pad = n_fft // 2
     n_freq = n_fft // 2 + 1
     if basis is None:
         basis = dft_basis(n_fft, x.device)
     lead = x.shape[:-1]
-    xpad = F.pad(x.reshape(-1, x.shape[-1]), (pad, pad), mode="reflect")
+    xpad = F.pad(x.reshape(-1, x.shape[-1]).float(), (pad, pad),
+                 mode="reflect")
     y = framed_conv1d(xpad.contiguous(), basis, basis.new_zeros(2 * n_freq),
                       n_fft, hop, pad=0)  # (B, T, 2 * n_freq)
     spec = y[..., :n_freq].square() + y[..., n_freq:].square()

@@ -75,11 +75,12 @@ def resize_matrix(in_size: int, out_size: int, antialias: bool = True,
 
 def resize_bilinear(x, out_h: int, out_w: int, antialias: bool = True):
     """Resize (..., H, W, C) images via two matmuls, contracting H, then
-    W."""
+    W; f32 whatever x's dtype, as the JAX op's f32 products return (a
+    bf16 clip widens exactly)."""
     h, w = x.shape[-3], x.shape[-2]
     wh = resize_matrix(h, out_h, antialias, x.device)
     ww = resize_matrix(w, out_w, antialias, x.device)
-    y = torch.einsum("...hwc,oh->...owc", x, wh)
+    y = torch.einsum("...hwc,oh->...owc", x.float(), wh)
     return torch.einsum("...hwc,ow->...hoc", y, ww)
 
 

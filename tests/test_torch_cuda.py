@@ -888,3 +888,101 @@ def test_cpu_artifact_loads_on_the_card(cuda, tmp_path):
     scale = max(np.abs(v).max() for v in want.values())
     for head in want:
         assert np.abs(got[head] - want[head]).max() <= 1e-3 * scale
+
+
+# K2 in bf16 at the bf16 extraction's shapes (extract_features --backbone
+# swin3d_t --compute_dtype bfloat16: N = 392 at 3, 6 and 12 heads, N = 128
+# at 24), fewer windows; the shifted stages with a random mask
+BF16_K2_EXTRACT_SHAPES = [(32, 392, 3, 32, 16), (16, 392, 6, 32, 4),
+                          (8, 392, 12, 32, 0), (8, 128, 24, 32, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,n,heads,d,nw", BF16_K2_EXTRACT_SHAPES)
+def test_window_attention_bf16_at_the_extraction_shapes(cuda, w, n, heads, d,
+                                                        nw):
+    qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=n + heads)
+    q16, b16 = qkv.bfloat16(), bias.bfloat16()
+    before = dict(launch_counts)
+    got = fused_window_attention(q16, b16, mask, heads)
+    torch.cuda.synchronize()
+    assert launch_counts["window_attention.bf16"] == before.get(
+        "window_attention.bf16", 0) + 1
+    _bf16_close(got, attention_core_reference(q16, b16, mask, heads))
+
+
+# the eight export_model entries at tests/test_torch_export.py's small
+# widths (that file imports JAX, this one must not)
+EXPORT_ENTRIES = [
+    ("train_multimodal", ["--modalities", "audio,text", "--hidden_size", "64",
+                          "--fusion_heads", "4", "--audio_samples", "16000",
+                          "--text_tokens", "8"]),
+    ("train_text_transformer", ["--num_layers", "1", "--text_tokens", "8",
+                                "--hidden_size", "64", "--num_heads", "4"]),
+    ("train_audio_rnn", ["--extractor", "cnn1d", "--audio_seconds", "1",
+                         "--hidden_size", "32"]),
+    ("train_audio_transformer", ["--arch", "transformer", "--audio_seconds",
+                                 "1"]),
+    ("train_video_transformer", ["--video_frames", "8", "--video_size", "32",
+                                 "--video_window", "4", "--num_layers", "1"]),
+    ("train_video_rnn", ["--feature_dim", "32", "--hidden_size", "32",
+                         "--sequence_len", "5"]),
+    ("train_audio_text", ["--audio_samples", "16000", "--text_tokens", "8",
+                          "--hidden_size", "64"]),
+    ("train3dcnn", ["--frame_num", "8", "--video_size", "32"]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,flags", EXPORT_ENTRIES,
+                         ids=[e[0] for e in EXPORT_ENTRIES])
+def test_export_entry_families_bf16_on_the_card(cuda, entry, flags,
+                                                tmp_path):
+    """export_model --compute_dtype bfloat16 on the card, for each --entry:
+    the artifact scores on the card within 1e-6 of the same seeded model's
+    live bf16 Predictor there, f32 and finite, and its forward launches
+    the same kernels, by dtype, as the live one."""
+    import importlib
+
+    import numpy as np
+
+    from multimodalaggressionrecognition_tpu_torch.cli import export_model
+    from multimodalaggressionrecognition_tpu_torch.cli.common import (
+        parse_config)
+    from multimodalaggressionrecognition_tpu_torch.io.export import (
+        ExportedPredictor)
+    from multimodalaggressionrecognition_tpu_torch.models.layers import (
+        seeded_init_)
+    from multimodalaggressionrecognition_tpu_torch.serve import Predictor
+
+    out = str(tmp_path / "art")
+    export_model.main(["--entry", entry, "--allow_random_weights", "true",
+                       *flags, "--compute_dtype", "bfloat16", "--batch_size",
+                       "2", "--device", str(cuda), "--output_dir", out])
+    mod = importlib.import_module(
+        f"multimodalaggressionrecognition_tpu_torch.cli.{entry}")
+    cfg = parse_config(export_model._entry_config_cls(mod),
+                       flags + ["--batch_size", "2", "--device", str(cuda)])
+    model, spec = export_model._build_model_and_spec(mod, cfg)
+    live = Predictor(seeded_init_(model, cfg.seed), batch_size=2,
+                     device=cuda, compute_dtype="bfloat16")
+    exported = ExportedPredictor(out, device=cuda)
+    rng = np.random.default_rng(5)
+    request = {m: rng.standard_normal((2, *s)).astype(np.float32) * 0.3
+               for m, s in spec.items()}
+    counts = {}
+    for key, pred in (("live", live), ("exported", exported)):
+        pred.predict(request)
+        torch.cuda.synchronize()
+        launch_counts.clear()
+        got = pred.predict(request, return_probs=False)
+        torch.cuda.synchronize()
+        counts[key] = dict(launch_counts)
+        if key == "live":
+            want = got
+    assert counts["exported"] == counts["live"]
+    assert sorted(got) == sorted(want)
+    for head in want:
+        assert got[head].dtype == np.float32
+        assert np.isfinite(got[head]).all()
+        np.testing.assert_allclose(got[head], want[head], atol=1e-6)

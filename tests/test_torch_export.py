@@ -200,7 +200,7 @@ ENTRIES = [
 ]
 
 
-def _live(entry, flags, quantize):
+def _live(entry, flags, quantize, compute_dtype=None):
     """The entry's model, seeded as export_model seeds it, in a live
     Predictor; and a request shaped by its export spec."""
     mod = importlib.import_module(
@@ -209,7 +209,8 @@ def _live(entry, flags, quantize):
                        flags + ["--batch_size", "2", "--device", "cpu"])
     model, spec = export_model._build_model_and_spec(mod, cfg)
     pred = Predictor(seeded_init_(model, cfg.seed), batch_size=2,
-                     device="cpu", quantize=quantize)
+                     device="cpu", quantize=quantize,
+                     compute_dtype=compute_dtype)
     rng = np.random.default_rng(5)
     request = {m: rng.standard_normal((2, *s)).astype(np.float32) * 0.3
                for m, s in spec.items()}
@@ -237,6 +238,26 @@ def test_export_entry_families(entry, flags, export_flags, tmp_path):
     assert sorted(got) == sorted(want) == exported.heads
     for head in want:
         assert got[head].shape == (2, meta["heads"][head])
+        np.testing.assert_allclose(got[head], want[head], atol=1e-6)
+
+
+@pytest.mark.parametrize("entry,flags", [e[:2] for e in ENTRIES],
+                         ids=[e[0] for e in ENTRIES])
+def test_export_entry_families_bf16(entry, flags, tmp_path):
+    """--compute_dtype bfloat16 exports any train CLI's model, and its
+    artifact scores within 1e-6 of the same model's live bf16 Predictor."""
+    out = str(tmp_path / "art")
+    export_model.main(
+        ["--entry", entry, "--allow_random_weights", "true", *flags,
+         "--compute_dtype", "bfloat16", "--batch_size", "2", "--device",
+         "cpu", "--output_dir", out])
+    pred, request = _live(entry, flags, None, "bfloat16")
+    want = pred.predict(request)
+    got = ExportedPredictor(out, device="cpu").predict(request)
+    assert sorted(got) == sorted(want)
+    for head in want:
+        assert got[head].dtype == want[head].dtype == np.float32
+        assert np.isfinite(got[head]).all()
         np.testing.assert_allclose(got[head], want[head], atol=1e-6)
 
 

@@ -385,11 +385,11 @@ def test_predictor_bf16(flagship):
 
 
 def test_missing_modality_bf16_tracks_jax(flagship):
-    """A batch without text (the tri-modal set's EMPTY protocol): the port's
-    zero stub takes the batch's bf16, so its fusion and heads run in bf16;
-    the JAX package's stub is f32 and promotes them to f32 (with the bf16
-    weights).  The served bf16 probabilities stay within 0.03 of the JAX
-    package's bf16 ones and of the port's f32 ones."""
+    """A batch without text (the tri-modal set's EMPTY protocol): in both
+    packages the zero stub is f32 and promotes the fusion and the heads to
+    f32, on the bf16-rounded weights.  The served bf16 probabilities stay
+    within 0.03 of the JAX package's bf16 ones and of the port's f32
+    ones."""
     jmodel, _, b = flagship
     shapes = {"text": b["modalities"]["text"]["data"].shape[1:]}
     jmodel = _tiny_flagship(True, feature_shapes=shapes)
