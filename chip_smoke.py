@@ -216,7 +216,8 @@ Phases (any failure raises, and the script exits non-zero):
                 by the modalities present (K1 once with audio, K2 12 and
                 K4 4 times with video), the files and manifest.
  16. doctor    - cli.doctor --smoke: its report on one line, K4 launched
-                once and bit for bit equal to torch.roll.
+                once and bit for bit equal to torch.roll, the native wav
+                decoder built and loaded.
  17. quantized - (22) serve.Predictor(quantize=...) of the flagship (b32)
                 and the tri-modal model (b8) at full width: int8 and w8a8
                 in f32, and the tri-modal int8 in bf16: K1 1 (tri-modal
@@ -261,11 +262,40 @@ Phases (any failure raises, and the script exits non-zero):
                 run's, one window card against CPU within 2e-2); a bf16
                 video-transformer artifact exported and scored on the card
                 (K2 12, K4 4 bf16, equal to the live Predictor).
+ 20. pieces    - the tri-modal towers (CNN1D at 80 000 samples, 48 x 768
+                text, the windowed Swin3D-T at 128 frames of 112 px) under
+                the pieces no CLI builds, seeded with randomized norms:
+                a CrossAttentionFusion(768, 8) with a MultimodalModel of
+                one OutputClassifier per stream, and an
+                AveragedFeaturesTransformerFusion with
+                PhysVerbClassifierAddFeatures.  Each b8 eval forward
+                launches K1 1, K2 12, K4 4 (the cross-attention model
+                without video K1 only); its device ms; card against CPU at
+                b2 within 1e-3 of the largest logit, and one bf16 row
+                (K2, K4 bf16) within 2e-2.
+ 21. remat dots - cli.train_multimodal.main with --video_remat_policy dots
+                (b8, Swin unfrozen, 2 epochs); one step under "dots",
+                save-nothing and remat off: launches (K1 1, K2 24, K3 12,
+                K4 12 under both policies), median device ms and peak
+                memory of each, in turns; the loss and every gradient under
+                "dots" within 1e-6 of save-nothing's (of each tensor's
+                largest, plus two save-nothing runs' own spread).
+ 22. native    - (after the VGG) libmarhost built from native/marhost.cpp
+                (a failed build fails the run), libmarvideo where
+                pkg-config finds libav* (else the reason); the predict
+                phase's 8 wavs through wav_read and wav_batch at 1, 4 and 8
+                threads within 2e-3 of the numpy loader, host ms per clip
+                beside numpy's; prepare_data resample-audio on them; one
+                epoch of the VGG entry under MAR_USE_NATIVE_WAV=1 (K1 once
+                per train and eval step), its first logged train loss
+                within 1e-4 relative of the numpy run's; an .mp4 clip dir
+                through ClipDirSource where libmarvideo and cv2 are there,
+                else which is missing.
 Prints a `slice` JSON line per slice, a `train` JSON line per train path,
 an `evaluate` and a `predict` JSON line, an `extract` JSON line per
 backbone, a `serve` line for bf16 serving, a `quantized` line per
 quantized Predictor, an `export` line per artifact, `serve_exported` and
-`exported_scoring` lines,
+`exported_scoring` lines, a `pieces` and a `native` line,
 the `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Every kernel
 entry's `launches` counts the tri-modal fine-tune; `launches_by_path` gives
@@ -2259,13 +2289,10 @@ PREDICT_CLIPS = 8  # one b8 batch: 5 s wavs at 44.1 kHz, (20, 768) text,
 # (128, 144, 144, 3) uint8 frames (the /255 rule and the resize to 112)
 
 
-def predict_phase(run_dir, tmp, card_line):
-    """cli.predict.main --from_run on PREDICT_CLIPS raw clips at b8 on the
-    card: one line per clip, every probability within 1e-3 of the same CLI
-    with --device cpu; K1 once, K2 12 and K4 4 times."""
+def predict_clips(tmp, video=True):
+    """The predict phase's PREDICT_CLIPS raw clips under `tmp`:
+    {modality: directory} (the frames skipped unless `video`)."""
     from scipy.io import wavfile
-
-    from multimodalaggressionrecognition_tpu_torch.cli import predict
 
     rng = np.random.default_rng(SEED + 23)
     dirs = {m: os.path.join(tmp, f"predict_{m}")
@@ -2278,8 +2305,19 @@ def predict_phase(run_dir, tmp, card_line):
                           np.int16))
         np.save(os.path.join(dirs["text"], f"clip{i}.npy"),
                 rng.standard_normal((20, 768)).astype(np.float32))
-        np.save(os.path.join(dirs["video"], f"clip{i}.npy"),
-                rng.integers(0, 256, (128, 144, 144, 3), dtype=np.uint8))
+        frames = rng.integers(0, 256, (128, 144, 144, 3), dtype=np.uint8)
+        if video:
+            np.save(os.path.join(dirs["video"], f"clip{i}.npy"), frames)
+    return dirs
+
+
+def predict_phase(run_dir, tmp, card_line):
+    """cli.predict.main --from_run on PREDICT_CLIPS raw clips at b8 on the
+    card: one line per clip, every probability within 1e-3 of the same CLI
+    with --device cpu; K1 once, K2 12 and K4 4 times."""
+    from multimodalaggressionrecognition_tpu_torch.cli import predict
+
+    dirs = predict_clips(tmp)
     args = ["--from_run", run_dir, "--path_to_checkpoint",
             os.path.join(run_dir, "checkpoint_best_phys"),
             "--modalities", "audio,text,video", "--batch_size", "8"]
@@ -2320,12 +2358,14 @@ def predict_phase(run_dir, tmp, card_line):
 
 def doctor_phase():
     """cli.doctor --smoke on the card: its report on one line; K4 bit for
-    bit against torch.roll (doctor exits non-zero otherwise)."""
+    bit against torch.roll (doctor exits non-zero otherwise); the native
+    wav decoder built and loaded (the mp4 one, or the reason it is not)."""
     from multimodalaggressionrecognition_tpu_torch.cli import doctor
 
     report, counts, _, _ = counted(lambda: doctor.main(["--smoke"]))
     if (report["backend"] != "cuda" or counts != {"roll": 1}
-            or not report["smoke"]["roll"]["bitwise_equal_to_torch_roll"]):
+            or not report["smoke"]["roll"]["bitwise_equal_to_torch_roll"]
+            or report["native"]["libmarhost_wav_decode"] is not True):
         raise AssertionError(f"doctor: {report}, launches {counts}")
     log("doctor --smoke: " + json.dumps(report))
     return counts
@@ -4268,6 +4308,436 @@ def exported_scoring_phase(run_dir, tmp, card_line):
     return {"predict_exported": counts, "evaluate_exported": ev_counts}
 
 
+# the native host loaders (data/native.py): built from native/*.cpp here
+NATIVE_THREADS = (1, 4, 8)
+NATIVE_VGG_FILES = 32  # train wavs of the VGG's one-epoch runs (test n/4)
+
+
+def _clip_ms(fn, n, reps=3):
+    """Median host ms per clip of fn() over `reps` calls that decode n."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3 / n)
+    return float(np.median(times))
+
+
+def _mp4_clip_dir(tmp):
+    """One clip dir holding a 16-frame 128 x 128 .mp4 (written with cv2)
+    and its boxes; None when cv2 cannot write one."""
+    import cv2
+
+    clip = os.path.join(tmp, "clips", "clip0!person,0!(0,1)!Удары")
+    os.makedirs(clip)
+    rng = np.random.default_rng(SEED + 31)
+    frames = rng.integers(0, 256, (16, 128, 128, 3), dtype=np.uint8)
+    frames[:, :64] = 200
+    path = os.path.join(clip, "video.mp4")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10.0,
+                             (128, 128))
+    if not writer.isOpened():
+        return None
+    for f in frames:
+        writer.write(cv2.cvtColor(f, cv2.COLOR_RGB2BGR))
+    writer.release()
+    np.save(os.path.join(clip, "bboxes.npy"),
+            np.tile(np.asarray([[8, 8, 100, 100]], np.float32), (16, 1)))
+    return os.path.dirname(clip)
+
+
+def native_phase(card_line):
+    """The native host loaders on the card's host: libmarhost built from
+    native/marhost.cpp (the run fails without it) and libmarvideo where
+    pkg-config finds libav* (else the reason); the predict phase's 8 wavs
+    (5 s at 44.1 kHz) decoded with wav_read and wav_batch at 1, 4 and 8
+    threads within 2e-3 of the numpy loader (tests/test_native.py:40),
+    host ms per clip beside numpy's; prepare_data resample-audio on them;
+    one epoch of the spectrogram VGG entry (16 kHz wavs) under
+    MAR_USE_NATIVE_WAV=1, K1 once per train and eval step, its first
+    logged train loss within 1e-4 relative of the numpy run's; an .mp4
+    clip dir through ClipDirSource where libmarvideo and cv2 are both
+    there, else which is missing."""
+    import pandas as pd
+
+    from multimodalaggressionrecognition_tpu_torch.cli import (
+        prepare_data, train_audio_transformer as vgg_cli)
+    from multimodalaggressionrecognition_tpu_torch.data import native
+    from multimodalaggressionrecognition_tpu_torch.data.files import _load_wav
+    from multimodalaggressionrecognition_tpu_torch.data.video_clips import (
+        ClipDirSource)
+
+    out = {}
+    t0 = time.monotonic()
+    host = native.load_library()
+    out["libmarhost_build_s"] = time.monotonic() - t0
+    reasons = native.unavailable_reasons()
+    if host is None:
+        raise AssertionError(f"native: libmarhost did not build or load: "
+                             f"{reasons['libmarhost']}")
+    t0 = time.monotonic()
+    video = native.load_video_library()
+    out["libmarvideo_build_s"] = time.monotonic() - t0
+    out["libmarvideo"] = video is not None
+    log(f"native: libmarhost built from native/marhost.cpp and loaded in "
+        f"{out['libmarhost_build_s']:.2f} s "
+        f"({native.library_path('marhost')})")
+    if video is None:
+        out["libmarvideo_reason"] = native.unavailable_reasons()["libmarvideo"]
+        log(f"native: libmarvideo unavailable: {out['libmarvideo_reason']}")
+    else:
+        log(f"native: libmarvideo built and loaded in "
+            f"{out['libmarvideo_build_s']:.2f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_dir = predict_clips(tmp, video=False)["audio"]
+        paths = sorted(os.path.join(wav_dir, f) for f in os.listdir(wav_dir))
+        n, target = len(paths), 5 * 16000
+        want = np.stack([_load_wav(p, 16000) for p in paths])
+        if want.shape != (n, target):
+            raise AssertionError(f"native: numpy decoded {want.shape}")
+        errs = {"wav_read": float(np.abs(np.stack(
+            [native.wav_read(p, target) for p in paths]) - want).max())}
+        for threads in NATIVE_THREADS:
+            got = native.wav_batch(paths, target, num_threads=threads)
+            errs[f"wav_batch_{threads}"] = float(np.abs(got - want).max())
+        ms = {"numpy": _clip_ms(lambda: [_load_wav(p, 16000) for p in paths],
+                                n),
+              "wav_read": _clip_ms(lambda: [native.wav_read(p, target)
+                                            for p in paths], n)}
+        for threads in NATIVE_THREADS:
+            ms[f"wav_batch_{threads}"] = _clip_ms(
+                lambda: native.wav_batch(paths, target, num_threads=threads),
+                n)
+        if max(errs.values()) > 2e-3:
+            raise AssertionError(f"native: wavs off numpy by {errs} (> 2e-3)")
+        dst = os.path.join(tmp, "resampled")
+        with contextlib.redirect_stdout(io.StringIO()):
+            prepare_data.main(["resample-audio", wav_dir, dst])
+        pts = sorted(os.listdir(dst))
+        written = np.stack([torch.load(os.path.join(dst, f),
+                                       weights_only=True).numpy()[0]
+                            for f in pts])
+        errs["prepare_data"] = float(np.abs(written - want).max())
+        if len(pts) != n or errs["prepare_data"] > 2e-3:
+            raise AssertionError(f"native: resample-audio wrote {pts}, "
+                                 f"{errs['prepare_data']:.3e} off numpy")
+        log(f"native wavs on {card_line}: {n} clips of 5 s at 44.1 kHz -> "
+            f"16 kHz, max |d| vs numpy " + ", ".join(
+                f"{k} {v:.2e}" for k, v in errs.items()) + " <= 2e-3 ok; "
+            "host ms per clip " + ", ".join(f"{k} {v:.3f}"
+                                            for k, v in ms.items()))
+
+        # one VGG epoch, the wavs decoded natively and with numpy
+        losses, counts = {}, {}
+        root = os.path.join(tmp, "vgg_wavs")
+        for route in ("numpy", "native"):
+            args = ["--files_root", root, "--synthetic_wav",
+                    "--synthetic_tones", "--synthetic_files",
+                    str(NATIVE_VGG_FILES), "--saving_dir",
+                    os.path.join(tmp, f"runs_{route}"), "--run_name", "r",
+                    "--epoch_num", "1", "--device", DEVICE, "--num_threads",
+                    "4", "--batch_size", str(AUDIO_VGG["batch_size"])]
+            os.environ.pop("MAR_USE_NATIVE_WAV", None)
+            if route == "native":
+                os.environ["MAR_USE_NATIVE_WAV"] = "1"
+            try:
+                trainer, counts[route], _ = run_cli(
+                    vgg_cli.main, args, card_line, f"native {route} vgg",
+                    epochs=1)
+            finally:
+                os.environ.pop("MAR_USE_NATIVE_WAV", None)
+            steps = trainer.state.step + len(trainer.test_loader)
+            if counts[route] != {"framed_conv1d": steps}:
+                raise AssertionError(f"native {route} vgg: launched "
+                                     f"{counts[route]}, want K1 {steps}")
+            losses[route] = float(pd.read_csv(os.path.join(
+                trainer.run_dir, "main_train_log.csv"))["loss"].iloc[0])
+            shutil.rmtree(trainer.run_dir, ignore_errors=True)
+            del trainer
+        rel = abs(losses["native"] - losses["numpy"]) / abs(losses["numpy"])
+        if not rel <= 1e-4:
+            raise AssertionError(f"native vgg: first train loss {losses} "
+                                 f"differ by {rel:.2e} (> 1e-4 relative)")
+        log(f"native vgg: one epoch under MAR_USE_NATIVE_WAV=1, launches "
+            f"{counts['native']}; first train loss {losses['native']:.6f} vs "
+            f"numpy {losses['numpy']:.6f} ({rel:.1e} <= 1e-4 relative) ok")
+
+        try:
+            import cv2  # noqa: F401 (writes the .mp4)
+            missing = None if video is not None else "libmarvideo"
+        except ImportError:
+            missing = "cv2" if video is not None else "libmarvideo and cv2"
+        mp4 = None
+        if missing is None:
+            clips = _mp4_clip_dir(tmp)
+            if clips is None:
+                missing = "a cv2 mp4 writer"
+            else:
+                frames, mask, label = ClipDirSource(clips, frame_num=16,
+                                                    size=112).load(0)
+                if (frames.shape != (16, 112, 112, 3) or label != 3
+                        or not 0.6 < frames[:, :50].mean() < 0.9):
+                    raise AssertionError(f"native mp4: {frames.shape}, "
+                                         f"label {label}")
+                mp4 = list(frames.shape)
+                log(f"native mp4: ClipDirSource decoded a 16-frame 128 px "
+                    f".mp4 through libmarvideo to {mp4} ok")
+        if missing is not None:
+            log(f"native mp4: not run here: {missing} missing")
+    out.update({"max_abs_err": errs, "ms_per_clip": ms,
+                "vgg_first_train_loss": losses, "vgg_loss_rel_err": rel,
+                "mp4_frames": mp4, "mp4_missing": missing})
+    log(json.dumps({"native": out}))
+    return counts["native"]
+
+
+def _pieces(cfg, kind):
+    """The tri-modal towers of build_model(cfg) under the pieces no CLI
+    builds, seeded, norms randomized, on the CPU: 'cross' a
+    CrossAttentionFusion(768, 8) and a MultimodalModel with one
+    OutputClassifier per stream; 'averaged' an
+    AveragedFeaturesTransformerFusion with PhysVerbClassifierAddFeatures."""
+    from multimodalaggressionrecognition_tpu_torch.models import (
+        audiotext, fusion, heads, physverb)
+
+    base = build_model(MultimodalConfig(**cfg), PIECES_MODALITIES)
+    width = cfg["hidden_size"]
+    kw = dict(extractors=dict(base.extractors),
+              feature_shapes=base.feature_shapes, modalities=base.modalities)
+    if kind == "cross":
+        model = audiotext.MultimodalModel(
+            classifiers={m: heads.OutputClassifier(2, input_size=width)
+                         for m in PIECES_MODALITIES},
+            fusion=fusion.CrossAttentionFusion(width, cfg["fusion_heads"]),
+            **kw)
+    else:
+        model = physverb.PhysVerbModel(
+            classifier=physverb.PhysVerbClassifierAddFeatures(
+                2, {m: (width, cfg["adaptor_out"])
+                    for m in PIECES_MODALITIES}),
+            fusion=fusion.AveragedFeaturesTransformerFusion(
+                cfg["fusion_layers"], width, cfg["fusion_heads"]), **kw)
+    return randomize_norms(seeded_init_(model, SEED))
+
+
+PIECES_MODALITIES = ("audio", "text", "video")
+PIECES = dict(TRIMODAL, adaptor_out=256)
+PER_PIECES_FORWARD = {"framed_conv1d": 1, "window_attention": 12, "roll": 4}
+
+
+def _largest_err(got, want):
+    """(max |got - want| over the heads, max |want|)."""
+    err = max((got[h].float().cpu() - want[h].float()).abs().max().item()
+              for h in want)
+    return err, max(want[h].float().abs().max().item() for h in want)
+
+
+def pieces_phase(card_line):
+    """The pieces no CLI builds over the tri-modal towers at full width,
+    b8 (see _pieces): each model's eval forward launching K1 1, K2 12, K4 4
+    (the cross-attention model's without video: K1 only), its device ms
+    (CUDA events); card against CPU at b2 within 1e-3 of the largest logit
+    (f32) and on one row within 2e-2 in bf16 (utils/precision through
+    train/steps.forward: K2 and K4 bf16, K1 f32 inside)."""
+    from multimodalaggressionrecognition_tpu_torch.train.steps import forward
+
+    launches, numbers = {}, {}
+    for kind in ("cross", "averaged"):
+        cpu = _pieces(PIECES, kind)
+        gpu = copy.deepcopy(cpu).to(DEVICE)
+        heads = gpu.head_names()
+        cases = [("", PIECES_MODALITIES)]
+        if kind == "cross":
+            cases.append(("_no_video", ("audio", "text")))
+        for suffix, present in cases:
+            label = f"pieces_{kind}{suffix}"
+            full = full_batch(PIECES, present, 8, SEED + 41)
+            b8 = to_device(full, DEVICE)
+            with torch.inference_mode():
+                logits, counts, _, _ = counted(lambda: gpu(b8))
+                want = {k: v for k, v in PER_PIECES_FORWARD.items()
+                        if k == "framed_conv1d" or "video" in present}
+                if counts != want or list(logits) != heads:
+                    raise AssertionError(f"{label}: launched {counts}, want "
+                                         f"{want}; heads {list(logits)}")
+                ms = cuda_ms(lambda: gpu(b8), reps=10)
+                small = full_batch(PIECES, present, 2, SEED + 42)
+                err, scale = _largest_err(gpu(to_device(small, DEVICE)),
+                                          cpu(small))
+                if not err <= 1e-3 * scale:
+                    raise AssertionError(f"{label}: card vs CPU {err:.3e} > "
+                                         f"1e-3 * {scale:.3e}")
+                row = full_batch(PIECES, present, 1, SEED + 43)
+                got16, counts16, _, _ = counted(lambda: forward(
+                    gpu, to_device(row, DEVICE), "bfloat16"))
+                err16, scale16 = _largest_err(got16, forward(cpu, row,
+                                                             "bfloat16"))
+            want16 = bf16_counts(want)
+            if counts16 != want16 or not err16 <= 2e-2 * scale16:
+                raise AssertionError(f"{label} bf16: launched {counts16} "
+                                     f"(want {want16}), card vs CPU "
+                                     f"{err16:.3e} (limit 2e-2 * "
+                                     f"{scale16:.3e})")
+            launches[label], launches[f"{label}_bf16"] = counts, counts16
+            numbers[label] = {"forward_ms": ms, "max_abs_err": err,
+                              "max_abs_logit": scale,
+                              "bf16_max_abs_err": err16,
+                              "bf16_max_abs_logit": scale16,
+                              "launches": counts, "launches_bf16": counts16}
+            log(f"{label} on {card_line}: b8 eval forward {ms:.3f} ms, "
+                f"launches {counts}, heads {heads}; card vs CPU (b2) "
+                f"{err:.3e} <= 1e-3 * {scale:.3e}; bf16 (one row) "
+                f"{err16:.3e} <= 2e-2 * {scale16:.3e}, launches {counts16}")
+        del cpu, gpu
+        torch.cuda.empty_cache()
+    log(json.dumps({"pieces": numbers}))
+    return launches
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic convolutions and torch's deterministic
+    algorithms (a warning, silenced here, where an op has none)."""
+    cudnn = torch.backends.cudnn
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled(),
+              cudnn.deterministic, cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+        cudnn.deterministic, cudnn.benchmark = before[2:]
+
+
+def loss_and_grads(model, batch, seed):
+    """The train-mode loss of `batch` and every gradient, stochastic depth
+    and dropout drawn from a fresh generator seeded `seed`."""
+    from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
+        set_generator)
+
+    model.train()
+    set_generator(model, torch.Generator(DEVICE).manual_seed(seed))
+    model.zero_grad(set_to_none=True)
+    total, _ = head_losses_and_metrics(model(batch["modalities"]), batch,
+                                       SPECS, 2)
+    total.backward()
+    return total.item(), {n: p.grad.detach().clone()
+                          for n, p in model.named_parameters()
+                          if p.grad is not None}
+
+
+def remat_dots_phase(card_line):
+    """The tri-modal fine-tune with --video_remat_policy dots through
+    cli.train_multimodal.main at full width, b8, 2 epochs; then one step of
+    an audio,text,video batch under "dots", save-nothing and remat off:
+    launches per step (K1 1, K2 24, K3 12, K4 12 under both remat
+    policies), the median device ms and peak memory of each, and the loss
+    and every gradient under "dots" equal to save-nothing's, taken with
+    deterministic algorithms (limit 1e-6 of each tensor's largest, plus
+    the spread of two save-nothing runs should any op still differ)."""
+    from multimodalaggressionrecognition_tpu_torch.cli import train_multimodal
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        generate_synthetic_avabos)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "avabos")
+        generate_synthetic_avabos(root, **TRAIN_DATA)
+        args = ["--dataset_root", root, "--synthetic",
+                "--saving_dir", os.path.join(tmp, "runs"), "--run_name", "r",
+                "--modalities", "audio,text,video", "--video_freeze", "false",
+                "--video_remat_policy", "dots",
+                "--epoch_num", "2", "--device", DEVICE, "--num_threads", "4"]
+        for k in ("hidden_size", "fusion_layers", "fusion_heads",
+                  "audio_samples", "text_tokens", "video_frames",
+                  "video_size", "video_window", "batch_size"):
+            args += [f"--{k}", str(TRAIN[k])]
+        trainer, counts, clips_s = run_cli(
+            train_multimodal.main, args, card_line, "train remat dots",
+            heads=("phys", "verb"))
+        model = trainer.state.model
+        swin = model.extractors["video"].backbone.backbone
+        if not (swin.remat and swin.remat_policy == "dots"):
+            raise AssertionError(f"remat dots: the Swin runs remat "
+                                 f"{swin.remat}, {swin.remat_policy!r}")
+        batch = next(b for b in trainer.batches(trainer.train_loader)
+                     if sorted(b["modalities"]) == list(PIECES_MODALITIES))
+        per_step = PER_PATTERN["audio,text,video"]
+        variants = {"dots": (True, "dots"), "none": (True, "none"),
+                    "off": (False, "none")}
+        steps, timing, grads, losses = {}, {}, {}, {}
+        with deterministic():
+            for name in ("dots", "none", "off", "none_again"):
+                swin.remat, swin.remat_policy = variants[name.split("_")[0]]
+                losses[name], grads[name] = loss_and_grads(model, batch,
+                                                           SEED + 51)
+        for name in ("dots", "none", "off", "dots"):  # in turns
+            swin.remat, swin.remat_policy = variants[name]
+            if name != "off":
+                steps[name] = step_counts(trainer, batch)
+                if steps[name] != per_step:
+                    raise AssertionError(f"remat {name}: a step launched "
+                                         f"{steps[name]}, want {per_step}")
+            timing.setdefault(name, []).append(median_step_ms(trainer,
+                                                              batch))
+        swin.remat, swin.remat_policy = True, "dots"
+    # the gradients are taken with deterministic algorithms; should an op
+    # still differ between two save-nothing runs, "dots" may add that
+    # spread to the 1e-6 of each tensor's largest
+    worst, bitwise, noisy, bad = 0.0, 0, [], []
+    for name, g in grads["dots"].items():
+        want = grads["none"][name]
+        spread = (grads["none_again"][name] - want).abs().max().item()
+        err = (g - want).abs().max().item()
+        scale = want.abs().max().item()
+        if spread:
+            noisy.append((name, spread, scale))
+        if not err <= 1e-6 * scale + spread:
+            bad.append((name, err, scale, spread))
+        if not spread:
+            worst = max(worst, err / scale if scale else 0.0)
+        bitwise += bool(torch.equal(g, want))
+    if noisy or bad:
+        log(f"remat dots: gradients that differ between two save-nothing "
+            f"runs (name, spread, largest): {noisy[:8]}; over the limit "
+            f"(name, error, largest, spread): {bad[:8]}")
+    if bad:
+        raise AssertionError(f"remat dots: {len(bad)} gradients off "
+                             f"save-nothing's beyond 1e-6 of their largest "
+                             f"plus the runs' spread: {bad[:4]}")
+    if sorted(grads["dots"]) != sorted(grads["none"]) or not abs(
+            losses["dots"] - losses["none"]) <= 1e-6 * abs(losses["none"]):
+        raise AssertionError(f"remat dots: losses {losses}")
+    off_err = max((grads["off"][n] - g).abs().max().item()
+                  / max(g.abs().max().item(), 1e-30)
+                  for n, g in grads["none"].items())
+    ms = {k: [t for t, _ in v] for k, v in timing.items()}
+    peak = {k: max(p for _, p in v) for k, v in timing.items()}
+    log(f"train remat dots step b8 on {card_line}: median ms dots "
+        f"{ms['dots']}, save-nothing {ms['none']}, off {ms['off']}; peak GiB "
+        f"dots {peak['dots']:.2f}, save-nothing {peak['none']:.2f}, off "
+        f"{peak['off']:.2f}; launches per step {steps['dots']}; loss dots "
+        f"{losses['dots']:.6f} vs save-nothing {losses['none']:.6f}; "
+        f"{len(grads['dots'])} gradients, {bitwise} bit for bit; "
+        f"{len(noisy)} differ between two save-nothing runs, "
+        f"the rest within {worst:.2e} of the largest (<= 1e-6); remat off "
+        f"vs save-nothing {off_err:.2e}")
+    log(json.dumps({"train": "audio,text,video remat dots",
+                    "batch": TRAIN["batch_size"], "launches": counts,
+                    "launches_per_step": steps["dots"],
+                    "step_ms": ms, "peak_gib": peak,
+                    "epoch_clips_per_s": clips_s, "losses": losses,
+                    "grad_rel_err": worst, "grads_bitwise": bitwise,
+                    "grads": len(grads["dots"]),
+                    "grads_nondeterministic": [n for n, _, _ in noisy],
+                    "off_vs_none_grad_rel_err": off_err}))
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -4307,6 +4777,8 @@ def main():
     launches[main_path], scored = train_phase(card_line)
     launches.update(scored)
     launches["train_flagship"] = flagship_phase(card_line)
+    launches.update(pieces_phase(card_line))
+    launches["train_remat_dots"] = remat_dots_phase(card_line)
     for numbers, key, kernel in ((k2, "k2", "window_attention"),
                                  (k3, "k3", "window_attention_bwd"),
                                  (k4, "k4", "roll")):
@@ -4319,6 +4791,7 @@ def main():
                                    0)
                 for p in ("train_bf16", "serve_bf16")}}
     launches["train_audio_vgg"] = audio_vgg_phase(card_line, k1)
+    launches["native_vgg"] = native_phase(card_line)
     launches["train_text"] = text_phase(card_line)
     launches["train_video_transformer"] = video_transformer_phase(card_line)
     launches["train_audio_text"] = audio_text_phase(card_line)

@@ -3,12 +3,12 @@ cli/doctor.py, with the port's facts).
 
 One JSON report: library versions, whether torch sees a CUDA card (and
 why not), the kernel build's state (nvcc, the build directory, which
-csrc/*.cu are built for their current source, the launch counts), and the
-native decode libraries (not ported).  `--smoke` proves the card works:
-it times one 256x256 matmul round trip, builds and launches K4 (the
-shifted-window roll, csrc/roll.cu) once on a small tensor and checks it
-bit for bit against torch.roll.  Without a card `--smoke` exits non-zero
-and says why.
+csrc/*.cu are built for their current source, the launch counts), and
+whether the native wav and mp4 decoders build and load (and why not).
+`--smoke` proves the card works: it times one 256x256 matmul round trip,
+builds and launches K4 (the shifted-window roll, csrc/roll.cu) once on a
+small tensor and checks it bit for bit against torch.roll.  Without a
+card `--smoke` exits non-zero and says why.
 
   python -m multimodalaggressionrecognition_tpu_torch.cli.doctor [--smoke]
 """
@@ -86,6 +86,22 @@ def _smoke():
                      "bitwise_equal_to_torch_roll": equal}}
 
 
+def _native():
+    """Whether the native decoders build and load here (data/native.py),
+    and why not."""
+    from ..data import native
+
+    out = {"libmarhost_wav_decode": native.available(),
+           "libmarvideo_mp4_decode": native.video_available()}
+    if not all(out.values()):
+        out["hint"] = ("wavs then decode with scipy and numpy, .mp4 with "
+                       "OpenCV")
+    for lib, reason in native.unavailable_reasons().items():
+        if reason is not None:
+            out[f"{lib}_reason"] = reason
+    return out
+
+
 def collect(smoke: bool = False) -> dict:
     import numpy as np
     import scipy
@@ -97,11 +113,7 @@ def collect(smoke: bool = False) -> dict:
                            "scipy": scipy.__version__}}
     _backend(report)
     report["kernels"] = _kernels()
-    report["native"] = {
-        "ported": False,
-        "hint": ("the JAX package's native wav and mp4 decoders are not "
-                 "ported (ROADMAP.md, queue 1 item 8): wavs decode with "
-                 "scipy and numpy, .mp4 with OpenCV")}
+    report["native"] = _native()
     if smoke and report["backend"]:
         report["smoke"] = _smoke()
     return report

@@ -16,8 +16,8 @@ Subcommands:
 .mp4 decoding needs OpenCV (imported on first use); .npy inputs need none.
 Resizing is the plain bilinear resize of the training pipeline
 (data/video_clips.resize_frames: cv2.resize's INTER_LINEAR without
-antialias).  The JAX package's native C wav loader is not ported:
-MAR_USE_NATIVE_WAV=1 raises.
+antialias).  resample-audio decodes with the native C++ loader
+(data/native.py) wherever it builds, else with scipy and numpy.
 """
 
 import argparse
@@ -66,18 +66,23 @@ def resize_videos(src: str, dst: str, size: int = 128):
 def resample_audio(src: str, dst: str, rate: int = 16000):
     import torch
 
+    from ..data import native
     from ..data.files import _load_wav
 
-    if os.environ.get("MAR_USE_NATIVE_WAV") == "1":
-        raise RuntimeError(
-            "MAR_USE_NATIVE_WAV=1 asks for the native C wav loader, which "
-            "the PyTorch package does not have (ROADMAP.md, queue 1 item "
-            "8); unset it to decode with scipy and numpy")
     os.makedirs(dst, exist_ok=True)
     for fname in sorted(os.listdir(src)):
         if not fname.endswith(".wav"):
             continue
-        wav = _load_wav(os.path.join(src, fname), rate)
+        path = os.path.join(src, fname)
+        if native.available():
+            from scipy.io import wavfile
+
+            orig_rate, data = wavfile.read(path)
+            length = (int(np.ceil(rate * len(data) / orig_rate))
+                      if orig_rate != rate else len(data))
+            wav = native.wav_read(path, target_len=length, target_rate=rate)
+        else:
+            wav = _load_wav(path, rate)
         torch.save(torch.from_numpy(wav[None]),  # (1, L) like the reference
                    os.path.join(dst, fname.replace(".wav", ".pt")))
         print(f"resampled {fname}: {wav.shape}")

@@ -45,7 +45,7 @@ class MultimodalConfig(TrainConfig):
     video_freeze: bool = True
     # when fine-tuning: per-block gradient checkpointing of the Swin tower
     # (recompute each block's inside in the backward), policy "none" (save
-    # nothing; "dots" is not ported)
+    # nothing) or "dots" (save the Linear products' outputs)
     video_remat: bool = True
     video_remat_policy: str = "none"
     focal_gamma: float = 2.0

@@ -10,9 +10,9 @@ whose label is the last `_`-token of the stem (`..._AGGR.npy`,
 
 `FilenameLabelSource` loads them by extension, applies an optional host
 transform, and `build_batch` emits the trainer's batch protocol with one
-label per head.  The JAX package's opt-in native C wav loader
-(`MAR_USE_NATIVE_WAV=1`) is not ported: the port raises when it is asked
-for (ROADMAP.md, queue 1 item 8).
+label per head.  WAVs decode with scipy and numpy, or with the native
+C++ loader (data/native.py) under `MAR_USE_NATIVE_WAV=1` or where scipy
+cannot be imported.
 """
 
 import os
@@ -132,11 +132,26 @@ class FilenameLabelSource:
         return x, self._label(fname)
 
     def _wav(self, path):
-        if os.environ.get("MAR_USE_NATIVE_WAV") == "1":
-            raise RuntimeError(
-                "MAR_USE_NATIVE_WAV=1 asks for the native C wav loader, which "
-                "the PyTorch package does not have (ROADMAP.md, queue 1 item "
-                "8); unset it to decode with scipy and numpy")
+        """WAV decode + resample: scipy and numpy by default; the native
+        library (data/native.py) under MAR_USE_NATIVE_WAV=1 or when scipy
+        cannot be imported, and numpy again where the library is
+        unavailable."""
+        if os.environ.get("MAR_USE_NATIVE_WAV") != "1":
+            try:
+                return _load_wav(path, self.target_rate)
+            except ImportError:
+                pass
+        from . import native
+
+        if native.available():
+            from scipy.io import wavfile
+
+            rate, data = wavfile.read(path, mmap=True)
+            n = len(data)
+            target = (n if rate == self.target_rate
+                      else -(-self.target_rate * n // rate))
+            return native.wav_read(path, target_len=target,
+                                   target_rate=self.target_rate)
         return _load_wav(path, self.target_rate)
 
     def build_batch(self, indices, pad_to: Optional[int] = None):

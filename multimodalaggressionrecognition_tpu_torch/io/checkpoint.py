@@ -6,9 +6,10 @@ checkpoint (`save_state`) adds "optimizer" and, when an EMA is tracked,
 "ema" ({"decay", "params"}: the shadow of the trainable parameters), so
 any training checkpoint also serves (`restore_variables`, which hands out
 the EMA shadow in place of the live parameters, as the JAX package's
-`eval_params`; `cli/serve.py --path_to_checkpoint`).  Reading the JAX
-package's orbax checkpoints is not ported (it needs orbax); convert JAX
-variables with io/from_jax.py instead.
+`eval_params`; `cli/serve.py --path_to_checkpoint`).  The JAX package's
+orbax checkpoints are not read here: `orbax.checkpoint` imports jax, which
+the port never imports; convert JAX variables with io/from_jax.py
+instead.
 """
 
 import os

@@ -23,9 +23,10 @@ the port module of the same architecture.  Layout rules:
 - MHA:        in_proj_kernel (E, 3E)   -> in_proj_weight (3E, E);
               out_proj_kernel/_bias    -> out_proj.weight (transposed)/.bias
 - Norms:      scale -> weight; BN batch_stats mean/var -> running_mean/_var
-- Names:      flax's `extractors_<m>`, `heads_<name>` and `layers_<i>` ->
-              `extractors.<m>`, `heads.<name>`, `layers.<i>` (ModuleDict /
-              ModuleList); the tri-modal video
+- Names:      flax's `extractors_<m>`, `heads_<name>`, `classifiers_<m>`
+              and `layers_<i>` -> `extractors.<m>`, `heads.<name>`,
+              `classifiers.<m>`, `layers.<i>` (ModuleDict / ModuleList);
+              the tri-modal video
               tower's auto-named `Swin3dTExtractor_0` (its frozen backbone)
               -> `backbone`, the port's WindowedVideoExtractor attribute
 - Per model:  a port module whose JAX twin files a submodule elsewhere
@@ -46,6 +47,7 @@ import torch
 
 _RENAMES = ((re.compile(r"^extractors_(\w+)$"), r"extractors.\1"),
             (re.compile(r"^heads_(\w+)$"), r"heads.\1"),
+            (re.compile(r"^classifiers_(\w+)$"), r"classifiers.\1"),
             (re.compile(r"^layers_(\d+)$"), r"layers.\1"),
             (re.compile(r"^Swin3dTExtractor_\d+$"), "backbone"))
 

@@ -52,6 +52,15 @@ class PhysVerbClassifier(nn.Module):
             self.add_module(f"head_{aggr}_fc1", Linear(in_dim, in_dim // 3))
             self.add_module(f"head_{aggr}_fc2", Linear(in_dim // 3, class_num))
 
+    def head_names(self):
+        """The aggression types of the configured modalities, in sorted
+        modality order."""
+        seen = []
+        for m in sorted(self.adaptor_sizes):
+            if self.m2a[m] not in seen:
+                seen.append(self.m2a[m])
+        return seen
+
     def head_in_dims(self) -> Dict[str, int]:
         """{head: input width}: the summed adaptor widths of the head's
         modalities."""
@@ -100,16 +109,39 @@ class PhysVerbClassifierConcatFeatures(PhysVerbClassifier):
         return {aggr: self._head(aggr, x) for aggr in self.head_names()}
 
 
+class PhysVerbClassifierAddFeatures(PhysVerbClassifier):
+    """Every head sees the element-wise sum of the adapted modalities (in
+    sorted order), so every adaptor has the same output width.  The
+    reference's version was dead code; this is the JAX package's working
+    equivalent of its intent."""
+
+    def head_in_dims(self) -> Dict[str, int]:
+        widths = {out for _, out in self.adaptor_sizes.values()}
+        if len(widths) != 1:
+            raise ValueError(f"summed adaptors need one output width, got "
+                             f"{dict(self.adaptor_sizes)}")
+        width = widths.pop()
+        return {aggr: width for aggr in self.head_names()}
+
+    def forward(self, feats: Dict[str, torch.Tensor]):
+        adapted = self._adapt(feats)
+        x = sum(adapted[n] for n in sorted(adapted))
+        return {aggr: self._head(aggr, x) for aggr in self.head_names()}
+
+
 class PhysVerbModel(nn.Module):
     """extractors -> (EMPTY-aware zero stubs) -> fusion -> PhysVerb heads.
 
     `batch` maps modality name -> {'data': tensor, 'present': (B,) 0/1}.
     Modalities in `modalities` but absent from `batch` contribute a zero
     stub of `feature_shapes[name]`.  Output: {aggr_type: logits}.
+    `classifier` may be None in a subclass that classifies otherwise
+    (models/audiotext.MultimodalModel).
     """
 
     def __init__(self, extractors: Mapping[str, Optional[nn.Module]],
-                 classifier: nn.Module, fusion: Optional[nn.Module] = None,
+                 classifier: Optional[nn.Module],
+                 fusion: Optional[nn.Module] = None,
                  feature_shapes: Optional[Mapping[str, Tuple[int, int]]] = None,
                  modalities: Tuple[str, ...] = ("audio", "text", "video")):
         super().__init__()
@@ -138,8 +170,13 @@ class PhysVerbModel(nn.Module):
                                           device=first.device)
         return feats
 
-    def forward(self, batch):
+    def fused_features(self, batch):
+        """The (fused) per-modality features the classifier reads."""
         feats = self.extract_features(batch)
-        if self.fusion is not None:
-            feats = self.fusion(feats)
-        return self.classifier(feats)
+        return feats if self.fusion is None else self.fusion(feats)
+
+    def forward(self, batch):
+        return self.classifier(self.fused_features(batch))
+
+    def head_names(self):
+        return self.classifier.head_names()

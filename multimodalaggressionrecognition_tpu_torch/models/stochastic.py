@@ -13,7 +13,11 @@ is the identity.
 `torch.utils.checkpoint` replays torch's global RNG states in its
 recompute, not an explicit generator's: `checkpoint` below also rewinds the
 generators of the checkpointed module, so the recompute draws the same
-masks as the forward.
+masks as the forward.  Its policy "dots" (the JAX package's
+`dots_with_no_batch_dims_saveable`) saves the outputs of the 2-D products
+`F.linear` lowers to (`aten.mm`, `aten.addmm`) and recomputes the rest,
+batched products and custom ops (the window-attention and roll kernels)
+among them.
 """
 
 import contextlib
@@ -21,7 +25,12 @@ import contextlib
 import torch
 from torch import nn
 from torch.func import functional_call
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 from torch.utils.checkpoint import checkpoint as _checkpoint
+
+REMAT_POLICIES = ("none", "dots")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 class Random(nn.Module):
@@ -64,14 +73,31 @@ def set_generator(model: nn.Module, generator) -> nn.Module:
     return model
 
 
-def checkpoint(module: nn.Module, *args):
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _entered(*contexts):
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
+
+
+def checkpoint(module: nn.Module, *args, policy: str = "none"):
     """torch.utils.checkpoint of module(*args) whose recompute draws the
     same masks from the explicit generators of module's stochastic
     submodules as the forward did, and runs on the same parameters: the
     tensors module holds now (a caller's `functional_call` may have put
     bf16 casts in place of them, train/steps.py) are handed to the
     checkpointed call as inputs, since the recompute runs in the backward,
-    after such a substitution has ended."""
+    after such a substitution has ended.  `policy` "none" saves nothing
+    inside; "dots" saves the 2-D products' outputs (see the module doc)."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat policy must be one of {REMAT_POLICIES}, "
+                         f"got {policy!r}")
     gens = list({id(m.generator): m.generator for m in module.modules()
                  if isinstance(m, Random) and m.generator is not None
                  }.values())
@@ -93,6 +119,13 @@ def checkpoint(module: nn.Module, *args):
             for g, state in zip(gens, after):
                 g.set_state(state)
 
+    def contexts():
+        if policy == "none":
+            return forward_ctx(), recompute_ctx()
+        save, replay = create_selective_checkpoint_contexts(_save_dots)
+        return (_entered(forward_ctx(), save),
+                _entered(recompute_ctx(), replay))
+
     params = dict(module.named_parameters())
     names, n_args = list(params), len(args)
 
@@ -101,4 +134,4 @@ def checkpoint(module: nn.Module, *args):
                                flat[:n_args])
 
     return _checkpoint(run, *args, *params.values(), use_reentrant=False,
-                       context_fn=lambda: (forward_ctx(), recompute_ctx()))
+                       context_fn=contexts)

@@ -23,8 +23,10 @@ carried over exactly:
 Train mode: row-wise stochastic depth (`x / keep`, per-block rates rising
 linearly to 0.2) drawn from an explicit generator (models/stochastic.py),
 and optional per-block gradient checkpointing (`remat`, the JAX package's
-`nn.remat` of each SwinBlock3d with the save-nothing policy).  The "dots"
-policy (save the matmul outputs) is not ported.
+`nn.remat` of each SwinBlock3d), saving nothing inside a block
+(`remat_policy` 'none') or its Linear products' outputs ('dots', JAX's
+`dots_with_no_batch_dims_saveable`: the window attention and the rolls
+are recomputed).
 """
 
 import functools
@@ -40,7 +42,7 @@ from ..ops.cuda.window_attention import window_attention
 from ..ops.erf import check_gelu_mode, gelu
 from .layers import LayerNorm, Linear
 from .nn3d import Conv3d
-from .stochastic import Stochastic, checkpoint
+from .stochastic import REMAT_POLICIES, Stochastic, checkpoint
 
 
 @functools.lru_cache(maxsize=8)
@@ -195,14 +197,14 @@ class SwinBlock3d(nn.Module):
 
 
 def _check_remat_policy(policy):
-    if policy == "dots":  # save the matmul outputs
-        raise NotImplementedError(
-            "remat_policy 'dots' is not ported (it never won in the JAX "
-            "package's sweep); use 'none'")
-    if policy not in ("none", None):
-        raise ValueError(f"remat_policy must be 'none' (or None), got "
-                         f"{policy!r} — a typo here would silently run the "
-                         "save-nothing policy")
+    """'none' (or None: save nothing inside a block) or 'dots' (save the
+    Linear products' outputs, models/stochastic.checkpoint)."""
+    if policy is None:
+        return "none"
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy must be 'none' (or None) or 'dots', "
+                         f"got {policy!r} — a typo here would silently run "
+                         "the save-nothing policy")
     return policy
 
 
@@ -237,7 +239,7 @@ class SwinTransformer3d(nn.Module):
         # per-block gradient checkpointing: each block keeps only its input
         # and recomputes its inside in the backward
         self.remat = remat
-        _check_remat_policy(remat_policy)
+        self.remat_policy = _check_remat_policy(remat_policy)
         self.patch_embed = Conv3d(in_channels, embed_dim, (2, 4, 4),
                                   stride=(2, 4, 4))
         self.patch_norm = LayerNorm(embed_dim, eps=1e-5)
@@ -268,7 +270,8 @@ class SwinTransformer3d(nn.Module):
         for names, merge in self.stages:
             for name in names:
                 block = getattr(self, name)
-                h = checkpoint(block, h) if remat else block(h)
+                h = (checkpoint(block, h, policy=self.remat_policy)
+                     if remat else block(h))
             if merge is not None:
                 h = getattr(self, merge)(h)
         return self.norm(h)

@@ -6,12 +6,15 @@ sweep, prepare_data and doctor.
   CPU: the completion markers, sweep_summary.csv, a second call skipping
   both points, and a preempted point stopping the grid unmarked;
 - prepare_data: resample-audio and split / make-split write the same bytes
-  as the JAX CLI (its native wav loader off, as the port has none);
+  as the JAX CLI (both packages' native wav loaders off), and with the
+  port's native loader on, resample-audio's waveforms within 2e-3 of
+  those (1e-6 at 16 kHz, tests/test_native.py);
   decode-videos from an .mp4 too; resize-videos on .npy and .mp4 writes
   the same TCHW .pt files, the values within 1e-6 (the JAX CLI resizes
   with cv2, the port with its plain bilinear resize);
-- doctor: the report without a card (`backend: null`), and `--smoke`
-  exiting non-zero without one.
+- doctor: the report without a card (`backend: null`, the native wav
+  decoder built from native/ and loaded, the mp4 one too or a reason),
+  and `--smoke` exiting non-zero without one.
 """
 
 import json
@@ -140,6 +143,8 @@ def _same_files(a, b):
 
 def test_prepare_data_writes_the_jax_files(tmp_path, monkeypatch):
     from multimodalaggressionrecognition_tpu.data import native
+    from multimodalaggressionrecognition_tpu_torch.data import (
+        native as port_native)
 
     rng = np.random.default_rng(1)
     wavs = tmp_path / "wavs"
@@ -149,16 +154,23 @@ def test_prepare_data_writes_the_jax_files(tmp_path, monkeypatch):
                       (rng.standard_normal(rate) * 0.1 * 32767).astype(
                           np.int16))
     monkeypatch.setattr(native, "available", lambda: False)
-    jprep.main(["resample-audio", str(wavs), str(tmp_path / "jax_pt")])
-    prepare_data.main(["resample-audio", str(wavs), str(tmp_path / "pt")])
+    with monkeypatch.context() as numpy_only:
+        numpy_only.setattr(port_native, "available", lambda: False)
+        jprep.main(["resample-audio", str(wavs), str(tmp_path / "jax_pt")])
+        prepare_data.main(["resample-audio", str(wavs), str(tmp_path / "pt")])
     _same_files(tmp_path / "jax_pt", tmp_path / "pt")
     wav = torch.load(tmp_path / "pt" / "c-0_a_0_0.0-1.0_AGGR.pt",
                      weights_only=True)
     assert wav.shape == (1, 16000)
-    monkeypatch.setenv("MAR_USE_NATIVE_WAV", "1")
-    with pytest.raises(RuntimeError, match="queue 1 item 8"):
-        prepare_data.main(["resample-audio", str(wavs), str(tmp_path / "x")])
-    monkeypatch.delenv("MAR_USE_NATIVE_WAV")
+    assert port_native.available()  # resample-audio then decodes natively
+    prepare_data.main(["resample-audio", str(wavs), str(tmp_path / "x")])
+    assert _tree(tmp_path / "x") == _tree(tmp_path / "pt")
+    for name in _tree(tmp_path / "pt"):
+        got, want = (torch.load(tmp_path / d / name, weights_only=True)
+                     for d in ("x", "pt"))
+        assert got.shape == want.shape and got.dtype == torch.float32
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6
+                                   if name.startswith("c-1") else 2e-3)
 
     # make-split and split: the same JSON and the same trees
     table = pd.DataFrame({
@@ -243,7 +255,13 @@ def test_doctor_reports_without_a_card(capsys):
     assert set(report["kernels"]["built"]) <= {
         "framed_conv", "roll", "window_attention", "window_attention_bwd"}
     assert report["kernels"]["build_dir"].endswith("_build")
-    assert report["native"]["ported"] is False and "smoke" not in report
+    native = report["native"]
+    assert native["libmarhost_wav_decode"] is True
+    assert "libmarhost_reason" not in native
+    # libmarvideo builds where pkg-config finds libav*, else says why
+    assert native["libmarvideo_mp4_decode"] is ("libmarvideo_reason"
+                                                not in native)
+    assert "smoke" not in report
     if torch.cuda.is_available():
         assert report["backend"] == "cuda" and report["devices"]
     else:

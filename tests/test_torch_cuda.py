@@ -986,3 +986,160 @@ def test_export_entry_families_bf16_on_the_card(cuda, entry, flags,
         assert got[head].dtype == np.float32
         assert np.isfinite(got[head]).all()
         np.testing.assert_allclose(got[head], want[head], atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_native_wav_loader_builds_and_decodes_on_the_card_host(cuda, tmp_path):
+    """libmarhost built from native/marhost.cpp on the card's host: 5 s
+    wavs at 44.1 kHz through wav_read and wav_batch (1 and 4 threads)
+    within 2e-3 of the numpy loader (tests/test_native.py:40)."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from multimodalaggressionrecognition_tpu_torch.data import native
+    from multimodalaggressionrecognition_tpu_torch.data.files import _load_wav
+
+    assert native.available(), native.unavailable_reasons()
+    rng = np.random.default_rng(0)
+    paths = []
+    for i in range(4):
+        paths.append(str(tmp_path / f"clip{i}.wav"))
+        wavfile.write(paths[-1], 44100, (rng.standard_normal(5 * 44100)
+                                         * 3000).astype(np.int16))
+    want = np.stack([_load_wav(p, 16000) for p in paths])
+    assert want.shape == (4, 80000)
+    got = np.stack([native.wav_read(p, 80000) for p in paths])
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-3)
+    for threads in (1, 4):
+        np.testing.assert_array_equal(
+            native.wav_batch(paths, 80000, num_threads=threads), got)
+
+
+def _pieces_model(kind, cfg):
+    """The tri-modal towers (full width) under the pieces no CLI builds,
+    seeded, LayerNorms randomized (at their init the Swin's tokens sum to
+    ~1e-6 and rounding decides the fusion's zero-row mask)."""
+    from multimodalaggressionrecognition_tpu_torch.cli.train_multimodal import (
+        build_model)
+    from multimodalaggressionrecognition_tpu_torch.models import (
+        audiotext, fusion, heads, physverb)
+    from multimodalaggressionrecognition_tpu_torch.models.layers import (
+        seeded_init_)
+
+    modalities = ("audio", "text", "video")
+    base = build_model(cfg, modalities)
+    kw = dict(extractors=dict(base.extractors),
+              feature_shapes=base.feature_shapes, modalities=base.modalities)
+    if kind == "cross":
+        model = audiotext.MultimodalModel(
+            classifiers={m: heads.OutputClassifier(2, input_size=768)
+                         for m in modalities},
+            fusion=fusion.CrossAttentionFusion(768, 8), **kw)
+    else:
+        model = physverb.PhysVerbModel(
+            classifier=physverb.PhysVerbClassifierAddFeatures(
+                2, {m: (768, 256) for m in modalities}),
+            fusion=fusion.AveragedFeaturesTransformerFusion(1, 768, 8), **kw)
+    seeded_init_(model, 0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.add_(0.1 * torch.randn(m.weight.shape, generator=g))
+                m.bias.add_(0.05 * torch.randn(m.bias.shape, generator=g))
+    return model
+
+
+def _trimodal_batch(n, frames, seed=2):
+    g = torch.Generator().manual_seed(seed)
+    data = {"audio": torch.randn((n, 80000), generator=g) * 0.1,
+            "text": torch.randn((n, 48, 768), generator=g),
+            "video": torch.randn((n, frames, 112, 112, 3), generator=g)}
+    return {m: {"data": d, "present": torch.ones(n)} for m, d in data.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cross", "averaged"])
+def test_pieces_models_on_the_card_match_the_cpu(cuda, kind):
+    """chip_smoke's pieces models at full width, b2 with 16 frames: the
+    eval forward launches K1 1, K2 12, K4 4 and its logits are within
+    1e-3 of the CPU's largest."""
+    import copy
+
+    from multimodalaggressionrecognition_tpu_torch.cli.train_multimodal import (
+        MultimodalConfig)
+
+    cpu = _pieces_model(kind, MultimodalConfig(video_frames=16)).eval()
+    gpu = copy.deepcopy(cpu).to(cuda)
+    batch = _trimodal_batch(2, 16)
+    with torch.inference_mode():
+        want = cpu(batch)
+        launch_counts.clear()
+        got = gpu({m: {k: v.to(cuda) for k, v in d.items()}
+                   for m, d in batch.items()})
+        torch.cuda.synchronize()
+    assert dict(launch_counts) == {"framed_conv1d": 1, "window_attention": 12,
+                                   "roll": 4}
+    assert list(got) == gpu.head_names()
+    scale = max(w.abs().max().item() for w in want.values())
+    for h, w in want.items():
+        assert got[h].shape == (2, 2)
+        assert (got[h].cpu() - w).abs().max().item() <= 1e-3 * scale, h
+
+
+@pytest.mark.cuda
+def test_remat_dots_step_matches_save_nothing_on_the_card(cuda):
+    """One train-mode step of the unfrozen tri-modal model (full width, b2,
+    16 frames) under remat "dots" and save-nothing from the same weights
+    and generator: K1 1, K2 24, K3 12, K4 12 launches each; the loss and
+    every gradient within 1e-6 of save-nothing's (of each tensor's
+    largest, plus two save-nothing runs' spread)."""
+    from multimodalaggressionrecognition_tpu_torch.cli.train_multimodal import (
+        MultimodalConfig, build_model)
+    from multimodalaggressionrecognition_tpu_torch.models.layers import (
+        seeded_init_)
+    from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
+        set_generator)
+    from multimodalaggressionrecognition_tpu_torch.train.steps import (
+        LossSpec, head_losses_and_metrics)
+
+    model = seeded_init_(build_model(
+        MultimodalConfig(video_frames=16, video_freeze=False),
+        ("audio", "text", "video")), 0).to(cuda).train()
+    swin = model.extractors["video"].backbone.backbone
+    n = 2
+    batch = {"modalities": {m: {k: v.to(cuda) for k, v in d.items()}
+                            for m, d in _trimodal_batch(n, 16).items()},
+             "labels": {h: torch.tensor([0, 1], device=cuda)
+                        for h in ("phys", "verb")},
+             "label_mask": {h: torch.ones(n, device=cuda)
+                            for h in ("phys", "verb")},
+             "sample_mask": torch.ones(n, device=cuda)}
+    specs = {"phys": LossSpec("focal", class_weights=(0.5, 0.5)),
+             "verb": LossSpec("ce")}
+    losses, grads = {}, {}
+    torch.backends.cudnn.deterministic = True  # the CNN1D's conv backward
+    try:
+        for run in ("dots", "none", "none_again"):
+            swin.remat_policy = run.split("_")[0]
+            set_generator(model, torch.Generator(cuda).manual_seed(3))
+            model.zero_grad(set_to_none=True)
+            launch_counts.clear()
+            total, _ = head_losses_and_metrics(model(batch["modalities"]),
+                                               batch, specs, 2)
+            total.backward()
+            torch.cuda.synchronize()
+            assert dict(launch_counts) == {
+                "framed_conv1d": 1, "window_attention": 24,
+                "window_attention_bwd": 12, "roll": 12}, run
+            losses[run] = total.item()
+            grads[run] = {k: p.grad.clone()
+                          for k, p in model.named_parameters()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert abs(losses["dots"] - losses["none"]) <= 1e-6 * abs(losses["none"])
+    for name, want in grads["none"].items():
+        # the spread of two save-nothing runs, should an op still differ
+        spread = (grads["none_again"][name] - want).abs().max().item()
+        err = (grads["dots"][name] - want).abs().max().item()
+        assert err <= 1e-6 * want.abs().max().item() + spread, name

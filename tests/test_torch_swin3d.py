@@ -139,8 +139,9 @@ def test_window_frames_drops_trailing_frames():
 def test_train_mode_raises_until_fine_tuning():
     """Fine-tuning is ported: a block in train mode runs its stochastic
     depth from its generator (reproducible per seed; at rate 0 it is the
-    eval-mode block), and gradients reach the bias table.  What still
-    raises is the remat policy that is not ported."""
+    eval-mode block), and gradients reach the bias table.  The remat
+    policy "dots" is ported too (tests/test_torch_remat_dots.py holds it
+    to JAX's); only an unknown policy raises."""
     x = torch.randn((2, 2, 4, 4, 8),
                     generator=torch.Generator().manual_seed(0))
     block = ts.SwinBlock3d(8, 2, (2, 2, 2), sd_prob=0.5)
@@ -158,6 +159,9 @@ def test_train_mode_raises_until_fine_tuning():
         sd.rate = 0.0
     with torch.no_grad():
         torch.testing.assert_close(block.train()(x), block.eval()(x))
-    with pytest.raises(NotImplementedError, match="dots"):
+    assert ts.SwinTransformer3d(embed_dim=8, depths=(2,), num_heads=(2,),
+                                remat=True,
+                                remat_policy="dots").remat_policy == "dots"
+    with pytest.raises(ValueError, match="remat_policy"):
         ts.SwinTransformer3d(embed_dim=8, depths=(2,), num_heads=(2,),
-                             remat=True, remat_policy="dots")
+                             remat=True, remat_policy="dot")

@@ -6,8 +6,8 @@ Unfrozen, every parameter gets a non-zero gradient, equal to JAX's at the
 JAX test's rtol/atol 1e-5 (same weights through io/from_jax.py, random
 bias tables, eval mode, loss sum(out ** 2)); frozen, none does.  Remat
 (per-block and around the whole backbone) changes neither the values nor
-the gradients in train mode with stochastic depth drawing, and an unknown
-remat policy raises.
+the gradients in train mode with stochastic depth drawing; the policies
+are "none" and "dots", and an unknown one raises.
 """
 
 import flax.linen as fnn
@@ -130,6 +130,6 @@ def test_remat_changes_nothing_in_train_mode(jax_pair, where):
 def test_unknown_remat_policy_raises():
     with pytest.raises(ValueError, match="remat_policy"):
         SwinTransformer3d(**TINY, remat=True, remat_policy="dots_saveable")
-    with pytest.raises(NotImplementedError, match="dots"):
-        SwinTransformer3d(**TINY, remat=True, remat_policy="dots")
-    SwinTransformer3d(**TINY, remat=True, remat_policy="none")
+    for policy, kept in (("dots", "dots"), ("none", "none"), (None, "none")):
+        assert SwinTransformer3d(**TINY, remat=True,
+                                 remat_policy=policy).remat_policy == kept

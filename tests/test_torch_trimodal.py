@@ -125,10 +125,14 @@ def test_video_tower_features_match_jax(pair):
 
 
 def test_build_model_rejects_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="dots"):
-        ttm.build_model(ttm.MultimodalConfig(**SIZES, video_freeze=False,
-                                             video_remat_policy="dots"),
-                        MODALITIES)
+    """The name predates the port of remat policy "dots", which now
+    builds; a misspelt policy, a video model narrower than the Swin and an
+    unknown GELU mode still raise."""
+    dots = ttm.build_model(ttm.MultimodalConfig(**SIZES, video_freeze=False,
+                                                video_remat_policy="dots"),
+                           MODALITIES)
+    swin = dots.extractors["video"].backbone.backbone
+    assert swin.remat and swin.remat_policy == "dots"
     with pytest.raises(ValueError, match="remat_policy"):
         ttm.build_model(ttm.MultimodalConfig(**SIZES, video_freeze=False,
                                              video_remat_policy="dot"),

@@ -8,7 +8,7 @@ synthetic fixture against the JAX package's.
   matrices against cv2.resize(INTER_LINEAR) within 1e-5, and the masks of
   the scaled boxes bit for bit.
 - A `video.npy` clip loads as its `video.pt` twin; a `video.mp4` clip
-  without OpenCV raises naming the remedy.
+  with neither the native decoder nor OpenCV raises naming the remedy.
 """
 
 import os
@@ -20,7 +20,7 @@ import torch
 
 from multimodalaggressionrecognition_tpu.cli import train3dcnn as jcli
 from multimodalaggressionrecognition_tpu.data import video_clips as jclips
-from multimodalaggressionrecognition_tpu_torch.data import video_clips
+from multimodalaggressionrecognition_tpu_torch.data import native, video_clips
 from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
     make_synthetic_clips)
 from test_torch_files import _assert_same_batches
@@ -100,6 +100,7 @@ def test_npy_clip_loads_as_its_pt_twin_and_mp4_needs_opencv(tmp_path,
     assert a[0].shape == (4, 16, 16, 3) and frames.shape == (4, 3, 16, 16)
 
     (root / clips[0] / "video.mp4").write_bytes(b"")
+    monkeypatch.setattr(native, "video_available", lambda: False)
     monkeypatch.setitem(__import__("sys").modules, "cv2", None)
     with pytest.raises(ImportError, match="video.pt or video.npy"):
         src.load(0)
