@@ -1702,6 +1702,21 @@ def train_parity(n: int = 1, frames: int = 16):
     return {"loss_err": loss_err, "grad_rel_err": worst}
 
 
+def finetune_args(tmp, root, run_name="r", *extra):
+    """cli.train_multimodal's arguments for the tri-modal fine-tune at
+    full width (TRAIN), 2 epochs, on the synthetic set at `root`."""
+    args = ["--dataset_root", root, "--synthetic",
+            "--saving_dir", os.path.join(tmp, "runs"), "--run_name", run_name,
+            "--modalities", "audio,text,video", "--video_freeze", "false",
+            *extra, "--epoch_num", "2", "--device", DEVICE,
+            "--num_threads", "4"]
+    for k in ("hidden_size", "fusion_layers", "fusion_heads",
+              "audio_samples", "text_tokens", "video_frames", "video_size",
+              "video_window", "batch_size"):
+        args += [f"--{k}", str(TRAIN[k])]
+    return args
+
+
 def step_counts(trainer, batch):
     """Launch counts of one train step on `batch`, reset just before."""
     torch.cuda.synchronize()
@@ -1745,14 +1760,7 @@ def train_phase(card_line):
         root = os.path.join(tmp, "avabos")
         generate_synthetic_avabos(root, **TRAIN_DATA)
         data_s = time.monotonic() - t0
-        args = ["--dataset_root", root, "--synthetic",
-                "--saving_dir", os.path.join(tmp, "runs"), "--run_name", "r",
-                "--modalities", "audio,text,video", "--video_freeze", "false",
-                "--epoch_num", "2", "--device", DEVICE, "--num_threads", "4"]
-        for k in ("hidden_size", "fusion_layers", "fusion_heads",
-                  "audio_samples", "text_tokens", "video_frames",
-                  "video_size", "video_window", "batch_size"):
-            args += [f"--{k}", str(TRAIN[k])]
+        args = finetune_args(tmp, root)
         torch.cuda.synchronize()
         kernels.launch_counts.clear()  # count this path only
         t0 = time.monotonic()
@@ -3128,18 +3136,21 @@ class relu_decisions:
     """Within the block every `torch.relu` (the port's models call it by
     that name) records its mask in `taken`; given `decisions` it takes
     those masks instead of its own, and so computes the branch of the
-    piecewise-linear parts that another run took."""
+    piecewise-linear parts that another run took.  `fit(mask, shape)`
+    cuts a given mask to the call's shape (a rank's block of a run over
+    the whole batch)."""
 
-    def __init__(self, decisions=None):
+    def __init__(self, decisions=None, fit=None):
         self.taken, self.given = [], decisions
+        self.fit = fit or (lambda mask, shape: mask)
         self._relu = torch.relu
 
     def __enter__(self):
         given = iter(self.given or ())
 
         def relu(y):
-            mask = (next(given).to(y.device) if self.given is not None
-                    else y > 0)
+            mask = (self.fit(next(given), y.shape).to(y.device)
+                    if self.given is not None else y > 0)
             self.taken.append(mask.cpu())
             return y * mask.to(y.dtype)
 
@@ -3148,6 +3159,40 @@ class relu_decisions:
 
     def __exit__(self, *exc):
         torch.relu = self._relu
+
+
+class pool_decisions:
+    """relu_decisions for the CNN1D tower's max pools
+    (`models/cnn1d.max_pool1d`): each records its argmax in `taken`, or
+    takes the given one (cut by `fit`) and gathers it, which is the pool's
+    forward and backward on that argmax."""
+
+    def __init__(self, decisions=None, fit=None):
+        self.taken, self.given = [], decisions
+        self.fit = fit or (lambda idx, shape: idx)
+
+    def __enter__(self):
+        from multimodalaggressionrecognition_tpu_torch.models import cnn1d
+
+        given = iter(self.given or ())
+        self._module, self._pool = cnn1d, cnn1d.max_pool1d
+
+        def pool(x, window):
+            xt = x.transpose(1, 2)  # (B, C, L)
+            out_shape = (*xt.shape[:2], xt.shape[2] // window)
+            if self.given is not None:
+                idx = self.fit(next(given), out_shape).to(x.device)
+            else:
+                idx = F.max_pool1d(xt.detach(), window,
+                                   return_indices=True)[1]
+            self.taken.append(idx.cpu())
+            return xt.gather(-1, idx).transpose(1, 2)
+
+        cnn1d.max_pool1d = pool
+        return self
+
+    def __exit__(self, *exc):
+        self._module.max_pool1d = self._pool
 
 
 def replay_parity(label, model, batch, specs, num_classes=2):
@@ -4647,15 +4692,7 @@ def remat_dots_phase(card_line):
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "avabos")
         generate_synthetic_avabos(root, **TRAIN_DATA)
-        args = ["--dataset_root", root, "--synthetic",
-                "--saving_dir", os.path.join(tmp, "runs"), "--run_name", "r",
-                "--modalities", "audio,text,video", "--video_freeze", "false",
-                "--video_remat_policy", "dots",
-                "--epoch_num", "2", "--device", DEVICE, "--num_threads", "4"]
-        for k in ("hidden_size", "fusion_layers", "fusion_heads",
-                  "audio_samples", "text_tokens", "video_frames",
-                  "video_size", "video_window", "batch_size"):
-            args += [f"--{k}", str(TRAIN[k])]
+        args = finetune_args(tmp, root, "r", "--video_remat_policy", "dots")
         trainer, counts, clips_s = run_cli(
             train_multimodal.main, args, card_line, "train remat dots",
             heads=("phys", "verb"))
@@ -4738,6 +4775,411 @@ def remat_dots_phase(card_line):
     return counts
 
 
+# ------------------------------------------------------------------ parallel
+PARALLEL_WORLD, PARALLEL_TP = 4, 2  # dp 2 x tp 2 ranks on the one card
+PARALLEL_SEED = SEED + 61
+
+
+def parallel_world1(card_line):
+    """(a) cli.train_multimodal.main --data_parallel at full width, b8, 2
+    epochs: a world of one rank over NCCL, and the same run without the
+    flag, both under deterministic algorithms (train_phase's run is not,
+    and over 12 Adam steps the card's nondeterministic reductions move a
+    gradient that is ~0 in exact arithmetic by +-lr).  Its launches per
+    video step, its logged train and test losses against the plain run's
+    (1e-5), and its median step against the plain step's, in turns (the
+    all-reduces' cost at world 1)."""
+    import pandas as pd
+    import torch.distributed as dist
+
+    from multimodalaggressionrecognition_tpu_torch.cli import train_multimodal
+    from multimodalaggressionrecognition_tpu_torch.data.synthetic import (
+        generate_synthetic_avabos)
+
+    heads = ("phys", "verb")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "avabos")
+        generate_synthetic_avabos(root, **TRAIN_DATA)
+        with deterministic():
+            plain, _, _ = run_cli(train_multimodal.main,
+                                  finetune_args(tmp, root, "plain"),
+                                  card_line, "parallel plain", heads=heads)
+            trainer, counts, clips_s = run_cli(
+                train_multimodal.main,
+                finetune_args(tmp, root, "dp", "--data_parallel"),
+                card_line, "parallel world 1", heads=heads)
+        mesh = trainer.mesh
+        backend = "nccl" if torch.device(DEVICE).type == "cuda" else "gloo"
+        if (mesh is None or mesh.world != 1
+                or dist.get_backend() != backend):
+            raise AssertionError(f"parallel world 1: mesh {mesh}, backend "
+                                 f"{dist.get_backend()}")
+        worst = 0.0
+        for f in (f"{h}_{s}_log.csv" for h in heads
+                  for s in ("train", "test")):
+            got, want = (pd.read_csv(os.path.join(t.run_dir, f))["loss"]
+                         .to_numpy() for t in (trainer, plain))
+            err = float(np.abs(got - want).max())
+            worst = max(worst, err)
+            if not err <= 1e-5:
+                raise AssertionError(f"parallel world 1: {f} losses "
+                                     f"{got.tolist()} vs {want.tolist()}")
+        batch = next(b for b in trainer.batches(trainer.train_loader)
+                     if sorted(b["modalities"]) == list(PIECES_MODALITIES))
+        per_step = step_counts(trainer, batch)
+        if per_step != PER_PATTERN["audio,text,video"]:
+            raise AssertionError(f"parallel world 1: a step launched "
+                                 f"{per_step}")
+        timing = {"dp": [], "plain": []}
+        for name in ("dp", "plain", "plain", "dp"):
+            timing[name].append(median_step_ms(
+                trainer if name == "dp" else plain, batch)[0])
+        # what a step of dp > 1 all-reduces; world 1 reduces the loss
+        # terms alone (train/state.Optimizer.step)
+        grad_bytes = sum(p.numel() * p.element_size()
+                         for p in trainer.state.optimizer.params)
+        del plain, trainer
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"parallel (a) world 1 over {backend} on {card_line}: launches "
+        f"{counts}, per video step {per_step} ok; logged losses vs the "
+        f"plain run's max |d| {worst:.3e} <= 1e-5 ok (both under "
+        f"deterministic algorithms); median step ms dp {timing['dp']} vs "
+        f"plain {timing['plain']} (world 1 all-reduces the loss terms "
+        f"alone); {grad_bytes} gradient bytes a dp > 1 step all-reduces")
+    return {"launches": counts, "launches_per_step": per_step,
+            "loss_max_abs_err": worst, "step_ms_dp": timing["dp"],
+            "step_ms_plain": timing["plain"], "grad_bytes": grad_bytes,
+            "epoch_clips_per_s": clips_s}
+
+
+def _sync():
+    if torch.device(DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _parallel_model(cfg):
+    return seeded_model(dict(cfg, video_freeze=False),
+                        ("audio", "text", "video"))
+
+
+def _parallel_batch(cfg):
+    n = cfg["batch_size"]
+    data = full_batch(cfg, ("audio", "text", "video"), n, PARALLEL_SEED)
+    phys_mask = torch.ones(n)
+    phys_mask[1] = 0.0
+    return {"modalities": data,
+            "labels": {"phys": torch.arange(n) % 2,
+                       "verb": (torch.arange(n) + 1) % 2},
+            "label_mask": {"phys": phys_mask, "verb": torch.ones(n)},
+            "sample_mask": torch.ones(n)}
+
+
+def _parallel_step(model, batch, mesh=None):
+    """One train step (dropout and stochastic depth on) of `model` on the
+    card; (loss, {name: summed gradient}, {name: BatchNorm statistic},
+    launches), tp shards gathered."""
+    from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
+        set_generator)
+    from multimodalaggressionrecognition_tpu_torch.parallel.sharding_rules import (
+        gather_state)
+    from multimodalaggressionrecognition_tpu_torch.train.state import (
+        OptimizerConfig, create_train_state)
+    from multimodalaggressionrecognition_tpu_torch.train.steps import (
+        train_step)
+
+    state = create_train_state(model, OptimizerConfig(1e-3), DEVICE,
+                               mesh=mesh)
+    set_generator(model, torch.Generator(DEVICE).manual_seed(PARALLEL_SEED))
+    batch = to_device(batch, DEVICE)
+    _sync()
+    kernels.launch_counts.clear()
+    metrics = train_step(state, batch, SPECS, 2)
+    _sync()
+    counts = dict(kernels.launch_counts)
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if p.requires_grad}
+    if mesh is not None and mesh.tp > 1:
+        grads = gather_state({"state_dict": grads}, state)["state_dict"]
+    stats = {n: b.detach().cpu() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    return (float(metrics["total_loss"]),
+            {n: g.detach().cpu() for n, g in grads.items()}, stats, counts)
+
+
+def parallel_rank_main(rank: int, world: int, workdir: str):
+    """One of parallel_ranks' ranks (a child process): gloo on CUDA
+    tensors, all on cuda:0; the config and device come from the parent."""
+    global DEVICE
+    import torch.distributed as dist
+
+    from multimodalaggressionrecognition_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_mesh, shard_batch)
+
+    with open(os.path.join(workdir, "config.json")) as f:
+        setup = json.load(f)
+    DEVICE = setup["device"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if DEVICE == "cuda":
+        torch.cuda.set_device(0)
+    initialize_distributed(
+        num_processes=world, process_id=rank, backend="gloo",
+        init_method=f"file://{os.path.join(workdir, 'rendezvous')}")
+    mesh = make_mesh(model_parallelism=PARALLEL_TP,
+                     device=torch.device(DEVICE, 0) if DEVICE == "cuda"
+                     else torch.device(DEVICE))
+    model = _parallel_model(setup["train"])
+    model.load_state_dict(torch.load(os.path.join(workdir, "weights.pt")))
+    batch = shard_batch(torch.load(os.path.join(workdir, "batch.pt")), mesh)
+    taken = torch.load(os.path.join(workdir, "decisions.pt"))
+
+    def fit(full, shape):
+        """This rank's block of a decision of the one-rank run: its rows
+        and, in a tensor-parallel block, its columns."""
+        if full.shape[0] != shape[0]:
+            full = full.narrow(0, mesh.dp_rank * shape[0], shape[0])
+        if full.shape[-1] != shape[-1]:
+            full = full.narrow(-1, mesh.tp_rank * shape[-1], shape[-1])
+        return full
+
+    t0 = time.monotonic()
+    with relu_decisions(taken["relu"], fit), pool_decisions(taken["pool"],
+                                                            fit):
+        loss, grads, stats, counts = _parallel_step(model, batch, mesh)
+    step_s = time.monotonic() - t0
+    with open(os.path.join(workdir, f"launches_{rank}.json"), "w") as f:
+        json.dump({"launches": counts, "step_s": step_s,
+                   "dp_rank": mesh.dp_rank, "tp_rank": mesh.tp_rank}, f)
+    if rank == 0:
+        torch.save({"loss": loss, "grads": grads, "stats": stats},
+                   os.path.join(workdir, "rank0.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_ranks(card_line):
+    """(b) dp 2 x tp 2: four ranks on the one card (gloo on CUDA tensors;
+    NCCL refuses two ranks on one device), one tri-modal train step at
+    full width on the global b8, dropout and stochastic depth on, the
+    fusion encoder (768 wide, 8 heads) split by head; against one rank on
+    the same weights, batch, generator and ReLU and max-pool decisions:
+    the loss within rtol 1e-5, every gradient within 1e-4 of that tensor's
+    largest, the CNN1D BatchNorm statistics within 1e-5, and each rank's
+    launches."""
+    model = _parallel_model(TRAIN)
+    batch = _parallel_batch(TRAIN)
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "config.json"), "w") as f:
+            json.dump({"train": TRAIN, "device": DEVICE}, f)
+        torch.save(model.state_dict(), os.path.join(tmp, "weights.pt"))
+        torch.save(batch, os.path.join(tmp, "batch.pt"))
+        # the one-rank step first: its ReLU and max-pool decisions are
+        # replayed by the ranks (a near tie that the split batch's or the
+        # split block's summation order flips routes a whole gradient
+        # elsewhere, far beyond the rounding this check holds)
+        with relu_decisions() as relus, pool_decisions() as pools:
+            want_loss, want_grads, want_stats, one_counts = _parallel_step(
+                model, batch)
+        torch.save({"relu": relus.taken, "pool": pools.taken},
+                   os.path.join(tmp, "decisions.pt"))
+        t0 = time.monotonic()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+             str(r), str(PARALLEL_WORLD), tmp], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for r in range(PARALLEL_WORLD)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.monotonic() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"parallel (b): rank {r} exited "
+                                     f"{p.returncode}:\n{out[-4000:]}")
+        got = torch.load(os.path.join(tmp, "rank0.pt"))
+        ranks = []
+        for r in range(PARALLEL_WORLD):
+            with open(os.path.join(tmp, f"launches_{r}.json")) as f:
+                ranks.append(json.load(f))
+    per_step = PER_PATTERN["audio,text,video"]
+    for r, info in enumerate(ranks):
+        if info["launches"] != per_step:
+            raise AssertionError(f"parallel (b): rank {r} launched "
+                                 f"{info['launches']}, want {per_step}")
+    if not abs(got["loss"] - want_loss) <= 1e-5 * abs(want_loss):
+        raise AssertionError(f"parallel (b): loss {got['loss']} vs one "
+                             f"rank {want_loss}")
+    if sorted(got["grads"]) != sorted(want_grads):
+        raise AssertionError("parallel (b): gradient names differ")
+    # a conv bias feeding a train-mode BatchNorm has no gradient in exact
+    # arithmetic (the batch mean takes it out): its largest value is
+    # rounding, so it is held to 1e-4 of its conv weight's largest instead
+    fed = [re.fullmatch(r"(.*\.)bn(\d+)", n) for n, m in
+           model.named_modules() if isinstance(m, BatchNorm1d)]
+    zero = {f"{f[1]}conv{f[2]}.bias": f"{f[1]}conv{f[2]}.weight"
+            for f in fed if f}
+    worst, bad = 0.0, []
+    for name, want in want_grads.items():
+        scale = float(want_grads[zero.get(name, name)].abs().max())
+        err = float((got["grads"][name] - want).abs().max())
+        if name not in zero:
+            worst = max(worst, err / scale if scale else err)
+        if not err <= 1e-4 * scale + 1e-12:
+            bad.append((name, err, scale))
+    if bad:
+        raise AssertionError(f"parallel (b): {len(bad)} gradients beyond "
+                             f"1e-4 of their largest: {bad}")
+    stat_err = max(float((got["stats"][n] - w).abs().max())
+                   for n, w in want_stats.items())
+    if not want_stats or not stat_err <= 1e-5:
+        raise AssertionError(f"parallel (b): BatchNorm statistics "
+                             f"{stat_err}")
+    log(f"parallel (b) dp 2 x tp 2 on one {card_line}: 4 ranks in "
+        f"{ranks_s:.1f} s (start-up included); loss {got['loss']:.7f} vs "
+        f"one rank {want_loss:.7f}; {len(want_grads) - len(zero)} "
+        f"gradients within {worst:.2e} of their largest (<= 1e-4), the "
+        f"{len(zero)} BatchNorm-fed conv biases within 1e-4 of their "
+        f"weights' (the ranks on the one-rank run's {len(relus.taken)} ReLU "
+        f"and {len(pools.taken)} max-pool decisions); BatchNorm statistics "
+        f"{stat_err:.2e} (<= 1e-5); launches per rank "
+        f"{[i['launches'] for i in ranks]} ok")
+    return {"loss": got["loss"], "one_rank_loss": want_loss,
+            "grad_rel_err": worst, "bn_max_abs_err": stat_err,
+            "launches_per_rank": [i["launches"] for i in ranks],
+            "rank_step_s": [i["step_s"] for i in ranks],
+            "ranks_s": ranks_s, "one_rank_launches": one_counts}
+
+
+def parallel_serving(card_line):
+    """(c) Data-parallel serving of the tri-modal model at b8:
+    Predictor(devices=["cuda:0", "cuda:0"]) against the one-device
+    Predictor (probabilities within 1e-5; K1 2, K2 24, K4 8 a forward);
+    `serve --data_parallel` answering /score; an ExportedPredictor over two
+    replicas (each the artifact's b8) against the one-device artifact."""
+    from multimodalaggressionrecognition_tpu_torch.io.export import (
+        ExportedPredictor, export_predictor)
+    from multimodalaggressionrecognition_tpu_torch.serve import Predictor
+
+    modalities = ("audio", "text", "video")
+    model = seeded_model(TRIMODAL, modalities)
+    rng = np.random.default_rng(PARALLEL_SEED)
+    clips = request(rng, TRIMODAL, modalities, 8)
+    example = {m: a[:1] for m, a in clips.items()}
+    pair = [torch.device(DEVICE, 0) if DEVICE == "cuda"
+            else torch.device(DEVICE)] * 2
+    one = Predictor(copy.deepcopy(model), batch_size=8,
+                    device=DEVICE).warmup(example)
+    two = Predictor(copy.deepcopy(model), batch_size=8,
+                    devices=pair).warmup(example)
+    per_forward = {k: 2 * v for k, v in PER_PIECES_FORWARD.items()}
+    _sync()
+    kernels.launch_counts.clear()
+    got = two.predict(clips)
+    _sync()
+    counts = dict(kernels.launch_counts)
+    if counts != per_forward:
+        raise AssertionError(f"parallel (c): a two-replica forward "
+                             f"launched {counts}, want {per_forward}")
+    want = one.predict(clips)
+    err = max(float(np.abs(got[h] - want[h]).max()) for h in want)
+    if not err <= 1e-5:
+        raise AssertionError(f"parallel (c): replicas vs one device {err}")
+    timing = {"one": [], "two": []}
+    for name in ("one", "two", "two", "one"):
+        pred = one if name == "one" else two
+        t0 = time.monotonic()
+        for _ in range(3):
+            pred.predict(clips)
+        timing[name].append((time.monotonic() - t0) / 3 * 1e3)
+
+    srv = build_server(ServeConfig(
+        modalities=",".join(modalities), batch_size=8, port=0,
+        allow_random_weights=True, data_parallel=True, device=DEVICE,
+        **TRIMODAL))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        devices = [str(d) for d in srv.predictor.devices]
+        scores = _http(srv, "/score", _npz({m: a[:2] for m, a in
+                                            clips.items()}),
+                       "application/x-npz")
+        _check_scores(scores, 2)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.close()
+        thread.join(timeout=30)
+    want_devices = ([f"cuda:{i}" for i in range(torch.cuda.device_count())]
+                    if DEVICE == "cuda" else [DEVICE])
+    if devices != want_devices:
+        raise AssertionError(f"parallel (c): serve replicas {devices}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        export_predictor(one, example, tmp)
+        export_s = time.monotonic() - t0
+        single = ExportedPredictor(tmp, device=DEVICE).warmup()
+        double = ExportedPredictor(tmp, devices=pair).warmup()
+        if double.batch_size != 16:
+            raise AssertionError(f"parallel (c): exported replicas' batch "
+                                 f"{double.batch_size}")
+        sixteen = {m: np.concatenate([a, a[::-1]]) for m, a in clips.items()}
+        _sync()
+        kernels.launch_counts.clear()
+        egot = double.predict(sixteen)
+        _sync()
+        ecounts = dict(kernels.launch_counts)
+        halves = [single.predict({m: a[s:s + 8] for m, a in
+                                  sixteen.items()}) for s in (0, 8)]
+    eerr = max(float(np.abs(egot[h] - np.concatenate(
+        [x[h] for x in halves])).max()) for h in egot)
+    if ecounts != per_forward or not eerr <= 1e-5:
+        raise AssertionError(f"parallel (c): exported replicas launched "
+                             f"{ecounts}, |dp| {eerr}")
+    del one, two, single, double
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"parallel (c) serving on {card_line}: Predictor over "
+        f"{[str(d) for d in pair]} "
+        f"launches {counts} a forward ok, probabilities within {err:.2e} of "
+        f"one device (<= 1e-5); predict b8 ms one device {timing['one']}, "
+        f"two replicas {timing['two']} (host clock); serve --data_parallel "
+        f"replicas {devices} answered /score; ExportedPredictor over two "
+        f"replicas (b16, exported in {export_s:.1f} s) launches {ecounts}, "
+        f"within {eerr:.2e} of one (<= 1e-5)")
+    return {"launches": counts, "max_abs_prob_err": err,
+            "predict_ms_one": timing["one"], "predict_ms_two": timing["two"],
+            "serve_devices": devices, "exported_launches": ecounts,
+            "exported_max_abs_prob_err": eerr}
+
+
+def parallel_phase(card_line):
+    """The multi-GPU slice on one card: (a) a world of one over NCCL
+    through the CLI, (b) four gloo ranks sharing the card, (c)
+    data-parallel serving.  Returns the launch counts of its paths."""
+    t0 = time.monotonic()
+    world1 = parallel_world1(card_line)
+    ranks = parallel_ranks(card_line)
+    serving = parallel_serving(card_line)
+    seconds = time.monotonic() - t0
+    log(json.dumps({"parallel": {"world1": world1, "dp2_tp2": ranks,
+                                 "serving": serving, "seconds": seconds,
+                                 "card": card_line}}))
+    return {"parallel_world1": world1["launches"],
+            "parallel_dp2_tp2_rank0": ranks["launches_per_rank"][0],
+            "parallel_serve": serving["launches"],
+            "parallel_serve_exported": serving["exported_launches"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -4779,6 +5221,7 @@ def main():
     launches["train_flagship"] = flagship_phase(card_line)
     launches.update(pieces_phase(card_line))
     launches["train_remat_dots"] = remat_dots_phase(card_line)
+    launches.update(parallel_phase(card_line))
     for numbers, key, kernel in ((k2, "k2", "window_attention"),
                                  (k3, "k3", "window_attention_bwd"),
                                  (k4, "k4", "roll")):
@@ -4844,4 +5287,7 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank_main(int(sys.argv[2]), int(sys.argv[3]),
+                                    sys.argv[4]))
     sys.exit(main())

@@ -6,9 +6,18 @@ training half (dataset provisioning, optimizer, trainer).
 `--grad_clip_norm`, `--weight_decay`, `--grad_accum_steps`), the EMA
 (`--ema_decay`), early stopping, the profiler, TensorBoard and
 `--compute_dtype` (bfloat16 on every train entry, as in the JAX package;
-`generate_features` calls `require_float32`).  Not ported: multi-GPU
-(`--data_parallel`, `--model_parallelism`) and, by design, the XLA
-compilation cache.
+`generate_features` calls `require_float32`) and the parallelism
+(`--data_parallel`, `--model_parallelism`: `make_parallelism`).  Not
+ported, by design: the XLA compilation cache.
+
+A data- or tensor-parallel run is one `torchrun` launch, one process per
+device (NCCL on CUDA, gloo with `--device cpu`):
+
+  torchrun --nproc_per_node 4 -m \
+      multimodalaggressionrecognition_tpu_torch.cli.train_multimodal \
+      --data_parallel [--model_parallelism 2] ...
+
+Without torchrun's environment `--data_parallel` is a world of one rank.
 `--from_run <run dir>` fills every field not passed on the command line
 from the run's saved config.json.
 """
@@ -56,6 +65,15 @@ class TrainConfig:
     profile_epoch: int = 1
     # TensorBoard scalars <head>/<split>/<metric> per epoch ('' = off)
     tensorboard_dir: str = ""
+    # Tensor parallelism degree N (> 1: a (ranks / N data) x (N model)
+    # mesh: batches split on `data`, the transformer blocks' attention
+    # heads and feed-forward columns Megatron-split on `model`,
+    # parallel/sharding_rules.py).  1 = off.
+    model_parallelism: int = 1
+    # Pure data parallelism over every rank of the launch (batch split on
+    # the `data` axis, parameters and optimizer replicated; the gradients
+    # summed over the data group).  Implied by model_parallelism > 1.
+    data_parallel: bool = False
     device: str = "cuda"
 
 
@@ -113,12 +131,14 @@ def flag_value(args, name, default):
 
 # fields never inherited through --from_run: the run's identity and resume
 # knobs, sizes whose training-time values are wrong for a new invocation,
-# and the device (a run trained with --device cpu must not move a later
-# evaluate or predict to the CPU without the caller asking)
+# the device (a run trained with --device cpu must not move a later
+# evaluate or predict to the CPU without the caller asking) and the
+# launch's layout (a torchrun run's --data_parallel / --model_parallelism
+# would not fit a one-process evaluate)
 _FROM_RUN_EXCLUDE = frozenset({
     "path_to_checkpoint", "resume_training", "run_name", "saving_dir",
     "profile_dir", "epoch_num", "batch_size", "num_threads", "log_console",
-    "device"})
+    "device", "data_parallel", "model_parallelism"})
 
 
 def parse_config(cls, argv=None, **overrides):
@@ -261,13 +281,49 @@ def require_float32(cfg, entry: str):
                          "only")
 
 
+def check_parallelism(n: int, tp: int, batch_size: int) -> int:
+    """The data axis of `n` ranks at tensor parallelism `tp`, or exit with
+    the JAX package's words (its arguments count devices; here each rank
+    is one)."""
+    if tp > 1 and n % tp != 0:
+        raise SystemExit(
+            f"--model_parallelism {tp} does not divide the {n} available "
+            "devices")
+    dp = n // max(tp, 1)
+    if batch_size % dp != 0:
+        raise SystemExit(
+            f"--batch_size {batch_size} must be divisible by the data "
+            f"axis ({n} devices / tp {max(tp, 1)} = {dp})")
+    return dp
+
+
+def make_parallelism(cfg):
+    """This rank's parallel.mesh.Mesh for --data_parallel /
+    --model_parallelism, or None when neither is set (one process, as
+    before).  The launch is torchrun's (RANK, WORLD_SIZE, LOCAL_RANK), a
+    process group already up (tests), or a world of one rank; its size is
+    checked before any group comes up."""
+    tp = int(getattr(cfg, "model_parallelism", 1))
+    if tp <= 1 and not getattr(cfg, "data_parallel", False):
+        return None
+    from ..parallel.mesh import (init_from_env, launch_world_size,
+                                 local_device, make_mesh)
+    from ..serve import resolve_device
+
+    check_parallelism(launch_world_size(), tp, cfg.batch_size)
+    device = local_device(resolve_device(cfg.device))
+    init_from_env(device)
+    return make_mesh(model_parallelism=max(tp, 1), device=device)
+
+
 def build_trainer(cfg: TrainConfig, model, loss_specs, train_loader,
                   test_loader, num_classes: int = 2, on_epoch_start=None):
-    """The entry's Trainer with every knob of `cfg`, --compute_dtype
-    included."""
+    """The entry's Trainer with every knob of `cfg`, --compute_dtype and
+    the parallelism included."""
     from ..serve import resolve_device
     from ..train.loop import Trainer
 
+    mesh = make_parallelism(cfg)
     run_dir = (os.path.join(cfg.saving_dir, cfg.run_name) if cfg.run_name
                else None)
     trainer = Trainer(
@@ -280,8 +336,8 @@ def build_trainer(cfg: TrainConfig, model, loss_specs, train_loader,
         ema_decay=cfg.ema_decay,
         early_stop_patience=cfg.early_stop_patience,
         profile_dir=cfg.profile_dir or None, profile_epoch=cfg.profile_epoch,
-        tensorboard_dir=cfg.tensorboard_dir or None)
-    save_run_config(cfg, trainer.run_dir)
+        tensorboard_dir=cfg.tensorboard_dir or None, mesh=mesh)
+    trainer.on_main(save_run_config, cfg, trainer.run_dir)
     return trainer
 
 

@@ -2,9 +2,10 @@
 cli/doctor.py, with the port's facts).
 
 One JSON report: library versions, whether torch sees a CUDA card (and
-why not), the kernel build's state (nvcc, the build directory, which
-csrc/*.cu are built for their current source, the launch counts), and
-whether the native wav and mp4 decoders build and load (and why not).
+why not), the launch (world size, rank, backend), the kernel build's
+state (nvcc, the build directory, which csrc/*.cu are built for their
+current source, the launch counts), and whether the native wav and mp4
+decoders build and load (and why not).
 `--smoke` proves the card works: it times one 256x256 matmul round trip,
 builds and launches K4 (the shifted-window roll, csrc/roll.cu) once on a
 small tensor and checks it bit for bit against torch.roll.  Without a
@@ -36,6 +37,28 @@ def _backend(report):
         report["devices"].append({
             "name": props.name, "capability": f"{props.major}.{props.minor}",
             "memory_gib": round(props.total_memory / 2 ** 30, 2)})
+
+
+def _distributed():
+    """The launch this process belongs to: torch.distributed's world size,
+    rank and backend where a process group is up, else torchrun's
+    environment (the JAX doctor's process_count)."""
+    import torch.distributed as dist
+
+    env = {k: os.environ[k] for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+           if k in os.environ}
+    if dist.is_available() and dist.is_initialized():
+        return {"initialized": True, "world_size": dist.get_world_size(),
+                "rank": dist.get_rank(), "backend": dist.get_backend(),
+                "env": env}
+    return {"initialized": False,
+            "world_size": int(env.get("WORLD_SIZE", 1)),
+            "rank": int(env.get("RANK", 0)),
+            "backends": {"nccl": dist.is_available()
+                         and dist.is_nccl_available(),
+                         "gloo": dist.is_available()
+                         and dist.is_gloo_available()},
+            "env": env}
 
 
 def _kernels():
@@ -112,6 +135,7 @@ def collect(smoke: bool = False) -> dict:
                            "numpy": np.__version__,
                            "scipy": scipy.__version__}}
     _backend(report)
+    report["distributed"] = _distributed()
     report["kernels"] = _kernels()
     report["native"] = _native()
     if smoke and report["backend"]:

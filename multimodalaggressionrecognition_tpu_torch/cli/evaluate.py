@@ -5,7 +5,9 @@ Loads a checkpoint (a training one, `checkpoint_current` /
 `checkpoint_best_<head>`, or an inference one), runs the test clusters of
 the intervals table through the PhysVerb model, and prints the reference's
 metric set per head (loss, accuracy, per-class P/R/F1, UAR/UAP/UAF1).
-Runs on CUDA unless --device cpu.
+Runs on CUDA unless --device cpu.  `--data_parallel` and
+`--model_parallelism` split the test batches (and the transformer blocks)
+over a torchrun launch exactly as in training; rank 0 prints.
 
   python -m multimodalaggressionrecognition_tpu_torch.cli.evaluate \
       --from_run runs/<run> --path_to_checkpoint runs/<run>/checkpoint_best_phys
@@ -122,6 +124,7 @@ def main(argv=None):
     from ..train.loop import Trainer
     from ..train.state import OptimizerConfig
     from ..train.steps import LossSpec
+    from .common import make_parallelism
     from .train_multimodal import class_weights_from_df
 
     cfg = parse_config(EvalConfig, argv)
@@ -129,6 +132,7 @@ def main(argv=None):
         return _eval_exported(cfg)
     dtype = compute_dtype(cfg)
     device = resolve_device(cfg.device)  # fail before any data or model work
+    mesh = make_parallelism(cfg)
     modalities = tuple(cfg.modalities.split(","))
     df, split = ensure_dataset(cfg)
     train_loader, test_loader = make_loaders(cfg, df, split, modalities)
@@ -137,18 +141,19 @@ def main(argv=None):
                                    class_weights=class_weights_from_df(
                                        df, "phys_aggr_label")),
                   "verb": LossSpec("ce")}
+    if cfg.path_to_checkpoint:
+        # the weights of a training or an inference checkpoint (its EMA
+        # shadow where it has one), strictly, before the mesh splits them
+        state_dict, _ = restore_variables(cfg.path_to_checkpoint)
+        model.load_state_dict(state_dict, strict=True)
     trainer = Trainer(model, loss_specs, OptimizerConfig(learning_rate=1e-3),
                       train_loader, test_loader, num_classes=2,
                       saving_dir=cfg.saving_dir, model_name="evaluate",
-                      device=device, log_console=False, compute_dtype=dtype)
+                      device=device, log_console=False, compute_dtype=dtype,
+                      mesh=mesh)
     trainer.init_state()
-    if cfg.path_to_checkpoint:
-        # the weights of a training or an inference checkpoint (its EMA
-        # shadow where it has one), strictly
-        state_dict, _ = restore_variables(cfg.path_to_checkpoint)
-        trainer.state.model.load_state_dict(state_dict, strict=True)
     results = trainer.eval_epoch()
-    _print_results(results)
+    trainer.on_main(_print_results, results)
     return results
 
 

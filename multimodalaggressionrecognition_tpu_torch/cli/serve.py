@@ -28,7 +28,10 @@ Protocol:
       model's full modality set; batches larger than its batch size are
       chunked across micro-batch groups.
 
-Runs on CUDA unless --device cpu.
+Runs on CUDA unless --device cpu.  `--data_parallel` serves one replica
+on every visible card (the CPU is one device), the batch split evenly over
+them (`serve.Predictor(devices=...)`); `--model_parallelism` > 1 is
+refused: tensor-parallel serving is not ported yet.
 """
 
 import io
@@ -246,6 +249,7 @@ def build_server(cfg: ServeConfig, state_dict=None) -> ThreadingHTTPServer:
     from ..serve import MicroBatcher, resolve_device
 
     device = resolve_device(cfg.device)  # fail before any model work
+    devices = serving_devices(cfg, device)
     pad_builders = {"audio": pad_audio, "text": pad_text, "video": pad_video}
 
     def endpoint(name, predictor, shapes):
@@ -265,11 +269,12 @@ def build_server(cfg: ServeConfig, state_dict=None) -> ThreadingHTTPServer:
         from ..io.export import ExportedPredictor
 
         for name, path in _exported_entries(cfg).items():
-            pred = ExportedPredictor(path, device=device).warmup()
+            pred = ExportedPredictor(path, device=device,
+                                     devices=devices).warmup()
             endpoints[name] = endpoint(name, pred, pred.clip_shapes)
     else:
         endpoints["model"] = endpoint(
-            "model", *_live_predictor(cfg, device, state_dict))
+            "model", *_live_predictor(cfg, device, state_dict, devices))
 
     server = ThreadingHTTPServer((cfg.host, cfg.port), _Handler)
     # NON-daemon handler threads: server_close() joins only non-daemon
@@ -286,7 +291,25 @@ def build_server(cfg: ServeConfig, state_dict=None) -> ThreadingHTTPServer:
     return server
 
 
-def _live_predictor(cfg, device, state_dict):
+def serving_devices(cfg, device):
+    """The replicas' devices of --data_parallel (every visible card; the
+    CPU is one device), or None; --model_parallelism > 1 exits."""
+    if cfg.model_parallelism > 1:
+        raise SystemExit(
+            f"serve --model_parallelism {cfg.model_parallelism}: "
+            "tensor-parallel serving is not ported yet (ROADMAP queue 1, "
+            "item 13: single-process tensor parallelism over a device "
+            "list); serve --data_parallel, or one device")
+    if not cfg.data_parallel:
+        return None
+    if device.type != "cuda":
+        return [device]
+    import torch
+
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _live_predictor(cfg, device, state_dict, devices=None):
     """(the warmed Predictor of the config's model, its clip shapes)."""
     from ..io.checkpoint import restore_variables
     from ..models.layers import seeded_init_
@@ -310,7 +333,7 @@ def _live_predictor(cfg, device, state_dict):
     shapes = clip_shapes_from_config(cfg, modalities)
     predictor = Predictor(model, state_dict, batch_size=cfg.batch_size,
                           device=device, compute_dtype=dtype,
-                          quantize=quantize)
+                          quantize=quantize, devices=devices)
     predictor.warmup({m: np.zeros((1,) + shapes[m], np.float32)
                       for m in modalities})
     return predictor, shapes

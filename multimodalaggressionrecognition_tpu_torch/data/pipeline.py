@@ -1,7 +1,8 @@
 """Host <-> device pipeline (the JAX package's data/pipeline.py, without
 JAX).
 
-`BatchLoader` builds fixed-shape numpy batches on host threads, in order.
+`BatchLoader` builds fixed-shape numpy batches on host threads, in order;
+`ProcessLocalBatches` keeps one rank's rows of each for data parallelism.
 `device_prefetch` uploads them ahead of use: on a CUDA device each batch is
 copied into pinned host memory on worker threads, then sent with
 non-blocking copies on a side stream; the compute stream waits on an event
@@ -13,6 +14,7 @@ wait on (the feature-dumping entries read batch N-1 back while the card
 computes batch N).
 """
 
+import itertools
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Iterator, Optional
@@ -109,6 +111,48 @@ def device_prefetch(batch_iter: Iterable, device, prefetch: int = 2,
                 yield ready(*in_flight.popleft())
         while in_flight:
             yield ready(*in_flight.popleft())
+
+
+class ProcessLocalBatches:
+    """This rank's slice of a global batch stream, for data-parallel
+    training (the JAX package's data/pipeline.py:71-104).
+
+    Every rank iterates the SAME seeded global batch sequence and keeps the
+    contiguous rows `[process_id * B / n, (process_id + 1) * B / n)` of each
+    batch's leading axis, so a step over the data group consumes one global
+    batch laid out as in the one-process run, and the sampler's
+    label-homogeneous batches and epoch order hold globally.  Each rank
+    builds the whole batch and slices it (a host cost that grows with the
+    world, as in JAX).  `sampler` and `iter_skipping` pass through to the
+    wrapped loader (the trainer's epoch seeding and partial-epoch resume).
+    """
+
+    def __init__(self, batches, process_id: int = 0, num_processes: int = 1):
+        self.batches = batches
+        self.process_id = process_id
+        self.num_processes = num_processes
+
+    def __len__(self):
+        return len(self.batches)
+
+    @property
+    def sampler(self):
+        return getattr(self.batches, "sampler", None)
+
+    def _local(self, batch):
+        from ..parallel.mesh import RowShard
+
+        return _tree_map(RowShard(self.process_id,
+                                  self.num_processes).rows, batch)
+
+    def __iter__(self):
+        return (self._local(b) for b in self.batches)
+
+    def iter_skipping(self, skip: int):
+        inner = (self.batches.iter_skipping(skip)
+                 if hasattr(self.batches, "iter_skipping")
+                 else itertools.islice(self.batches, skip, None))
+        return (self._local(b) for b in inner)
 
 
 class BatchLoader:

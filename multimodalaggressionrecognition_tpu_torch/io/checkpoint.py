@@ -10,6 +10,13 @@ the EMA shadow in place of the live parameters, as the JAX package's
 orbax checkpoints are not read here: `orbax.checkpoint` imports jax, which
 the port never imports; convert JAX variables with io/from_jax.py
 instead.
+
+On a data- or tensor-parallel mesh (`state.mesh`) every rank calls
+`save_state`: the payload is gathered into the unsharded layout (a
+collective over the tp group), rank 0 writes it, and every rank waits at
+a barrier after the write.  Every rank restores the whole file and cuts
+its shards again, so a checkpoint carries no trace of its layout and a
+run resumes under any other.
 """
 
 import os
@@ -56,7 +63,18 @@ def save_state(path: str, state, meta: dict | None = None, extra=None):
         payload["ema"] = {"decay": state.ema_decay,
                           "params": _cpu(state.ema)}
     payload.update(extra or {})
-    _write(path, payload)
+    mesh = getattr(state, "mesh", None)
+    if mesh is None:
+        _write(path, payload)
+        return
+    from ..parallel.mesh import barrier
+    from ..parallel.sharding_rules import gather_state
+
+    if mesh.tp > 1:
+        payload = gather_state(payload, state)
+    if mesh.is_main:
+        _write(path, payload)
+    barrier()
 
 
 def restore_state(path: str, state) -> dict:
@@ -70,6 +88,11 @@ def restore_state(path: str, state) -> dict:
     fresh, with a note in the returned meta (the JAX package's rule).
     Returns (meta, the payload's extras of save_state)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    mesh = getattr(state, "mesh", None)
+    if mesh is not None and mesh.tp > 1:
+        from ..parallel.sharding_rules import place_state_for_tp
+
+        ckpt = place_state_for_tp(ckpt, state)
     state.model.load_state_dict(ckpt["state_dict"], strict=True)
     meta = dict(ckpt["meta"])
     try:

@@ -110,30 +110,42 @@ class ExportedPredictor(ScorerBase):
     `MicroBatcher` and the serving daemon run on it unchanged, with no
     model class loaded."""
 
-    def __init__(self, path: str, device="cuda"):
+    def __init__(self, path: str, device="cuda", devices=None):
+        """`devices`: a list of devices to serve data-parallel, as
+        `serve.Predictor(devices=...)`: the artifact is loaded once for
+        each (moved there on load), and the batch split evenly over them.
+        An artifact's batch is fixed, so each replica scores the artifact's
+        batch and the scorer's is len(devices) times it (JAX's sharded
+        call splits the artifact's own batch instead)."""
         with open(os.path.join(path, _META)) as f:
             meta = json.load(f)
         if meta.get("format") != FORMAT:
             raise ValueError(
                 f"{path!r} is not a {FORMAT} artifact "
                 f"(format={meta.get('format')!r})")
-        device = torch.device(device)
-        if device.type not in meta["platforms"]:
-            raise ValueError(
-                f"artifact was exported for platforms {meta['platforms']}, "
-                f"not {device.type!r}; re-export with --platforms "
-                f"{device.type}")
-        self.device = resolve_device(device)
+        for d in map(torch.device, devices or [device]):
+            if d.type not in meta["platforms"]:
+                raise ValueError(
+                    f"artifact was exported for platforms "
+                    f"{meta['platforms']}, not {d.type!r}; re-export with "
+                    f"--platforms {d.type}")
+        self.devices = tuple(resolve_device(d) for d in devices or ())
+        self.device = (self.devices[0] if self.devices
+                       else resolve_device(device))
         _import_ops()
-        program = torch.export.load(os.path.join(path, ARTIFACT))
-        if meta["exported_on"] != self.device.type:
-            from torch.export.passes import move_to_device_pass
+        self._modules = []
+        for d in self.devices or (self.device,):
+            program = torch.export.load(os.path.join(path, ARTIFACT))
+            if meta["exported_on"] != str(d):
+                from torch.export.passes import move_to_device_pass
 
-            program = move_to_device_pass(program, self.device)
-        self.program = program
-        self._module = program.module()
+                program = move_to_device_pass(program, d)
+            self._modules.append(program.module())
+            if len(self._modules) == 1:
+                self.program = program
+        self._module = self._modules[0]
         self.meta = meta
-        self.batch_size = int(meta["batch_size"])
+        self.batch_size = int(meta["batch_size"]) * max(len(self.devices), 1)
         self.heads = sorted(meta["heads"])
         self.head_classes = {k: int(v) for k, v in meta["heads"].items()}
         self.modalities = sorted(meta["clip_shapes"])
@@ -144,11 +156,16 @@ class ExportedPredictor(ScorerBase):
     def _forward(self, batch):
         return self._module(_signature(batch))
 
+    @torch.no_grad()
+    def _replica_forward(self, i, batch):
+        return self._modules[i](_signature(batch))
+
     def warmup(self):
         """Score zeros once, so the first real request does not pay the
         kernels' first launch behind a listening server."""
         self.predict({m: np.zeros((1, *self.clip_shapes[m]), np.float32)
                       for m in self.modalities})
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for device in self.devices or (self.device,):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         return self

@@ -19,6 +19,14 @@ and an f32 one (the output of an op that returns f32, such as a GRU's)
 runs in f32 on the bf16-rounded weights.  The key-padding mask is True
 for a masked key.  Parameter names follow torch's, so io/from_jax.py maps
 the JAX trees onto them.
+
+Tensor parallelism (parallel/sharding_rules.py sets `tp` = (group, rank,
+size)): the attention runs this rank's heads, the feed-forward block its
+columns of `linear1`; `out_proj` and `linear2` multiply by their column
+shards, one all-reduce over the group sums the partial products, and
+their bias is added once, after it.  The block's input goes through the
+identity forward / all-reduce backward (Megatron's f and g).  The w8a8
+branch runs unsharded (serving).
 """
 
 import math
@@ -28,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.erf import gelu
+from ..parallel.mesh import copy_to_group, reduce_from_group
 from .stochastic import Dropout
 
 
@@ -72,13 +81,17 @@ class MultiheadSelfAttention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
         self.out_proj = Linear(embed_dim, embed_dim)
         self.dropout = Dropout(dropout)
+        self.tp = None  # (group, rank, size) on a tensor-parallel mesh
         nn.init.xavier_uniform_(self.in_proj_weight)
         nn.init.zeros_(self.out_proj.bias)
 
     def forward(self, x, key_padding_mask=None):
         b, t, e = x.shape
-        h = self.num_heads
-        d = e // h
+        d = e // self.num_heads
+        group, rank, size = self.tp or (None, 0, 1)
+        h = self.num_heads // size  # this rank's heads
+        if group is not None:
+            x = copy_to_group(x, group)
         if self.in_proj_weight.dtype == torch.int8:  # w8a8 serving
             from ..utils.quantize import int8_linear
 
@@ -99,8 +112,13 @@ class MultiheadSelfAttention(nn.Module):
         if key_padding_mask is not None:
             any_valid = (~key_padding_mask).any(dim=-1)[:, None, None, None]
             attn = torch.where(any_valid, attn, torch.zeros_like(attn))
-        out = self.dropout(attn.to(v.dtype)) @ v
-        return self.out_proj(out.transpose(1, 2).reshape(b, t, e))
+        out = self.dropout(attn.to(v.dtype), shards=((1, rank, size),)) @ v
+        out = out.transpose(1, 2).reshape(b, t, h * d)
+        if group is None:
+            return self.out_proj(out)
+        partial = F.linear(out, self.out_proj.weight.to(out.dtype))
+        return (reduce_from_group(partial, group)
+                + self.out_proj.bias.to(out.dtype))
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -122,11 +140,20 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.dropout = Dropout(dropout)
+        self.tp = None  # (group, rank, size): linear1/linear2 split
 
     def _ff(self, x):
+        group, rank, size = self.tp or (None, 0, 1)
+        if group is not None:
+            x = copy_to_group(x, group)
         h = self.linear1(x)
         h = gelu(h, "erf") if self.activation == "gelu" else torch.relu(h)
-        return self.dropout(self.linear2(self.dropout(h)))
+        h = self.dropout(h, shards=((-1, rank, size),))
+        if group is None:
+            return self.dropout(self.linear2(h))
+        partial = F.linear(h, self.linear2.weight.to(h.dtype))
+        return self.dropout(reduce_from_group(partial, group)
+                            + self.linear2.bias.to(h.dtype))
 
     def forward(self, x, key_padding_mask=None):
         if self.norm_first:

@@ -90,12 +90,18 @@ class Conv1d(nn.Module):
 
 class BatchNorm1d(nn.Module):
     """torch BatchNorm1d over the channel (last) axis, eps 1e-5, momentum
-    0.1."""
+    0.1.  With a `data_group` (a data-parallel mesh,
+    parallel/sharding_rules.place_params) the batch statistics are the
+    GLOBAL batch's, as GSPMD gives them: the count and the per-channel sum,
+    then the sum of squared deviations, are all-reduced in f32 with
+    autograd, and the running variance moves by the global n's unbiased
+    factor.  (`nn.SyncBatchNorm` refuses CPU tensors.)"""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
         super().__init__()
         self.eps, self.momentum = eps, momentum
+        self.data_group = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -116,15 +122,33 @@ class BatchNorm1d(nn.Module):
             inv = torch.rsqrt(self.running_var + self.eps) * weight
             return ((x - self.running_mean) * inv + bias).to(dtype)
         axes = tuple(range(x.dim() - 1))
-        mean = x.mean(dim=axes)
-        var = (x - mean).square().mean(dim=axes)
-        n = x.numel() // x.shape[-1]
+        if self.data_group is None:
+            mean = x.mean(dim=axes)
+            var = (x - mean).square().mean(dim=axes)
+            n = x.numel() // x.shape[-1]
+        else:
+            mean, var, n = self._global_moments(x, axes)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1 - m).add_(m * mean)
-            self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+            unbiased = (n / (n - 1).clamp(min=1) if torch.is_tensor(n)
+                        else n / max(n - 1, 1))
+            self.running_var.mul_(1 - m).add_(m * var * unbiased)
         inv = torch.rsqrt(var + self.eps) * weight
         return ((x - mean) * inv + bias).to(dtype)
+
+    def _global_moments(self, x, axes):
+        """(mean, biased variance, count) over the data group's batch."""
+        from ..parallel.mesh import all_reduce_sum
+
+        count = x.new_full((1,), x.numel() // x.shape[-1])
+        total = all_reduce_sum(torch.cat([x.sum(dim=axes), count]),
+                               self.data_group)
+        n = total[-1].detach()
+        mean = total[:-1] / n
+        var = all_reduce_sum((x - mean).square().sum(dim=axes),
+                             self.data_group) / n
+        return mean, var, n
 
 
 def max_pool1d(x, window: int):

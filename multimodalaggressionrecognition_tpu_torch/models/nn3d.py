@@ -62,8 +62,10 @@ class BatchNorm2d(BatchNorm1d):
     with the unbiased variance, momentum 0.1; the running ones in eval."""
 
     def forward(self, x):
-        if self.running_var.dtype != torch.float32:
-            # a cast extractor's bf16 statistics: the JAX formula's casts
+        if self.running_var.dtype != torch.float32 or (
+                self.training and self.data_group is not None):
+            # a cast extractor's bf16 statistics (the JAX formula's casts),
+            # or the data group's global statistics
             return super().forward(x.movedim(1, -1)).movedim(-1, 1)
         return F.batch_norm(x.float(), self.running_mean, self.running_var,
                             self.weight.float(), self.bias.float(),

@@ -10,6 +10,13 @@ element is scaled by 1/keep and a dropped one is 0, as in the JAX package
 (`jnp.where(mask, x / keep, 0)`).  In eval mode, or at rate 0, each module
 is the identity.
 
+On a data-parallel mesh (parallel/sharding_rules.place_params) a mask is
+drawn for the global batch and each rank keeps its own rows
+(`batch_shard`); a tensor-parallel layer also keeps its own columns or
+heads (`shards`).  So every rank's generator stays in lockstep, and a
+multi-rank step draws what the one-rank step draws, as JAX's one draw
+over a sharded array does.
+
 `torch.utils.checkpoint` replays torch's global RNG states in its
 recompute, not an explicit generator's: `checkpoint` below also rewinds the
 generators of the checkpointed module, so the recompute draws the same
@@ -34,11 +41,32 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 class Random(nn.Module):
-    """Base of the modules that draw in train mode, from `generator`."""
+    """Base of the modules that draw in train mode, from `generator`;
+    `batch_shard` (index, count) says which block of the global batch's
+    rows this rank holds (None: all)."""
 
     def __init__(self):
         super().__init__()
         self.generator = None
+        self.batch_shard = None
+
+    def draw(self, shape, device, shards=()):
+        """Uniforms of `shape`: this rank's block of one draw of the global
+        shape.  `shards` adds (axis, index, count) splits to the batch's;
+        an axis of size 1 (broadcast) is drawn whole."""
+        splits = list(shards)
+        if self.batch_shard is not None:
+            splits.append((0, *self.batch_shard))
+        shape = list(shape)
+        full = list(shape)
+        splits = [(axis % len(shape), i, n) for axis, i, n in splits
+                  if n > 1 and shape[axis] != 1]
+        for axis, _, n in splits:
+            full[axis] *= n
+        u = torch.rand(full, generator=self.generator, device=device)
+        for axis, i, _ in splits:
+            u = u.narrow(axis, i * shape[axis], shape[axis])
+        return u
 
 
 class Stochastic(Random):
@@ -52,12 +80,11 @@ class Stochastic(Random):
     def noise_shape(self, x):
         return x.shape
 
-    def forward(self, x):
+    def forward(self, x, shards=()):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(self.noise_shape(x), generator=self.generator,
-                          device=x.device) < keep
+        mask = self.draw(self.noise_shape(x), x.device, shards) < keep
         return torch.where(mask, x / keep, 0.0)
 
 

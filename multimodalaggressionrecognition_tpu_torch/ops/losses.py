@@ -7,6 +7,12 @@ ce_i = -alpha[y_i] * log p_i[y_i], focal_i = (1 - p_i[y_i])**gamma * ce_i.
 `weighted_cross_entropy` is torch.nn.CrossEntropyLoss(weight=w): the masked
 sum of w_y * nll over the summed weights of the targets.  Labels may be any
 integer dtype.
+
+Each loss is a numerator over a denominator (`*_terms`: the masked sum,
+the valid count or the summed target weights, and the denominator's
+floor), so a data-parallel step can sum both over its ranks and divide
+once: the global batch's loss, as GSPMD's reduction gives it
+(train/steps.py).
 """
 
 import torch
@@ -17,37 +23,59 @@ def _log_softmax_gather(logits, labels):
     return logp.gather(-1, labels.long()[..., None])[..., 0]
 
 
-def _masked_mean(loss, row_mask):
+def _masked_terms(loss, row_mask):
+    """(numerator, denominator, floor) of the masked mean
+    sum(loss * m) / max(sum(m), floor)."""
     if row_mask is None:
-        return loss.mean()
+        return loss.sum(), loss.new_tensor(float(loss.numel())), 1.0
     row_mask = row_mask.to(loss.dtype)
-    return (loss * row_mask).sum() / row_mask.sum().clamp(min=1.0)
+    return (loss * row_mask).sum(), row_mask.sum(), 1.0
 
 
-def cross_entropy(logits, labels, row_mask=None):
-    """Mean CE over (optionally masked) rows. logits (N, C), labels (N,)."""
-    return _masked_mean(-_log_softmax_gather(logits, labels), row_mask)
+def reduce_terms(num, den, floor):
+    return num / den.clamp(min=floor)
 
 
-def weighted_cross_entropy(logits, labels, class_weights, row_mask=None):
-    """torch CrossEntropyLoss(weight=...) semantics: sum(w_y*nll)/sum(w_y)."""
+def cross_entropy_terms(logits, labels, row_mask=None):
+    return _masked_terms(-_log_softmax_gather(logits, labels), row_mask)
+
+
+def weighted_cross_entropy_terms(logits, labels, class_weights,
+                                 row_mask=None):
     nll = -_log_softmax_gather(logits, labels)
     w = torch.as_tensor(class_weights, dtype=nll.dtype,
                         device=nll.device)[labels.long()]
     if row_mask is not None:
         w = w * row_mask.to(w.dtype)
-    return (nll * w).sum() / w.sum().clamp(min=1e-12)
+    return (nll * w).sum(), w.sum(), 1e-12
 
 
-def focal_loss(logits, labels, alpha=None, gamma: float = 2.0, row_mask=None):
-    """Multi-class focal loss (hub semantics: alpha on the CE term)."""
+def focal_loss_terms(logits, labels, alpha=None, gamma: float = 2.0,
+                     row_mask=None):
     logp_y = _log_softmax_gather(logits, labels)
     ce = -logp_y
     if alpha is not None:
         ce = ce * torch.as_tensor(alpha, dtype=ce.dtype,
                                   device=ce.device)[labels.long()]
     loss = (1.0 - logp_y.exp()) ** gamma * ce
-    return _masked_mean(loss, row_mask)
+    return _masked_terms(loss, row_mask)
+
+
+def cross_entropy(logits, labels, row_mask=None):
+    """Mean CE over (optionally masked) rows. logits (N, C), labels (N,)."""
+    return reduce_terms(*cross_entropy_terms(logits, labels, row_mask))
+
+
+def weighted_cross_entropy(logits, labels, class_weights, row_mask=None):
+    """torch CrossEntropyLoss(weight=...) semantics: sum(w_y*nll)/sum(w_y)."""
+    return reduce_terms(*weighted_cross_entropy_terms(
+        logits, labels, class_weights, row_mask))
+
+
+def focal_loss(logits, labels, alpha=None, gamma: float = 2.0, row_mask=None):
+    """Multi-class focal loss (hub semantics: alpha on the CE term)."""
+    return reduce_terms(*focal_loss_terms(logits, labels, alpha, gamma,
+                                          row_mask))
 
 
 def masked_head_loss(head_losses: dict):

@@ -11,10 +11,14 @@ forward (f32 probabilities out), and `quantize` keeps the weights resident
 as int8 plus per-channel scales, dequantized inside the forward ("int8")
 or multiplied as int8 x int8 -> int32 ("w8a8"), utils/quantize.py.  The
 forward is one module (`ServingForward`), which io/export.py hands to
-`torch.export` whole.  Sharded serving and the compile cache are not
-ported.
+`torch.export` whole.  `devices=[...]` serves data-parallel in one
+process (the JAX package's `Predictor(sharding=)`): each listed device
+holds a replica, the padded batch is split evenly over them, and every
+chunk is enqueued before any result is read back.  Tensor-parallel
+serving and the compile cache are not ported.
 """
 
+import copy
 import queue
 import threading
 import time
@@ -36,26 +40,55 @@ def resolve_device(device="cuda") -> torch.device:
     return device
 
 
+def _check_batch_divides(batch_size: int, devices):
+    """The fixed batch must split evenly over the replicas."""
+    if batch_size % len(devices):
+        raise ValueError(
+            f"batch_size {batch_size} must divide across the {len(devices)} "
+            f"batch shards of devices {[str(d) for d in devices]}")
+
+
 class ScorerBase:
     """Shared pad-and-score surface: fixed batch shape, requests padded up
     to it, scores sliced back.  Implementations set `batch_size`, `device`
-    and `_forward(batch) -> {head: logits tensor}`."""
+    and `_forward(batch) -> {head: logits tensor}`; a data-parallel scorer
+    also sets `devices` (one replica each) and `_replica_forward(i,
+    batch)`."""
 
     batch_size: int
     device: torch.device
+    devices: tuple = ()
 
-    def _pad_batch(self, modalities: Dict[str, np.ndarray], n: int):
+    def _pad_batch(self, modalities: Dict[str, np.ndarray], n: int,
+                   device=None):
+        device = self.device if device is None else device
         present = torch.zeros((self.batch_size,), dtype=torch.float32)
         present[:n] = 1.0
-        present = present.to(self.device)
+        present = present.to(device)
         out = {}
         for name, data in modalities.items():
             data = np.asarray(data, np.float32)
             padded = np.zeros((self.batch_size,) + data.shape[1:], np.float32)
             padded[:n] = data
-            out[name] = {"data": torch.from_numpy(padded).to(self.device),
+            out[name] = {"data": torch.from_numpy(padded).to(device),
                          "present": present}
         return out
+
+    def _logits(self, modalities: Dict[str, np.ndarray], n: int):
+        """{head: logits} of the padded batch: one forward, or one chunk per
+        replica, every chunk enqueued before any is read back."""
+        if len(self.devices) <= 1:
+            return self._forward(self._pad_batch(modalities, n))
+        host = self._pad_batch(modalities, n, torch.device("cpu"))
+        per = self.batch_size // len(self.devices)
+        outs = []
+        for i, device in enumerate(self.devices):
+            chunk = {m: {k: v[i * per:(i + 1) * per].to(device)
+                         for k, v in leaf.items()}
+                     for m, leaf in host.items()}
+            outs.append(self._replica_forward(i, chunk))
+        return {h: torch.cat([o[h].float().cpu() for o in outs])
+                for h in outs[0]}
 
     def predict(self, modalities: Dict[str, np.ndarray],
                 return_probs: bool = True):
@@ -65,7 +98,7 @@ class ScorerBase:
         n = next(iter(modalities.values())).shape[0]
         if n > self.batch_size:
             raise ValueError(f"request batch {n} > compiled {self.batch_size}")
-        logits = self._forward(self._pad_batch(modalities, n))
+        logits = self._logits(modalities, n)
         out = {}
         for head, lg in logits.items():
             lg = lg[:n].float()
@@ -106,13 +139,20 @@ class Predictor(ScorerBase):
     compute_dtype: None / "float32", or "bfloat16" (utils/precision.py).
     quantize: None, "int8" (weight-only) or "w8a8" (utils/quantize.py);
            the model is quantized in place after its weights load.
+    devices: a list of devices (e.g. ["cuda:0", "cuda:1"]) to serve
+           data-parallel, one replica each (`device` is then the first);
+           the batch size must divide by their number.
     """
 
     def __init__(self, model: torch.nn.Module, state_dict=None,
                  batch_size: int = 32, device="cuda", compute_dtype=None,
-                 quantize: str | None = None):
+                 quantize: str | None = None, devices=None):
         from .utils.precision import resolve_dtype
 
+        self.devices = tuple(resolve_device(d) for d in devices or ())
+        if self.devices:
+            _check_batch_divides(batch_size, self.devices)
+            device = self.devices[0]
         self.device = resolve_device(device)
         self.compute_dtype = resolve_dtype(compute_dtype)
         if state_dict is not None:
@@ -124,18 +164,26 @@ class Predictor(ScorerBase):
                             self.compute_dtype or torch.float32)
         self.model = model.to(self.device).eval()
         self.serving = ServingForward(self.model, self.compute_dtype)
+        self.replicas = [self.serving] + [
+            ServingForward(copy.deepcopy(self.model).to(d),
+                           self.compute_dtype) for d in self.devices[1:]]
         self.batch_size = batch_size
 
     @torch.inference_mode()
     def _forward(self, batch):
         return self.serving(batch)
 
+    @torch.inference_mode()
+    def _replica_forward(self, i, batch):
+        return self.replicas[i](batch)
+
     def warmup(self, example_modalities: Dict[str, np.ndarray]):
         """Run once on zero inputs shaped like a real request: builds the
         kernels and records the head names and the served modality set."""
-        out = self._forward(self._pad_batch(example_modalities, 1))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        out = self._logits(example_modalities, 1)
+        for device in self.devices or (self.device,):
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         self.heads = sorted(out)
         self.modalities = sorted(example_modalities)
         return self

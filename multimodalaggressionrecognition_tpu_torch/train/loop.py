@@ -35,7 +35,18 @@ into accumulators on the device, and the host reads them once per epoch
 (or per preemption snapshot).  `_InflightThrottle` bounds how far the host
 may run ahead of the card.
 
-Not ported: multi-process training.
+On a data- or tensor-parallel `mesh` (parallel/mesh.py; one process per
+rank) every rank runs this loop in lockstep:
+- each loader is wrapped in `ProcessLocalBatches`: every rank builds the
+  same global batch and keeps its data index's rows;
+- the steps sum the loss denominators and the gradients over the data
+  group (train/steps.py, train/state.py); the confusion matrices and the
+  sample count are summed once an epoch, not once a step;
+- rank 0 alone holds the run lock and writes the logs, plots, console,
+  TensorBoard and checkpoints; the run dir is rank 0's; every rank takes
+  part in a save (the tp gather, the barrier) and restores every file;
+- the preemption flag is the ranks' consensus (utils/preemption.py), so
+  every rank stops at the same step.
 """
 
 import os
@@ -46,7 +57,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ..data.pipeline import device_prefetch
+from ..data.pipeline import ProcessLocalBatches, device_prefetch
 from ..models.stochastic import set_generator
 from ..ops.metrics import metrics_from_confusion
 from ..utils.preemption import NullGuard, PreemptionGuard
@@ -91,13 +102,36 @@ def _encode_acc(acc):
             for head, s in acc.items() if head != "_samples"}
 
 
-def _decode_acc(enc, samples, device):
-    """_encode_acc's output back into device accumulators (f32, exact)."""
+def _decode_acc(enc, samples, device, keep_sums: bool = True):
+    """_encode_acc's output back into device accumulators (f32, exact).
+    Without `keep_sums` (a data rank other than 0) the confusion and the
+    sample count restart at 0, as the epoch's sum over the data group
+    counts the saved ones once; the loss and valid sums are global on
+    every rank and are kept."""
     acc = {head: {k: torch.tensor(s[k], dtype=torch.float32, device=device)
                   for k in ("loss", "valid", "confusion")}
            for head, s in enc.items()}
     acc["_samples"] = torch.tensor(float(samples), device=device)
+    if not keep_sums:
+        for head in enc:
+            acc[head]["confusion"].zero_()
+        acc["_samples"].zero_()
     return acc
+
+
+@torch.no_grad()
+def _sum_over(acc, group):
+    """The accumulators with the per-rank parts (the confusion matrices
+    and the sample count) summed over the data group."""
+    from ..parallel.mesh import all_reduce_
+
+    out = {head: dict(slot) for head, slot in acc.items()
+           if head != "_samples"}
+    for slot in out.values():
+        slot["confusion"] = all_reduce_(slot["confusion"].clone(), group)
+    if "_samples" in acc:
+        out["_samples"] = all_reduce_(acc["_samples"].clone(), group)
+    return out
 
 
 class _InflightThrottle:
@@ -136,12 +170,24 @@ class Trainer:
                  compute_dtype=None, ema_decay: float = 0.0,
                  early_stop_patience: int = 0,
                  profile_dir: Optional[str] = None, profile_epoch: int = 1,
-                 tensorboard_dir: Optional[str] = None):
-        """`optimizer`: a train.state.OptimizerConfig."""
+                 tensorboard_dir: Optional[str] = None, mesh=None):
+        """`optimizer`: a train.state.OptimizerConfig.  `mesh`: this rank's
+        parallel.mesh.Mesh of a data- or tensor-parallel run (its device
+        replaces `device`), or None."""
         self.model = model
         self.on_epoch_start = on_epoch_start
         self.loss_specs = loss_specs
         self.optimizer = optimizer
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh.device
+            train_loader = ProcessLocalBatches(train_loader, mesh.dp_rank,
+                                               mesh.dp)
+            test_loader = ProcessLocalBatches(test_loader, mesh.dp_rank,
+                                              mesh.dp)
+        self.is_main_process = mesh is None or mesh.is_main
+        if not self.is_main_process:  # the console and TensorBoard are
+            log_console, tensorboard_dir = False, None  # rank 0's
         self.train_loader = train_loader
         self.test_loader = test_loader
         self.num_classes = num_classes
@@ -164,9 +210,13 @@ class Trainer:
         if run_dir is None:
             stamp = time.strftime("%d.%m.%Y, %H-%M-%S")
             run_dir = os.path.join(saving_dir, f"{stamp} ({model_name})")
+        if mesh is not None and mesh.world > 1:
+            from ..parallel.mesh import broadcast_object
+
+            run_dir = broadcast_object(run_dir)  # rank 0's time stamp
         self.run_dir = run_dir
         os.makedirs(self.run_dir, exist_ok=True)
-        self._release_runlock = acquire_run_lock(self.run_dir)
+        self._release_runlock = self._run_lock()
         self.state: Optional[TrainState] = None
         self.start_epoch = 0
         self.best_errors: Dict[str, float] = {}
@@ -175,12 +225,30 @@ class Trainer:
         self._partial = None  # a preempted epoch's snapshot, to resume
         self._snapshot = None  # the last train_epoch's snapshot
 
+    def on_main(self, fn, *args, **kwargs):
+        """fn(*args, **kwargs) on rank 0 only (None elsewhere): the run dir
+        is shared, so every write to it goes through here."""
+        if self.is_main_process:
+            return fn(*args, **kwargs)
+        return None
+
+    def _run_lock(self):
+        """Rank 0 holds the run dir's lock; the others hold nothing."""
+        return self.on_main(acquire_run_lock, self.run_dir) or (lambda: None)
+
     # ------------------------------------------------------------------ state
     def init_state(self):
         if self.state is None:
             self.state = create_train_state(self.model, self.optimizer,
-                                            self.device, self.ema_decay)
+                                            self.device, self.ema_decay,
+                                            self.mesh)
         return self.state
+
+    def _global(self, acc):
+        """The epoch's accumulators, summed over the data group."""
+        if self.mesh is None:
+            return acc
+        return _sum_over(acc, self.mesh.dp_group)
 
     def epoch_generator(self, epoch: int) -> torch.Generator:
         """The dropout and stochastic-depth stream of `epoch`: keyed by the
@@ -236,7 +304,8 @@ class Trainer:
         if partial is not None:
             skip = int(partial["batches_done"])
             prior_seconds = float(partial.get("seconds", 0.0))
-            acc = _decode_acc(partial["acc"], partial["samples"], self.device)
+            acc = _decode_acc(partial["acc"], partial["samples"], self.device,
+                              self.mesh is None or self.mesh.dp_rank == 0)
             if partial.get("generator") is not None:
                 generator.set_state(partial["generator"])
         set_generator(self.model, generator)
@@ -245,9 +314,10 @@ class Trainer:
         t0 = time.time()
 
         def snapshot():
-            samples = float(acc["_samples"]) if "_samples" in acc else 0.0
+            total = self._global(acc)
+            samples = float(total["_samples"]) if "_samples" in total else 0.0
             return {"batches_done": done, "samples": samples,
-                    "acc": _encode_acc(acc),
+                    "acc": _encode_acc(total),
                     "seconds": prior_seconds + time.time() - t0,
                     "generator": generator.get_state()}
 
@@ -260,7 +330,7 @@ class Trainer:
                 self._snapshot = snapshot()
                 return None
         self._snapshot = snapshot()  # the epoch's one readback
-        results = self._epoch_results(acc)
+        results = self._epoch_results(self._global(acc))
         elapsed = max(self._snapshot["seconds"], 1e-9)
         for m in results.values():
             m["epoch_seconds"] = round(elapsed, 2)
@@ -278,7 +348,7 @@ class Trainer:
             inflight.push()
             if self._guard.should_stop():
                 return None
-        return self._epoch_results(acc)
+        return self._epoch_results(self._global(acc))
 
     # ------------------------------------------------------------------ logging
     def _append_log(self, split, epoch, results):
@@ -289,9 +359,9 @@ class Trainer:
             row.update({k: _fmt_metric(v) for k, v in metrics.items()})
             key = f"{head}_{split}"
             self.logs.setdefault(key, []).append(row)
-            pd.DataFrame(self.logs[key]).to_csv(
-                os.path.join(self.run_dir, f"{head}_{split}_log.csv"),
-                index=False)
+            self.on_main(pd.DataFrame(self.logs[key]).to_csv,
+                         os.path.join(self.run_dir, f"{head}_{split}_log.csv"),
+                         index=False)
         if self.tensorboard_dir:
             if self._tb is None:
                 from ..utils.tblog import TBWriter
@@ -360,7 +430,7 @@ class Trainer:
     def _clear_preempt_checkpoint(self):
         path = os.path.join(self.run_dir, "checkpoint_preempt")
         if os.path.isfile(path):
-            os.remove(path)
+            self.on_main(os.remove, path)
 
     def load_checkpoint(self, path):
         """Restore model, optimizer, EMA and bookkeeping.  Training
@@ -411,7 +481,7 @@ class Trainer:
     # ------------------------------------------------------------------ fit
     def fit(self, epochs: int):
         # again, in case an earlier fit() released it
-        self._release_runlock = acquire_run_lock(self.run_dir)
+        self._release_runlock = self._run_lock()
         guard = self.preemption_guard or PreemptionGuard()
         try:
             with guard as self._guard:
@@ -473,6 +543,9 @@ class Trainer:
     def plot_logs(self):
         """Training-curve PNGs per head, one panel per logged metric with
         train and test overlaid; skipped without matplotlib."""
+        self.on_main(self._plot_logs)
+
+    def _plot_logs(self):
         try:
             import matplotlib
             matplotlib.use("Agg")

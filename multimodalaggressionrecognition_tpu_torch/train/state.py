@@ -20,6 +20,17 @@ adam | adamw(schedule)))`, each link optional.
 - accumulation (`optax.MultiSteps`): the running mean of k micro-batch
   gradients, `acc + (g - acc) / (i + 1)`, and one update every k-th step.
 
+On a data-parallel mesh the optimizer sums the gradients over the data
+group by hand, in one flat all-reduce per dtype, once per update (after
+accumulation: the mean of the micro-batch gradients is linear, so one
+reduce of it equals reducing every micro-batch, and sends k times fewer
+bytes), before clipping.  Not DDP: the optimizer keeps every gradient as
+a tensor (optax's zero gradients), accumulation lives here, and bf16 and
+EMA steps run the model through `functional_call`, none of which DDP's
+module wrapper sees.  Under tensor parallelism the global norm sums the
+split leaves' squares over the tp group and counts each replicated leaf
+once; Adam's moments live on the shards.
+
 Frozen parameters (requires_grad False) stay out of the optimizer.  The JAX
 package freezes a tower with stop_gradient instead, so its AdamW also
 decays the frozen tower's weights; the port never moves them.
@@ -81,11 +92,18 @@ def adam(params, learning_rate: float, weight_decay: float = 0.0):
     return torch.optim.Adam(params, **kw)
 
 
-def clip_by_global_norm_(grads, max_norm: float):
+def clip_by_global_norm_(grads, max_norm: float, params=None, mesh=None):
     """optax.clip_by_global_norm in place: g / norm * max_norm for every g
-    when the global norm is >= max_norm; returns the norm."""
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g) for g in grads]))
+    when the global norm is >= max_norm; returns the norm.  With a
+    tensor-parallel `mesh`, `params` (grads' parameters) say which
+    gradients are shards."""
+    if mesh is not None and mesh.tp > 1:
+        from ..parallel.sharding_rules import clip_norm_squares
+
+        norm = clip_norm_squares(grads, params, mesh).sqrt()
+    else:
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads]))
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
@@ -97,9 +115,10 @@ class Optimizer:
     called once per micro-batch after the backward, with every parameter's
     gradient filled, and returns whether it updated the parameters."""
 
-    def __init__(self, params, cfg: OptimizerConfig):
+    def __init__(self, params, cfg: OptimizerConfig, mesh=None):
         self.params = list(params)
         self.cfg = cfg
+        self.mesh = mesh  # parallel.mesh.Mesh: sum gradients over dp
         self.inner = adam(self.params, cfg.learning_rate, cfg.weight_decay)
         self.updates = 0  # updates applied (optax's count)
         self.micro = 0  # micro-batches in the running mean
@@ -132,15 +151,33 @@ class Optimizer:
                     g.copy_(a)
                     a.zero_()
             self.micro = 0
+        if self.mesh is not None and self.mesh.dp > 1:
+            self.reduce_gradients(grads)
         if self.cfg.grad_clip_norm > 0:
             with torch.no_grad():
-                clip_by_global_norm_(grads, self.cfg.grad_clip_norm)
+                clip_by_global_norm_(grads, self.cfg.grad_clip_norm,
+                                     self.params, self.mesh)
         lr = self.cfg.schedule(self.updates)
         for group in self.inner.param_groups:
             group["lr"] = lr
         self.inner.step()
         self.updates += 1
         return True
+
+    @torch.no_grad()
+    def reduce_gradients(self, grads):
+        """Sum `grads` over the data group, in place: one flat buffer per
+        dtype, one all-reduce each."""
+        from ..parallel.mesh import all_reduce_
+
+        by_dtype = {}
+        for g in grads:
+            by_dtype.setdefault(g.dtype, []).append(g)
+        for group in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in group])
+            all_reduce_(flat, self.mesh.dp_group)
+            torch._foreach_copy_(group, [v.view_as(g) for v, g in zip(
+                flat.split([g.numel() for g in group]), group)])
 
     def state_dict(self) -> dict:
         out = {"adam": self.inner.state_dict(), "updates": self.updates}
@@ -178,6 +215,12 @@ class TrainState:
     # it (eval_params), the BatchNorm statistics stay live
     ema: Optional[Dict[str, torch.Tensor]] = None
     ema_decay: float = 0.0
+    # parallel.mesh.Mesh of a data- or tensor-parallel run, or None
+    mesh: Optional[object] = None
+
+    def dp_group(self):
+        """The data group the step's losses and gradients sum over."""
+        return None if self.mesh is None else self.mesh.dp_group
 
     @torch.no_grad()
     def update_ema(self):
@@ -208,19 +251,28 @@ class TrainState:
 
 
 def create_train_state(model, optimizer: OptimizerConfig, device,
-                       ema_decay: float = 0.0) -> TrainState:
+                       ema_decay: float = 0.0, mesh=None) -> TrainState:
     """Move `model` to `device` and give every trainable parameter an
     optimizer slot and a zero gradient.  optax updates
     every parameter on every step, a zero gradient included (Adam's moments
     still decay), so gradients are kept as zeros rather than None between
     steps; frozen parameters (requires_grad False) are not optimized and
     never move, as optax leaves a parameter whose gradient is always zero.
-    `ema_decay` > 0 starts the EMA shadow at the initial parameters."""
+    `ema_decay` > 0 starts the EMA shadow at the initial parameters.  On a
+    `mesh` the model is placed first (parallel/sharding_rules.place_params:
+    tensor-parallel shards, global BatchNorm statistics, global-batch
+    draws), so the optimizer and the shadow hold shards."""
     model = model.to(device)
+    if mesh is not None:
+        from ..parallel.sharding_rules import place_params
+
+        place_params(model, mesh)
     params = [p for p in model.parameters() if p.requires_grad]
     for p in params:
         p.grad = torch.zeros_like(p)
-    state = TrainState(model=model, optimizer=Optimizer(params, optimizer))
+    state = TrainState(model=model,
+                       optimizer=Optimizer(params, optimizer, mesh),
+                       mesh=mesh)
     if ema_decay > 0:
         state.start_ema(ema_decay)
     return state

@@ -11,6 +11,11 @@ Batch layout (data/avabos.py `build_batch`, as tensors on the device):
 
 A head whose `label_mask` is all zero contributes zero loss.
 
+On a data-parallel mesh (`state.mesh`) each rank steps on its rows of the
+global batch; the loss denominators are the global batch's
+(`head_losses_and_metrics`), and the optimizer sums the gradients over the
+data group (train/state.py), so the step is the one-process step.
+
 `compute_dtype` "bfloat16" (JAX train/steps.py's mixed precision): master
 parameters, optimizer state, gradients, BatchNorm running statistics,
 losses and metrics stay f32; inside the step the floating parameters and
@@ -39,16 +44,20 @@ class LossSpec:
     class_weights: Optional[tuple] = None
     gamma: float = 2.0
 
-    def __call__(self, logits, labels, row_mask):
+    def terms(self, logits, labels, row_mask):
+        """(numerator, denominator, floor) of the loss (ops/losses.py)."""
         if self.kind == "ce":
-            return L.cross_entropy(logits, labels, row_mask)
+            return L.cross_entropy_terms(logits, labels, row_mask)
         if self.kind == "weighted_ce":
-            return L.weighted_cross_entropy(logits, labels, self.class_weights,
-                                            row_mask)
+            return L.weighted_cross_entropy_terms(
+                logits, labels, self.class_weights, row_mask)
         if self.kind == "focal":
-            return L.focal_loss(logits, labels, alpha=self.class_weights,
-                                gamma=self.gamma, row_mask=row_mask)
+            return L.focal_loss_terms(logits, labels, alpha=self.class_weights,
+                                      gamma=self.gamma, row_mask=row_mask)
         raise ValueError(f"unknown loss kind {self.kind!r}")
+
+    def __call__(self, logits, labels, row_mask):
+        return L.reduce_terms(*self.terms(logits, labels, row_mask))
 
 
 class SingleHeadAdapter(nn.Module):
@@ -76,27 +85,55 @@ class MultiHeadAdapter(nn.Module):
 
 
 def head_losses_and_metrics(outputs, batch, loss_specs: Dict[str, LossSpec],
-                            num_classes: int):
+                            num_classes: int, group=None):
     """(summed loss, {head: {'loss', 'valid', 'confusion'}}) over the heads
     that carry labels in this batch; logits in f32, and a head counts only
-    when it has a valid row."""
-    total = 0.0
-    metrics = {}
+    when it has a valid row.
+
+    With a data-parallel `group` the batch is this rank's rows of a global
+    batch: every head's numerator, denominator and valid count are summed
+    over the group in one all-reduce on the device (no host sync), the
+    `valid > 0` gate reads the global count, and each head's loss is the
+    global one.  The returned sum is this rank's share, the local
+    numerator over the global denominator: the shares sum to the global
+    loss, so the group's summed gradients are the one-process gradient.
+    The confusion matrices stay this rank's (the trainer sums them once an
+    epoch)."""
+    heads, parts = [], []
     for head, logits in outputs.items():
         if head not in batch["labels"]:
             continue
         logits = logits.float()
         labels = batch["labels"][head]
         mask = batch["label_mask"][head]
-        valid = mask.sum()
-        loss = loss_specs[head](logits, labels, mask)
-        loss = torch.where(valid > 0, loss, 0.0)
-        total = total + loss
+        num, den, floor = loss_specs[head].terms(logits, labels, mask)
         cm = confusion_matrix(logits.argmax(dim=-1), labels, num_classes,
                               row_mask=mask)
-        metrics[head] = {"loss": loss.detach(), "valid": valid,
-                         "confusion": cm}
+        heads.append((head, num, floor, cm))
+        parts.append(torch.stack([num.detach(), den.to(num.dtype),
+                                  mask.sum().to(num.dtype)]))
+    if not heads:
+        return 0.0, {}
+    sums = torch.stack(parts)
+    if group is not None:
+        from ..parallel.mesh import all_reduce_
+
+        sums = all_reduce_(sums, group)
+    total = 0.0
+    metrics = {}
+    for i, (head, num, floor, cm) in enumerate(heads):
+        global_num, den, valid = sums[i]
+        loss = torch.where(valid > 0, L.reduce_terms(num, den, floor), 0.0)
+        reported = torch.where(
+            valid > 0, L.reduce_terms(global_num, den, floor), 0.0)
+        total = total + loss
+        metrics[head] = {"loss": reported, "valid": valid, "confusion": cm}
     return total, metrics
+
+
+def total_loss(metrics):
+    """The summed head losses of head_losses_and_metrics' metrics."""
+    return sum(m["loss"] for m in metrics.values())
 
 
 def forward(model, modalities, compute_dtype=None, params=None):
@@ -126,13 +163,13 @@ def train_step(state, batch, loss_specs, num_classes: int,
     optimizer.zero_grad()
     total, metrics = head_losses_and_metrics(
         forward(model, batch["modalities"], compute_dtype), batch,
-        loss_specs, num_classes)
+        loss_specs, num_classes, state.dp_group())
     total.backward()
     # heads without labels still move, on zero gradients
     if optimizer.step():
         state.update_ema()
     state.step += 1
-    metrics["total_loss"] = total.detach()
+    metrics["total_loss"] = total_loss(metrics)
     return metrics
 
 
@@ -142,9 +179,9 @@ def eval_step(state, batch, loss_specs, num_classes: int,
     """The eval-mode model (BatchNorm folded, the stem's epilogue fused),
     on the EMA shadow when one is tracked."""
     state.model.eval()
-    total, metrics = head_losses_and_metrics(
+    _, metrics = head_losses_and_metrics(
         forward(state.model, batch["modalities"], compute_dtype,
                 state.eval_params()),
-        batch, loss_specs, num_classes)
-    metrics["total_loss"] = total
+        batch, loss_specs, num_classes, state.dp_group())
+    metrics["total_loss"] = total_loss(metrics)
     return metrics

@@ -7,8 +7,14 @@ checkpoint (`checkpoint_preempt`: the state, the epoch, the batches done,
 the metric accumulators and the seconds so far) and returns, so the process
 exits 0; a relaunch resumes from it and replays the rest of the epoch with
 the same batch order and random draws (tests/test_torch_preemption.py).
-One process only: the multi-process consensus of the JAX guard belongs to
-the multi-GPU work.
+
+In a multi-rank run the signal may reach one rank only, yet every rank
+must stop at the same step (the checkpoint save is a collective), so the
+local flag is promoted to a consensus: every `consensus_interval` polls
+(the same polls on every rank, which step in lockstep) the ranks
+all-reduce their flags with MAX; between those polls `should_stop`
+returns the last consensus, never the local flag.  At most
+consensus_interval - 1 extra steps run after the signal.
 """
 
 import signal
@@ -23,11 +29,15 @@ class PreemptionGuard:
     `signal.signal` is not allowed) it installs no handler and is a flag set
     by `request()` only."""
 
-    def __init__(self, signals=(signal.SIGTERM,), verbose: bool = True):
+    def __init__(self, signals=(signal.SIGTERM,), verbose: bool = True,
+                 consensus_interval: int = 8):
         self.signals = tuple(signals)
         self.verbose = verbose
+        self.consensus_interval = max(int(consensus_interval), 1)
         self._flag = threading.Event()
         self._previous = {}
+        self._polls = 0
+        self._consensus = False
 
     def __enter__(self):
         for sig in self.signals:
@@ -54,7 +64,25 @@ class PreemptionGuard:
         self._flag.set()
 
     def should_stop(self) -> bool:
-        return self._flag.is_set()
+        """The local flag, or in a multi-rank run the ranks' consensus."""
+        import torch.distributed as dist
+
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return self._flag.is_set()
+        if self._consensus:
+            return True
+        self._polls += 1
+        if self._polls % self.consensus_interval:
+            return False
+        import torch
+
+        from ..parallel.mesh import collective_device
+
+        flag = torch.tensor([float(self._flag.is_set())],
+                            device=collective_device())
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        self._consensus = bool(flag.item() > 0)
+        return self._consensus
 
 
 class NullGuard:

@@ -1143,3 +1143,97 @@ def test_remat_dots_step_matches_save_nothing_on_the_card(cuda):
         spread = (grads["none_again"][name] - want).abs().max().item()
         err = (grads["dots"][name] - want).abs().max().item()
         assert err <= 1e-6 * want.abs().max().item() + spread, name
+
+
+def _flagship_step(device, mesh):
+    """Loss and gradients of one train step of the hidden-64 flagship on
+    `device` (dropout on, one generator seed), on `mesh` or plain."""
+    import numpy as np
+
+    from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
+        set_generator)
+    from multimodalaggressionrecognition_tpu_torch.parallel.dryrun import (
+        _batch, _flagship)
+    from multimodalaggressionrecognition_tpu_torch.data.pipeline import (
+        _tree_map)
+    from multimodalaggressionrecognition_tpu_torch.train.state import (
+        OptimizerConfig, create_train_state)
+    from multimodalaggressionrecognition_tpu_torch.train.steps import (
+        LossSpec, train_step)
+
+    state = create_train_state(_flagship(), OptimizerConfig(1e-3), device,
+                               mesh=mesh)
+    set_generator(state.model, torch.Generator(device).manual_seed(0))
+    batch = _tree_map(lambda a: torch.from_numpy(np.asarray(a)).to(device),
+                      _batch(8))
+    specs = {"phys": LossSpec("focal", class_weights=(0.5, 0.5)),
+             "verb": LossSpec("ce")}
+    metrics = train_step(state, batch, specs, 2)
+    return float(metrics["total_loss"]), {
+        n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_step_matches_plain(cuda):
+    """A world of one over NCCL: the data-parallel step (its loss and
+    gradient all-reduces) equals the plain step, both under deterministic
+    algorithms: loss rtol 1e-5, each gradient within 1e-4 of its largest
+    (a conv bias feeding a train-mode BatchNorm, whose gradient is 0 in
+    exact arithmetic, within 1e-4 of its conv weight's largest)."""
+    import re
+
+    import torch.distributed as dist
+
+    from multimodalaggressionrecognition_tpu_torch.parallel.mesh import (
+        init_from_env, local_device, make_mesh)
+
+    if dist.is_initialized():
+        pytest.skip("a process group is already up in this process")
+    device = local_device(cuda)
+    init_from_env(device)
+    cudnn = torch.backends.cudnn
+    before = (torch.are_deterministic_algorithms_enabled(),
+              cudnn.deterministic, cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = make_mesh(1, device)
+        loss, grads = _flagship_step(device, mesh)
+        want_loss, want = _flagship_step(device, None)
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(before[0])
+        cudnn.deterministic, cudnn.benchmark = before[1:]
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    for name, g in want.items():
+        fed = re.fullmatch(r"(.*\.conv\d+)\.bias", name)
+        scale = want[f"{fed[1]}.weight" if fed else name].abs().max().item()
+        assert (grads[name] - g).abs().max().item() <= 1e-4 * scale + 1e-12, (
+            name)
+
+
+@pytest.mark.cuda
+def test_predictor_replicas_on_one_card(cuda):
+    """Predictor(devices=["cuda:0", "cuda:0"]): two replicas, each on half
+    of the b8 batch, within 1e-5 of one device; K1 once per replica."""
+    import numpy as np
+
+    from multimodalaggressionrecognition_tpu_torch.parallel.dryrun import (
+        AUDIO_LEN, HIDDEN, TEXT_LEN, _flagship)
+    from multimodalaggressionrecognition_tpu_torch.serve import Predictor
+
+    rng = np.random.default_rng(0)
+    clips = {"audio": (rng.standard_normal((8, AUDIO_LEN)) * 0.1).astype(
+                 np.float32),
+             "text": rng.standard_normal((8, TEXT_LEN, HIDDEN)).astype(
+                 np.float32)}
+    one = Predictor(_flagship(), batch_size=8, device="cuda")
+    two = Predictor(_flagship(), batch_size=8, devices=["cuda:0", "cuda:0"])
+    want = one.predict(clips)
+    before = launch_counts["framed_conv1d"]
+    got = two.predict(clips)
+    torch.cuda.synchronize()
+    assert launch_counts["framed_conv1d"] == before + 2
+    for head in want:
+        np.testing.assert_allclose(got[head], want[head], rtol=0, atol=1e-5)
