@@ -291,11 +291,29 @@ Phases (any failure raises, and the script exits non-zero):
                 within 1e-4 relative of the numpy run's; an .mp4 clip dir
                 through ClipDirSource where libmarvideo and cv2 are there,
                 else which is missing.
+ 23. parallel  - (after remat dots) the fine-tune under --data_parallel as
+                a world of one over NCCL against the plain run; a dp 2 x
+                tp 2 step on four gloo ranks sharing the card against one
+                rank; two serving replicas and two exported replicas on
+                the card against one device.
+ 24. tp serving - Predictor(devices=, model_parallelism=2) in one process:
+                the tri-modal b8 model over ["cuda:0"] * 2 (tp 2) and
+                ["cuda:0"] * 4 (dp 2 x tp 2), the flagship b32 over
+                ["cuda:0"] * 2 in f32, int8 and bf16, each against its
+                one-device Predictor (probabilities within 1e-5, bf16
+                logits within 1e-2 of the largest), launches per forward
+                (K1 1, K2 12, K4 4 a tri-modal data group), six split
+                leaves of the fusion layer, predict ms in turns; the tp 2
+                daemon (build_server(devices=["cuda:0"] * 2)) answering
+                /score and /healthz; `serve --model_parallelism 2`'s own
+                device list: its "does not divide" exit on one card, its
+                groups and scores over an even number of cards.
 Prints a `slice` JSON line per slice, a `train` JSON line per train path,
 an `evaluate` and a `predict` JSON line, an `extract` JSON line per
 backbone, a `serve` line for bf16 serving, a `quantized` line per
 quantized Predictor, an `export` line per artifact, `serve_exported` and
-`exported_scoring` lines, a `pieces` and a `native` line,
+`exported_scoring` lines, a `pieces`, a `native`, a `parallel` and a
+`tp_serving` line,
 the `kernels` JSON line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`.  Every kernel
 entry's `launches` counts the tri-modal fine-tune; `launches_by_path` gives
@@ -5180,6 +5198,211 @@ def parallel_phase(card_line):
             "parallel_serve_exported": serving["exported_launches"]}
 
 
+# tensor-parallel serving in one process (ROADMAP item 13): dp x tp over a
+# device list, the fusion encoder's heads and feed-forward columns split
+TP_SEED = SEED + 71
+
+
+def _median_predict_ms(predictors, clips, turns: int = 2, reps: int = 3):
+    """{name: median host-clock ms of `predict`} over `turns` visits in
+    turns (a, b, ..., ..., b, a), `reps` calls a visit."""
+    names = list(predictors)
+    times = {name: [] for name in names}
+    for name in (names + names[::-1]) * (turns // 2):
+        for _ in range(reps):
+            t0 = time.monotonic()
+            predictors[name].predict(clips)
+            times[name].append((time.monotonic() - t0) * 1e3)
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def _tp_check(label, pred, one, clips, expect, bf16=False):
+    """`pred`'s launches on one predict of `clips` (counts reset just
+    before, read just after) against `expect`, then its scores against
+    `one` on `clips` and on their first 5 (padded rows): probabilities
+    within 1e-5, or under `bf16` logits within 1e-2 of the largest.
+    Returns (counts, error)."""
+    _sync()
+    kernels.launch_counts.clear()
+    pred.predict(clips)
+    _sync()
+    counts = dict(kernels.launch_counts)
+    if counts != expect:
+        raise AssertionError(f"tp serving {label}: a forward launched "
+                             f"{counts}, want {expect}")
+    err = 0.0
+    for n in (len(next(iter(clips.values()))), 5):
+        part = {m: a[:n] for m, a in clips.items()}
+        probs = not bf16
+        want = one.predict(part, return_probs=probs)
+        got = pred.predict(part, return_probs=probs)
+        for h in want:
+            if got[h].shape != want[h].shape or not np.isfinite(got[h]).all():
+                raise AssertionError(f"tp serving {label}: bad {h} scores")
+            d = float(np.abs(got[h] - want[h]).max())
+            err = max(err, d if probs else d / float(np.abs(want[h]).max()))
+    limit = 1e-2 if bf16 else 1e-5
+    if not err <= limit:
+        raise AssertionError(f"tp serving {label}: {err:.3e} off one "
+                             f"device (limit {limit})")
+    return counts, err
+
+
+def tp_serving_phase(card_line):
+    """Tensor-parallel serving in one process at full width, TF32 off:
+    the tri-modal b8 Predictor over ["cuda:0"] * 2 (tp 2) and ["cuda:0"] * 4
+    (dp 2 x tp 2), the flagship b32 over ["cuda:0"] * 2 in f32, int8 and
+    bf16, each against its one-device Predictor (probabilities within
+    1e-5; bf16 logits within 1e-2 of the largest), launches per forward (the
+    towers are not split: tri-modal K1 1, K2 12, K4 4 a data group),
+    `predict` ms in turns beside one device's; the tp 2 daemon
+    (build_server's devices override) answering /score and /healthz; and
+    the CLI's own device list: on one card its "does not divide" exit, on
+    an even number of cards its data groups and the flagship Predictor
+    over them against one device."""
+    from multimodalaggressionrecognition_tpu_torch.parallel.sharding_rules import (
+        local_splits)
+    from multimodalaggressionrecognition_tpu_torch.serve import Predictor
+
+    t_phase = time.monotonic()
+    card0 = [torch.device(DEVICE, 0) if DEVICE == "cuda"
+             else torch.device(DEVICE)]
+    out = {"launches": {}, "max_err": {}, "predict_ms": {}}
+    rng = np.random.default_rng(TP_SEED)
+
+    modalities = ("audio", "text", "video")
+    model = seeded_model(TRIMODAL, modalities)
+    clips = request(rng, TRIMODAL, modalities, 8)
+    example = {m: a[:1] for m, a in clips.items()}
+    one = Predictor(copy.deepcopy(model), batch_size=8,
+                    device=DEVICE).warmup(example)
+    tri = {"one": one}
+    for name, n_devices in (("tp2", 2), ("dp2_tp2", 4)):
+        pred = Predictor(copy.deepcopy(model), batch_size=8,
+                         devices=card0 * n_devices,
+                         model_parallelism=2).warmup(example)
+        groups = n_devices // 2
+        expect = {k: groups * v for k, v in PER_PIECES_FORWARD.items()}
+        (out["launches"][f"trimodal_{name}"],
+         out["max_err"][f"trimodal_{name}"]) = _tp_check(
+            f"tri-modal b8 {name}", pred, one, clips, expect)
+        tri[name] = pred
+    out["predict_ms"]["trimodal"] = _median_predict_ms(tri, clips)
+    out["trimodal_split_leaves"] = len(local_splits(tri["tp2"].model))
+    del tri, one, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    modalities = ("audio", "text")
+    model = seeded_model(FLAGSHIP, modalities)
+    clips = request(rng, FLAGSHIP, modalities, BATCH)
+    example = {m: a[:1] for m, a in clips.items()}
+    flag = {}
+    for mode, kw in (("f32", {}), ("int8", {"quantize": "int8"}),
+                     ("bf16", {"compute_dtype": "bfloat16"})):
+        one = Predictor(copy.deepcopy(model), batch_size=BATCH,
+                        device=DEVICE, **kw).warmup(example)
+        pred = Predictor(copy.deepcopy(model), batch_size=BATCH,
+                         devices=card0 * 2, model_parallelism=2,
+                         **kw).warmup(example)
+        splits = len(local_splits(pred.model))
+        if splits != 6:
+            raise AssertionError(f"tp serving flagship {mode}: {splits} "
+                                 f"split leaves, want 6")
+        expect = SLICES[0][4]  # the flagship's launches per forward
+        if mode == "bf16":
+            expect = bf16_counts(expect)
+        (out["launches"][f"flagship_tp2_{mode}"],
+         out["max_err"][f"flagship_tp2_{mode}"]) = _tp_check(
+            f"flagship b32 tp2 {mode}", pred, one, clips, expect,
+            bf16=mode == "bf16")
+        if mode == "f32":
+            flag = {"one": one, "tp2": pred}
+    out["flagship_split_leaves"] = splits
+    out["predict_ms"]["flagship"] = _median_predict_ms(flag, clips)
+    flag_one = flag["one"]
+    del flag, one, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = ServeConfig(modalities="audio,text", batch_size=BATCH, port=0,
+                      allow_random_weights=True, model_parallelism=2,
+                      device=DEVICE, **FLAGSHIP)
+    srv = build_server(cfg, devices=card0 * 2)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        groups = [[str(d) for d in g] for g in srv.predictor.groups]
+        _sync()
+        kernels.launch_counts.clear()
+        scores = _http(srv, "/score", _npz({m: a[:2] for m, a in
+                                            clips.items()}),
+                       "application/x-npz")
+        _sync()
+        out["launches"]["daemon_tp2"] = dict(kernels.launch_counts)
+        _check_scores(scores, 2)
+        health = _http(srv, "/healthz")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.close()
+        thread.join(timeout=30)
+    if (not health.get("ok") or groups != [[str(d) for d in card0 * 2]]
+            or out["launches"]["daemon_tp2"] != SLICES[0][4]):
+        raise AssertionError(f"tp serving daemon: groups {groups}, launches "
+                             f"{out['launches']['daemon_tp2']}, /healthz "
+                             f"{health}")
+    del srv
+    gc.collect()
+
+    cards = torch.cuda.device_count() if DEVICE == "cuda" else 1
+    if cards > 1 and cards % 2 == 0:
+        srv = build_server(cfg)
+        try:
+            out["cli_groups"] = [[str(d) for d in g]
+                                 for g in srv.predictor.groups]
+        finally:
+            srv.server_close()
+            srv.batcher.close()
+        if len(out["cli_groups"]) != cards // 2:
+            raise AssertionError(f"tp serving CLI: groups "
+                                 f"{out['cli_groups']} over {cards} cards")
+        pred = Predictor(copy.deepcopy(model), batch_size=BATCH,
+                         devices=[torch.device(DEVICE, i)
+                                  for i in range(cards)],
+                         model_parallelism=2).warmup(example)
+        expect = {k: v * (cards // 2) for k, v in SLICES[0][4].items()}
+        (out["launches"]["flagship_cards"],
+         out["max_err"]["flagship_cards"]) = _tp_check(
+            f"flagship b32 over {cards} cards", pred, flag_one, clips,
+            expect)
+        out["predict_ms"]["flagship_cards"] = _median_predict_ms(
+            {"one": flag_one, "cards": pred}, clips)
+        del pred
+    else:
+        want = f"does not divide the {cards} available devices"
+        try:
+            build_server(cfg)
+        except SystemExit as e:
+            if want not in str(e):
+                raise AssertionError(f"tp serving CLI: exit {e}") from None
+            out["cli_exit"] = str(e)
+        else:
+            raise AssertionError(f"tp serving CLI: --model_parallelism 2 "
+                                 f"over {cards} card(s) did not exit")
+    out["seconds"] = time.monotonic() - t_phase
+    log(f"tp serving on {card_line}: launches {out['launches']}; max "
+        f"error against one device {out['max_err']} (probabilities <= "
+        f"1e-5, bf16 logits <= 1e-2 of the largest); split leaves "
+        f"tri-modal {out['trimodal_split_leaves']}, flagship "
+        f"{out['flagship_split_leaves']}; predict ms (host clock, median) "
+        f"{out['predict_ms']}; daemon groups {groups} answered /score and "
+        f"/healthz; CLI {out.get('cli_groups') or out.get('cli_exit')}; "
+        f"{out['seconds']:.1f} s")
+    log(json.dumps({"tp_serving": {**out, "card": card_line}}))
+    return {f"tp_serve_{k}": v for k, v in out["launches"].items()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -5222,6 +5445,7 @@ def main():
     launches.update(pieces_phase(card_line))
     launches["train_remat_dots"] = remat_dots_phase(card_line)
     launches.update(parallel_phase(card_line))
+    launches.update(tp_serving_phase(card_line))
     for numbers, key, kernel in ((k2, "k2", "window_attention"),
                                  (k3, "k3", "window_attention_bwd"),
                                  (k4, "k4", "roll")):

@@ -30,8 +30,13 @@ Protocol:
 
 Runs on CUDA unless --device cpu.  `--data_parallel` serves one replica
 on every visible card (the CPU is one device), the batch split evenly over
-them (`serve.Predictor(devices=...)`); `--model_parallelism` > 1 is
-refused: tensor-parallel serving is not ported yet.
+them (`serve.Predictor(devices=...)`).  `--model_parallelism N` > 1 serves
+dp x tp over every visible card, with or without --data_parallel, as the
+JAX package does: N must divide the card count, each group of N cards
+holds one model copy with its transformer blocks split over them, and the
+batch is split over the card count / N groups
+(`serve.Predictor(devices=..., model_parallelism=N)`).  torch has one CPU
+device, so `--device cpu` holds all N shards on it (one data group).
 """
 
 import io
@@ -240,16 +245,20 @@ def _exported_entries(cfg) -> dict:
     return dict(pairs)
 
 
-def build_server(cfg: ServeConfig, state_dict=None) -> ThreadingHTTPServer:
+def build_server(cfg: ServeConfig, state_dict=None,
+                 devices=None) -> ThreadingHTTPServer:
     """Construct the HTTP server (not yet serving): builds the model, loads
     its weights, warms the Predictor on `cfg.device` and starts the
     MicroBatcher; or, with --exported, loads and warms each artifact.
-    Pass `state_dict` to skip checkpoint restore (tests)."""
+    Pass `state_dict` to skip checkpoint restore, and `devices` to serve
+    over that device list in place of the visible ones (tests and the
+    smoke run: e.g. ["cuda:0", "cuda:0"] serves tp 2 on one card); neither
+    is a flag."""
     from ..data.transforms import pad_audio, pad_text, pad_video
     from ..serve import MicroBatcher, resolve_device
 
     device = resolve_device(cfg.device)  # fail before any model work
-    devices = serving_devices(cfg, device)
+    devices = serving_devices(cfg, device, devices)
     pad_builders = {"audio": pad_audio, "text": pad_text, "video": pad_video}
 
     def endpoint(name, predictor, shapes):
@@ -269,8 +278,9 @@ def build_server(cfg: ServeConfig, state_dict=None) -> ThreadingHTTPServer:
         from ..io.export import ExportedPredictor
 
         for name, path in _exported_entries(cfg).items():
-            pred = ExportedPredictor(path, device=device,
-                                     devices=devices).warmup()
+            pred = ExportedPredictor(
+                path, device=device, devices=devices,
+                model_parallelism=cfg.model_parallelism).warmup()
             endpoints[name] = endpoint(name, pred, pred.clip_shapes)
     else:
         endpoints["model"] = endpoint(
@@ -291,22 +301,26 @@ def build_server(cfg: ServeConfig, state_dict=None) -> ThreadingHTTPServer:
     return server
 
 
-def serving_devices(cfg, device):
-    """The replicas' devices of --data_parallel (every visible card; the
-    CPU is one device), or None; --model_parallelism > 1 exits."""
-    if cfg.model_parallelism > 1:
-        raise SystemExit(
-            f"serve --model_parallelism {cfg.model_parallelism}: "
-            "tensor-parallel serving is not ported yet (ROADMAP queue 1, "
-            "item 13: single-process tensor parallelism over a device "
-            "list); serve --data_parallel, or one device")
-    if not cfg.data_parallel:
-        return None
-    if device.type != "cuda":
-        return [device]
-    import torch
+def serving_devices(cfg, device, devices=None):
+    """The devices to serve over, or None for one device: `devices` when
+    given, else under --data_parallel or --model_parallelism > 1 every
+    visible card (torch's one CPU device once for --data_parallel, N times
+    for --model_parallelism N).  --model_parallelism must divide their
+    number."""
+    tp = cfg.model_parallelism
+    if devices is None:
+        if not cfg.data_parallel and tp <= 1:
+            return None
+        if device.type != "cuda":
+            return [device] * tp
+        import torch
 
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    if tp < 1 or len(devices) % tp:
+        raise SystemExit(f"--model_parallelism {tp} does not divide the "
+                         f"{len(devices)} available devices")
+    return devices
 
 
 def _live_predictor(cfg, device, state_dict, devices=None):
@@ -333,7 +347,8 @@ def _live_predictor(cfg, device, state_dict, devices=None):
     shapes = clip_shapes_from_config(cfg, modalities)
     predictor = Predictor(model, state_dict, batch_size=cfg.batch_size,
                           device=device, compute_dtype=dtype,
-                          quantize=quantize, devices=devices)
+                          quantize=quantize, devices=devices,
+                          model_parallelism=cfg.model_parallelism)
     predictor.warmup({m: np.zeros((1,) + shapes[m], np.float32)
                       for m in modalities})
     return predictor, shapes

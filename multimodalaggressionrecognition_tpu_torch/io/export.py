@@ -33,7 +33,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..serve import ScorerBase, resolve_device
+from ..serve import ScorerBase, data_groups, resolve_device
 
 FORMAT = "mar-torch-export-v1"
 ARTIFACT = "model.pt2"
@@ -110,13 +110,20 @@ class ExportedPredictor(ScorerBase):
     `MicroBatcher` and the serving daemon run on it unchanged, with no
     model class loaded."""
 
-    def __init__(self, path: str, device="cuda", devices=None):
+    def __init__(self, path: str, device="cuda", devices=None,
+                 model_parallelism: int = 1):
         """`devices`: a list of devices to serve data-parallel, as
         `serve.Predictor(devices=...)`: the artifact is loaded once for
         each (moved there on load), and the batch split evenly over them.
         An artifact's batch is fixed, so each replica scores the artifact's
         batch and the scorer's is len(devices) times it (JAX's sharded
-        call splits the artifact's own batch instead)."""
+        call splits the artifact's own batch instead).  Under
+        `model_parallelism` tp the devices form `serve.Predictor`'s data
+        groups and the artifact is served on each group's first device:
+        its weights are baked in, so only the batch is split, as JAX
+        passes its exported call the data sharding alone."""
+        devices = [g[0] for g in data_groups(devices, device,
+                                             model_parallelism)]
         with open(os.path.join(path, _META)) as f:
             meta = json.load(f)
         if meta.get("format") != FORMAT:
@@ -129,7 +136,7 @@ class ExportedPredictor(ScorerBase):
                     f"artifact was exported for platforms "
                     f"{meta['platforms']}, not {d.type!r}; re-export with "
                     f"--platforms {d.type}")
-        self.devices = tuple(resolve_device(d) for d in devices or ())
+        self.devices = tuple(devices)
         self.device = (self.devices[0] if self.devices
                        else resolve_device(device))
         _import_ops()

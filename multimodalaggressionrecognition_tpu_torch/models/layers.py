@@ -27,6 +27,13 @@ shards, one all-reduce over the group sums the partial products, and
 their bias is added once, after it.  The block's input goes through the
 identity forward / all-reduce backward (Megatron's f and g).  The w8a8
 branch runs unsharded (serving).
+
+Tensor-parallel serving in one process (`place_params_local` sets
+`tp_shards`, one module of split parameters per device): each shard in
+rank order takes the input to its device and runs the same per-rank math
+there, every shard is enqueued before any partial is read back, and the
+partials are summed on the input's device in rank order
+(`parallel/mesh.sum_partials`) before the bias is added.
 """
 
 import math
@@ -36,7 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.erf import gelu
-from ..parallel.mesh import copy_to_group, reduce_from_group
+from ..parallel.mesh import copy_to_group, reduce_from_group, sum_partials
 from .stochastic import Dropout
 
 
@@ -82,24 +89,16 @@ class MultiheadSelfAttention(nn.Module):
         self.out_proj = Linear(embed_dim, embed_dim)
         self.dropout = Dropout(dropout)
         self.tp = None  # (group, rank, size) on a tensor-parallel mesh
+        self.tp_shards = None  # one process's split over several devices
         nn.init.xavier_uniform_(self.in_proj_weight)
         nn.init.zeros_(self.out_proj.bias)
 
-    def forward(self, x, key_padding_mask=None):
-        b, t, e = x.shape
-        d = e // self.num_heads
-        group, rank, size = self.tp or (None, 0, 1)
-        h = self.num_heads // size  # this rank's heads
-        if group is not None:
-            x = copy_to_group(x, group)
-        if self.in_proj_weight.dtype == torch.int8:  # w8a8 serving
-            from ..utils.quantize import int8_linear
-
-            qkv = int8_linear(x, self.in_proj_weight,
-                              self.in_proj_weight_scale, self.in_proj_bias)
-        else:
-            qkv = F.linear(x, self.in_proj_weight.to(x.dtype),
-                           self.in_proj_bias.to(x.dtype))
+    def _attend(self, qkv, key_padding_mask, rank: int, size: int):
+        """The attention of the heads whose packed q, k, v rows `qkv` (B, T,
+        3 h d) holds (rank's h = num_heads / size): (B, T, h d)."""
+        b, t, _ = qkv.shape
+        h = self.num_heads // size
+        d = qkv.shape[-1] // (3 * h)
         # (B, T, 3E) -> 3 x (B, H, T, d)
         q, k, v = qkv.view(b, t, 3, h, d).permute(2, 0, 3, 1, 4)
         # the scores and the softmax in f32 whatever the compute dtype, the
@@ -113,12 +112,42 @@ class MultiheadSelfAttention(nn.Module):
             any_valid = (~key_padding_mask).any(dim=-1)[:, None, None, None]
             attn = torch.where(any_valid, attn, torch.zeros_like(attn))
         out = self.dropout(attn.to(v.dtype), shards=((1, rank, size),)) @ v
-        out = out.transpose(1, 2).reshape(b, t, h * d)
+        return out.transpose(1, 2).reshape(b, t, h * d)
+
+    def forward(self, x, key_padding_mask=None):
+        if self.tp_shards is not None:
+            return self._forward_local(x, key_padding_mask)
+        group, rank, size = self.tp or (None, 0, 1)
+        if group is not None:
+            x = copy_to_group(x, group)
+        if self.in_proj_weight.dtype == torch.int8:  # w8a8 serving
+            from ..utils.quantize import int8_linear
+
+            qkv = int8_linear(x, self.in_proj_weight,
+                              self.in_proj_weight_scale, self.in_proj_bias)
+        else:
+            qkv = F.linear(x, self.in_proj_weight.to(x.dtype),
+                           self.in_proj_bias.to(x.dtype))
+        out = self._attend(qkv, key_padding_mask, rank, size)
         if group is None:
             return self.out_proj(out)
         partial = F.linear(out, self.out_proj.weight.to(out.dtype))
         return (reduce_from_group(partial, group)
                 + self.out_proj.bias.to(out.dtype))
+
+    def _forward_local(self, x, key_padding_mask):
+        size = len(self.tp_shards)
+        partials = []
+        for rank, shard in enumerate(self.tp_shards):
+            w = shard.in_proj_weight
+            xs = x.to(w.device)
+            mask = (None if key_padding_mask is None
+                    else key_padding_mask.to(w.device))
+            qkv = F.linear(xs, w.to(xs.dtype), shard.in_proj_bias.to(xs.dtype))
+            out = self._attend(qkv, mask, rank, size)
+            partials.append(F.linear(out, shard.out_proj_weight.to(out.dtype)))
+        return (sum_partials(partials, x.device)
+                + self.out_proj.bias.to(x.dtype))
 
 
 class TransformerEncoderLayer(nn.Module):
@@ -141,19 +170,38 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.dropout = Dropout(dropout)
         self.tp = None  # (group, rank, size): linear1/linear2 split
+        self.tp_shards = None  # one process's split over several devices
+
+    def _hidden(self, h, rank: int, size: int):
+        """The activation and dropout of rank's columns of linear1's
+        output."""
+        h = gelu(h, "erf") if self.activation == "gelu" else torch.relu(h)
+        return self.dropout(h, shards=((-1, rank, size),))
 
     def _ff(self, x):
+        if self.tp_shards is not None:
+            return self.dropout(self._ff_local(x))
         group, rank, size = self.tp or (None, 0, 1)
         if group is not None:
             x = copy_to_group(x, group)
-        h = self.linear1(x)
-        h = gelu(h, "erf") if self.activation == "gelu" else torch.relu(h)
-        h = self.dropout(h, shards=((-1, rank, size),))
+        h = self._hidden(self.linear1(x), rank, size)
         if group is None:
             return self.dropout(self.linear2(h))
         partial = F.linear(h, self.linear2.weight.to(h.dtype))
         return self.dropout(reduce_from_group(partial, group)
                             + self.linear2.bias.to(h.dtype))
+
+    def _ff_local(self, x):
+        size = len(self.tp_shards)
+        partials = []
+        for rank, shard in enumerate(self.tp_shards):
+            w1 = shard.linear1_weight
+            xs = x.to(w1.device)
+            h = self._hidden(F.linear(xs, w1.to(xs.dtype),
+                                      shard.linear1_bias.to(xs.dtype)),
+                             rank, size)
+            partials.append(F.linear(h, shard.linear2_weight.to(h.dtype)))
+        return sum_partials(partials, x.device) + self.linear2.bias.to(x.dtype)
 
     def forward(self, x, key_padding_mask=None):
         if self.norm_first:

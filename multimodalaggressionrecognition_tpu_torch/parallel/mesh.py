@@ -183,6 +183,18 @@ def all_reduce_(x, group, op=dist.ReduceOp.SUM):
     return x.copy_(wide)
 
 
+def sum_partials(partials, device):
+    """The partials summed on `device` in rank order, the in-process
+    all-reduce of tensor-parallel serving (no process group): a 16-bit
+    partial sums in f32 and the sum is cast back, as `all_reduce_`."""
+    dtype = partials[0].dtype
+    wide = torch.float32 if dtype in (torch.bfloat16, torch.float16) else dtype
+    total = partials[0].to(device, wide)
+    for p in partials[1:]:
+        total = total + p.to(device, wide)
+    return total.to(dtype)
+
+
 class _AllReduceSum(torch.autograd.Function):
     """The sum over the group, with autograd: every rank uses the sum, so
     its gradient is the sum of the ranks' upstream gradients."""

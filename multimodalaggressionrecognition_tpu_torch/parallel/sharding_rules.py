@@ -25,6 +25,15 @@ replicated whole (JAX's rule per leaf, `sharding_rules.py:40-57`).
 Checkpoints hold the unsharded layout (`gather_state`), in JAX's row
 order, so a run resumes under any layout and `io/from_jax.py` reads the
 same tree.
+
+Serving splits in one process (`place_params_local`, the JAX package's
+`Predictor(param_placement=place_params)`): the same rules cut each split
+module's weights into one contiguous shard per device of a data group.  A
+weight-only int8 weight is quantized whole first and its codes are split
+with their per-row scales (cut with the rows of a row split, whole for a
+column split), so every shard dequantizes to the whole weight's values.
+w8a8 weights stay whole: their per-row activation scales would change
+under a column split.
 """
 
 from dataclasses import dataclass
@@ -60,8 +69,7 @@ def transformer_tp_shardings(model: nn.Module, tp: int
             out[p + "in_proj_weight"] = Split(0, 3)
             out[p + "in_proj_bias"] = Split(0, 3)
             out[p + "out_proj.weight"] = Split(1)
-        elif (isinstance(m, TransformerEncoderLayer)
-              and m.linear1.out_features % tp == 0):
+        elif isinstance(m, TransformerEncoderLayer) and ff_splits(m, tp):
             out[p + "linear1.weight"] = Split(0)
             out[p + "linear1.bias"] = Split(0)
             out[p + "linear2.weight"] = Split(1)
@@ -70,6 +78,11 @@ def transformer_tp_shardings(model: nn.Module, tp: int
 
 def attention_splits(m, tp: int) -> bool:
     return m.num_heads % tp == 0 and m.in_proj_weight.dtype != torch.int8
+
+
+def ff_splits(m, tp: int) -> bool:
+    return (m.linear1.out_features % tp == 0
+            and m.linear1.weight.dtype != torch.int8)
 
 
 def _spans(size: int, split: Split, rank: int, tp: int):
@@ -139,6 +152,99 @@ def place_params(model: nn.Module, mesh: Mesh) -> nn.Module:
         if isinstance(m, Random):
             m.batch_shard = (mesh.dp_rank, mesh.dp)
     return model
+
+
+class Shard(nn.Module):
+    """One device's pieces of a split module: each split parameter of it
+    (`splits`: {name: Split}) under its name with "_" for ".", a
+    weight-only int8 one under its `Dequantize`."""
+
+    def __init__(self, splits: Dict[str, Split]):
+        super().__init__()
+        self.splits = splits
+
+
+def _take(module: nn.Module, name: str):
+    """(values, Dequantize or None) of `module`'s parameter `name`: a
+    weight-only int8 weight's codes and dequantization, else the tensor;
+    the module's own reference is dropped."""
+    from torch.nn.utils import parametrize
+
+    owner_name, _, pname = name.rpartition(".")
+    owner = module.get_submodule(owner_name)
+    dequantize = None
+    if parametrize.is_parametrized(owner, pname):
+        # a deep copy shares its parametrized class with the original, and
+        # the removal deletes the weight's property from the class: give
+        # this module a class of its own first
+        cls = type(owner)
+        owner.__class__ = type(cls.__name__, cls.__bases__, {
+            k: v for k, v in vars(cls).items()
+            if k not in ("__dict__", "__weakref__")})
+        dequantize = owner.parametrizations[pname][0]
+        parametrize.remove_parametrizations(owner, pname,
+                                            leave_parametrized=False)
+    values = getattr(owner, pname).detach()
+    setattr(owner, pname, None)
+    return values, dequantize
+
+
+def _local_shard(pieces, splits, rank: int, tp: int, device) -> Shard:
+    from torch.nn.utils import parametrize
+
+    from ..utils.quantize import Dequantize
+
+    shard = Shard(splits)
+    for name, (values, dequantize) in pieces.items():
+        split = splits[name]
+        attr = name.replace(".", "_")
+        shard.register_parameter(attr, nn.Parameter(
+            shard_tensor(values, split, rank, tp).to(device),
+            requires_grad=False))
+        if dequantize is not None:
+            scale = dequantize.scale
+            if split.dim == 0:  # a row's scale goes with the row
+                scale = shard_tensor(scale, split, rank, tp)
+            parametrize.register_parametrization(
+                shard, attr, Dequantize(scale.to(device), dequantize.dtype),
+                unsafe=True)
+    return shard
+
+
+def place_params_local(model: nn.Module, devices) -> nn.Module:
+    """Place `model` (unsharded, possibly quantized) over the devices of
+    one data group in one process, in place, tp = len(devices): the
+    replicated parameters on the first device, and each module the rules
+    split given `tp_shards`, one `Shard` a device in rank order, its whole
+    split weights freed.  The cuts are `place_params`'."""
+    from ..models.layers import MultiheadSelfAttention, TransformerEncoderLayer
+
+    split_names = ((MultiheadSelfAttention,
+                    ("in_proj_weight", "in_proj_bias", "out_proj.weight")),
+                   (TransformerEncoderLayer,
+                    ("linear1.weight", "linear1.bias", "linear2.weight")))
+    devices = [torch.device(d) for d in devices]
+    tp = len(devices)
+    splits = transformer_tp_shardings(model, tp)
+    model.to(devices[0])
+    for prefix, m in list(model.named_modules()):
+        p = f"{prefix}." if prefix else ""
+        names = next((n for cls, n in split_names if isinstance(m, cls)), ())
+        if not names or splits.get(p + names[0]) is None:
+            continue
+        pieces = {n: _take(m, n) for n in names}
+        own = {n: splits[p + n] for n in names}
+        m.tp_shards = nn.ModuleList(_local_shard(pieces, own, r, tp, d)
+                                    for r, d in enumerate(devices))
+    return model
+
+
+def local_splits(model: nn.Module) -> Dict[str, Split]:
+    """{name: Split} of the parameters `place_params_local` has split."""
+    return {(f"{prefix}." if prefix else "") + n: s
+            for prefix, m in model.named_modules()
+            if getattr(m, "tp_shards", None) is not None
+            for n, s in m.tp_shards[0].splits.items()}
 
 
 def _optimizer_names(state):

@@ -14,8 +14,14 @@ forward is one module (`ServingForward`), which io/export.py hands to
 `torch.export` whole.  `devices=[...]` serves data-parallel in one
 process (the JAX package's `Predictor(sharding=)`): each listed device
 holds a replica, the padded batch is split evenly over them, and every
-chunk is enqueued before any result is read back.  Tensor-parallel
-serving and the compile cache are not ported.
+chunk is enqueued before any result is read back.  With
+`model_parallelism=tp` it serves dp x tp in one process (JAX's
+`Predictor(sharding=, param_placement=place_params)`): the devices form
+JAX's grid `(n // tp, tp)`, row major, so devices d tp ... d tp + tp - 1
+are data group d; each group holds one model copy whose transformer
+blocks are split over its devices (parallel/sharding_rules
+`place_params_local`), and the batch is split evenly over the groups.
+The compile cache is not ported.
 """
 
 import copy
@@ -38,6 +44,19 @@ def resolve_device(device="cuda") -> torch.device:
             "no CUDA device is available; pass device='cpu' "
             "(CLI: --device cpu) to run on the CPU")
     return device
+
+
+def data_groups(devices, device, model_parallelism: int = 1):
+    """JAX's device grid `(n // tp, tp)` over `devices` (default: [device]
+    under tp > 1, else none), row major, as a list of data groups of tp
+    resolved devices each; tp must divide the device count."""
+    tp = int(model_parallelism)
+    devices = [resolve_device(d)
+               for d in devices or ((device,) if tp > 1 else ())]
+    if tp < 1 or len(devices) % tp:
+        raise ValueError(f"model_parallelism {tp} does not divide the "
+                         f"{len(devices)} available devices")
+    return [tuple(devices[i:i + tp]) for i in range(0, len(devices), tp)]
 
 
 def _check_batch_divides(batch_size: int, devices):
@@ -142,14 +161,22 @@ class Predictor(ScorerBase):
     devices: a list of devices (e.g. ["cuda:0", "cuda:1"]) to serve
            data-parallel, one replica each (`device` is then the first);
            the batch size must divide by their number.
+    model_parallelism: tp > 1 serves dp x tp over `devices` (default
+           [device]): tp must divide their number, and the batch size the
+           number of data groups; `devices` then holds each group's first
+           device (where its batch rows go) and `groups` the groups.
     """
 
     def __init__(self, model: torch.nn.Module, state_dict=None,
                  batch_size: int = 32, device="cuda", compute_dtype=None,
-                 quantize: str | None = None, devices=None):
+                 quantize: str | None = None, devices=None,
+                 model_parallelism: int = 1):
+        from .parallel.sharding_rules import place_params_local
         from .utils.precision import resolve_dtype
 
-        self.devices = tuple(resolve_device(d) for d in devices or ())
+        tp = int(model_parallelism)
+        self.groups = data_groups(devices, device, tp)
+        self.devices = tuple(group[0] for group in self.groups)
         if self.devices:
             _check_batch_divides(batch_size, self.devices)
             device = self.devices[0]
@@ -163,10 +190,14 @@ class Predictor(ScorerBase):
             quantize_model_(model, quantize,
                             self.compute_dtype or torch.float32)
         self.model = model.to(self.device).eval()
-        self.serving = ServingForward(self.model, self.compute_dtype)
-        self.replicas = [self.serving] + [
-            ServingForward(copy.deepcopy(self.model).to(d),
-                           self.compute_dtype) for d in self.devices[1:]]
+        copies = [self.model] + [copy.deepcopy(self.model).to(d)
+                                 for d in self.devices[1:]]
+        if tp > 1:
+            for replica, group in zip(copies, self.groups):
+                place_params_local(replica, group)
+        self.replicas = [ServingForward(m, self.compute_dtype)
+                         for m in copies]
+        self.serving = self.replicas[0]
         self.batch_size = batch_size
 
     @torch.inference_mode()
@@ -181,7 +212,8 @@ class Predictor(ScorerBase):
         """Run once on zero inputs shaped like a real request: builds the
         kernels and records the head names and the served modality set."""
         out = self._logits(example_modalities, 1)
-        for device in self.devices or (self.device,):
+        for device in {d for group in self.groups for d in group} or {
+                self.device}:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
         self.heads = sorted(out)

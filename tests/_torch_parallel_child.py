@@ -211,6 +211,75 @@ def tp():
               f"tp_out_{WORLD}.pt")
 
 
+def hubert_tower(dropout):
+    """test_tp_cli.py's Tower: HuBERT-large truncated to 2 layers, then a
+    2-way head on the mean over time."""
+    import dataclasses
+
+    from torch import nn
+
+    from multimodalaggressionrecognition_tpu_torch.models.wav2vec import (
+        HUBERT_LARGE, Wav2Vec2Model)
+
+    cfg = dataclasses.replace(HUBERT_LARGE, num_layers=2, dropout=dropout)
+
+    class Tower(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.hubert = Wav2Vec2Model(cfg)
+            self.cls = nn.Linear(cfg.embed_dim, 2)
+
+        def forward(self, modalities):
+            feats = self.hubert(modalities["audio"]["data"])
+            return {"main": self.cls(feats.mean(dim=1))}
+
+    return Tower()
+
+
+def hubert_steps(batches, mesh, dropout):
+    """(losses, parameter norm) of two Adam(1e-4) CE steps of the tower
+    from the saved weights, on this rank's rows when `mesh` is given."""
+    from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
+        set_generator)
+    from multimodalaggressionrecognition_tpu_torch.parallel.sharding_rules import (
+        clip_norm_squares)
+    from multimodalaggressionrecognition_tpu_torch.train.state import (
+        OptimizerConfig, create_train_state)
+    from multimodalaggressionrecognition_tpu_torch.train.steps import (
+        LossSpec, train_step)
+
+    model = hubert_tower(dropout)
+    model.load_state_dict(load("hubert_weights.pt"))
+    state = create_train_state(model, OptimizerConfig(1e-4), "cpu", mesh=mesh)
+    set_generator(state.model, torch.Generator().manual_seed(0))
+    losses = []
+    for batch in batches:
+        local = batch if mesh is None else shard_batch(batch, mesh)
+        metrics = train_step(state, tensors(local), {"main": LossSpec("ce")},
+                             2)
+        losses.append(float(metrics["total_loss"]))
+    params = list(state.model.parameters())
+    with torch.no_grad():
+        if mesh is None:
+            sq = sum(p.double().square().sum() for p in params)
+        else:
+            sq = clip_norm_squares(params, params, mesh)
+    return losses, float(sq) ** 0.5
+
+
+def tp_hubert():
+    """test_tp_cli.py's HuBERT-large tp 2 train step (dropout 0.1, the
+    tower's own) against one rank; rank 0 also runs the one-rank steps with
+    dropout 0.0, which the parent holds against JAX."""
+    batches = load("hubert_batches.pt")
+    losses, norm = hubert_steps(batches, make_mesh(2, "cpu"), 0.1)
+    out = {"tp": (losses, norm)}
+    if RANK == 0:
+        out["one"] = hubert_steps(batches, None, 0.1)
+        out["plain"] = hubert_steps(batches, None, 0.0)
+    save_main(out, "hubert_out.pt")
+
+
 # ------------------------------------------------------------------ CLIs
 def cli():
     """train_text_transformer under --data_parallel and --model_parallelism
@@ -317,7 +386,8 @@ if __name__ == "__main__":
     initialize_distributed(num_processes=WORLD, process_id=RANK,
                            init_method=f"file://{path('rendezvous')}",
                            backend="gloo")
-    {"steps": steps, "tp": tp, "cli": cli, "trainer": trainer}[MODE]()
+    {"steps": steps, "tp": tp, "tp_hubert": tp_hubert, "cli": cli,
+     "trainer": trainer}[MODE]()
     dist.barrier()
     dist.destroy_process_group()
     print(f"rank {RANK}: {MODE} ok", flush=True)

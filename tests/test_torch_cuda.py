@@ -1237,3 +1237,35 @@ def test_predictor_replicas_on_one_card(cuda):
     assert launch_counts["framed_conv1d"] == before + 2
     for head in want:
         np.testing.assert_allclose(got[head], want[head], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_devices", [2, 4])
+def test_predictor_tensor_parallel_on_one_card(cuda, n_devices):
+    """Predictor(devices=["cuda:0"] * n, model_parallelism=2): tp 2 and
+    dp 2 x tp 2 with the fusion layer split, within 1e-5 of one device; K1
+    once per data group."""
+    import numpy as np
+
+    from multimodalaggressionrecognition_tpu_torch.parallel.dryrun import (
+        AUDIO_LEN, HIDDEN, TEXT_LEN, _flagship)
+    from multimodalaggressionrecognition_tpu_torch.parallel.sharding_rules import (
+        local_splits)
+    from multimodalaggressionrecognition_tpu_torch.serve import Predictor
+
+    rng = np.random.default_rng(1)
+    clips = {"audio": (rng.standard_normal((6, AUDIO_LEN)) * 0.1).astype(
+                 np.float32),
+             "text": rng.standard_normal((6, TEXT_LEN, HIDDEN)).astype(
+                 np.float32)}
+    one = Predictor(_flagship(), batch_size=8, device="cuda")
+    tp = Predictor(_flagship(), batch_size=8, devices=["cuda:0"] * n_devices,
+                   model_parallelism=2)
+    assert len(local_splits(tp.model)) == 6
+    want = one.predict(clips)
+    before = launch_counts["framed_conv1d"]
+    got = tp.predict(clips)
+    torch.cuda.synchronize()
+    assert launch_counts["framed_conv1d"] == before + n_devices // 2
+    for head in want:
+        np.testing.assert_allclose(got[head], want[head], rtol=0, atol=1e-5)

@@ -2,8 +2,10 @@
 package's `Predictor(sharding=)`, `ExportedPredictor(sharding=)` and
 `serve --data_parallel`): replicas over ["cpu", "cpu"] against one device,
 JAX's batch-divides check, `serve --data_parallel --device cpu` answering
-/score, `serve --model_parallelism 2` refused with its reason, and
-`doctor`'s launch report.  The multi-rank training tests are
+/score, `serve --model_parallelism 2` serving one device's scores and
+refusing a tp that does not divide the devices, and `doctor`'s launch
+report.  Tensor-parallel serving's own tests are
+test_torch_tp_serving.py.  The multi-rank training tests are
 test_torch_parallel_{steps,cli,trainer}.py.
 """
 
@@ -121,14 +123,34 @@ def test_serve_data_parallel_answers_score(parallel):
         thread.join(timeout=10)
 
 
-def test_serve_model_parallelism_is_refused():
+def test_serve_model_parallelism_is_refused(predictors):
+    """`serve --model_parallelism` is refused only where tp does not divide
+    the devices (JAX's exit); tp 2 on the CPU holds both shards and serves
+    one device's scores."""
     from multimodalaggressionrecognition_tpu_torch.cli.serve import (
         build_server)
 
-    with pytest.raises(SystemExit, match="tensor-parallel serving is not "
-                                         "ported yet .ROADMAP queue 1, "
-                                         "item 13"):
-        build_server(_serve_config(model_parallelism=2))
+    with pytest.raises(SystemExit, match="--model_parallelism 3 does not "
+                                         "divide the 2 available devices"):
+        build_server(_serve_config(model_parallelism=3),
+                     devices=["cpu", "cpu"])
+    one, _ = predictors
+    srv = build_server(_serve_config(model_parallelism=2))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        assert [[str(d) for d in g] for g in srv.predictor.groups] == [
+            ["cpu", "cpu"]]
+        req = _request(7, 3)
+        out = _score(srv, {k: v.tolist() for k, v in req.items()})
+        want = one.predict(req)
+        for head in want:  # the daemon rounds to 4 places
+            np.testing.assert_allclose(out[head], want[head], atol=1e-4)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.batcher.close()
+        thread.join(timeout=10)
 
 
 def test_doctor_reports_the_launch(monkeypatch):
