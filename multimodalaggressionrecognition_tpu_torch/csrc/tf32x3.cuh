@@ -1,6 +1,6 @@
 // f32-accurate products on Hopper's tensor cores (3xTF32), and the
-// shared-memory tiles and bias reads of the window-attention kernels (K2,
-// window_attention.cu; K3, window_attention_bwd.cu).  The framed conv (K1,
+// shared-memory tiles and bias reads of the window-attention kernels' f32
+// instantiations (K2, window_attention.cu; K3, window_attention_bwd.cu).  The framed conv (K1,
 // framed_conv.cu) takes the split, the mma and the cp.async helpers.
 //
 // 3xTF32.  Each f32 operand x is split into big, x rounded to tf32, and
@@ -26,23 +26,16 @@
 // shorter than the 32 banks, and some of their loads conflict 2-way.  A
 // split tile (K3's) holds each element already split (at2, below).
 //
-// Storage types.  K2 and K3 read their operands (qkv, g) and write their
-// results (out, dqkv) in f32 or bf16; every load widens to f32 (a bf16 is
-// the top half of an f32, so the widening is exact) and all arithmetic is
-// the f32 path's, so a bf16 launch differs from an f32 launch on the
-// widened inputs only by the final rounding of each stored result (round to
-// nearest even, as PyTorch's own conversion).
+// The bf16 instantiations of K2 and K3 do not come here: they run on the
+// bf16 tensor cores (bf16mma.cuh).
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace tf32x3 {
-
-using bf16 = __nv_bfloat16;
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
@@ -127,35 +120,17 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(FULL_MASK, v, 2);
 }
 
-// an f32 or bf16 element of device memory, as f32 (through the read-only
-// cache)
+// an element of device memory (through the read-only cache)
 __device__ __forceinline__ float ldf(const float* p) { return __ldg(p); }
 
-__device__ __forceinline__ float ldf(const bf16* p) {
-  const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<uint32_t>(u) << 16);
-}
-
-// four consecutive elements (16-byte aligned for f32, 8-byte for bf16)
+// four consecutive elements (16-byte aligned)
 __device__ __forceinline__ float4 ld4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-__device__ __forceinline__ float4 ld4(const bf16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
-// two consecutive results (8-byte aligned for f32, 4-byte for bf16)
+// two consecutive results (8-byte aligned)
 __device__ __forceinline__ void st2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void st2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // offset of element (r, c) of a swizzled D-wide tile: the 4-float chunks of
@@ -218,21 +193,6 @@ __device__ __forceinline__ void stage(float* tile, const float* src,
   }
 }
 
-// stage from a bf16 slice (row j at src + j * stride, 8-byte aligned): the
-// same tile, widened to f32 on the way with plain loads (a cp.async cannot
-// convert); nothing is left in flight
-template <int D>
-__device__ __forceinline__ void stage(float* tile, const bf16* src,
-                                      int64_t stride, int n, int rows) {
-  constexpr int CH = D / 4;
-  for (int idx = threadIdx.x; idx < rows * CH; idx += blockDim.x) {
-    const int r = idx / CH;
-    const int c = (idx % CH) * 4;
-    *reinterpret_cast<float4*>(tile + at<D>(r, c)) =
-        r < n ? ld4(src + r * stride + c) : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-}
-
 // The fragment loaders take tiles whose first row (r0, n0, k0) is a multiple
 // of 8 and columns (c0, k0, n0) that are multiples of 8, so that a lane's
 // swizzle is a constant of the lane and its offsets can be hoisted out of
@@ -260,7 +220,7 @@ __device__ __forceinline__ FragB load_b_pairs(const float* tile, int k0,
                  p[D + (n0 ^ (s1 & ~7)) + (g ^ (s1 & 7))]);
 }
 
-// A operand from device memory (f32 or bf16): rows a and b (g and g+8 of
+// A operand from device memory: rows a and b (g and g+8 of
 // the tile) of a row-major matrix, columns c0 .. c0+7, times mul
 template <typename T>
 __device__ __forceinline__ FragA load_a_rows(const T* row_a, const T* row_b,
@@ -322,8 +282,8 @@ __device__ __forceinline__ int at2(int r, int c) {
   return r * D + (c ^ swz2<D>(r));
 }
 
-// Rows [0, n) of a D-wide f32 or bf16 slice (row j at src + j * stride,
-// 16-byte aligned for f32, 8-byte for bf16), times mul, split into a split
+// Rows [0, n) of a D-wide f32 slice (row j at src + j * stride, 16-byte
+// aligned), times mul, split into a split
 // tile; rows [n, rows) zero.  Every thread of the block takes its share; the
 // caller synchronizes.
 template <int D, typename T>

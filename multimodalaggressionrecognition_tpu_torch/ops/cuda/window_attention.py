@@ -21,14 +21,17 @@ torch.export, which keeps the op in a serving artifact's graph
 quantization are for inference.
 
 Dtypes, as in the JAX kernels: qkv (and the output gradient g) are float32
-or bfloat16, and the output and dqkv come back in qkv's dtype; the math is
-f32 throughout (each operand widened on load, one rounding per stored
-result).  The bias may be bfloat16 (a cast model's bias table): like the
-JAX wrapper, this one hands the kernels its f32 copy and returns dbias in
-the bias's dtype.  The mask is a constant, always f32.  The plain versions
-follow the same rule.  (The JAX package's CPU reference rounds the softmax
-probabilities to v's dtype before P·V; its TPU kernel, and so this port,
-does not.)
+or bfloat16, and the output and dqkv come back in qkv's dtype, with f32
+accuracy inside and one rounding per stored result.  Each dtype has its
+own kernel: float32 runs 3xTF32 products (csrc/tf32x3.cuh); bfloat16 runs
+on the bf16 tensor cores without widening its operands, the products of
+two bf16 operands exact and those with the f32 probabilities (and dS) in
+two bf16 pieces (csrc/bf16mma.cuh).  The bias may be bfloat16 (a cast
+model's bias table): like the JAX wrapper, this one hands the kernels its
+f32 copy and returns dbias in the bias's dtype.  The mask is a constant,
+always f32.  The plain versions compute in f32 for bf16 inputs.  (The JAX
+package's CPU reference rounds the softmax probabilities to v's dtype
+before P·V; its TPU kernel, and so this port, does not.)
 """
 
 import ctypes
@@ -47,7 +50,7 @@ HEAD_DIMS = (8, 16, 32)      # the kernel's instantiations
 
 
 def _bind_info(fn):
-    fn.argtypes, fn.restype = [_I, _I, ctypes.POINTER(_I)], _I
+    fn.argtypes, fn.restype = [_I, _I, _I, ctypes.POINTER(_I)], _I
 
 
 # the storage dtypes of qkv, g, out and dqkv: the kernels' entry suffixes
@@ -63,7 +66,7 @@ def _bind(lib):
 
 
 def _bind_bwd(lib):
-    lib.window_attention_bwd_groups.argtypes = [_I, _I, _I, _I]
+    lib.window_attention_bwd_groups.argtypes = [_I] * 5
     lib.window_attention_bwd_groups.restype = _I
     for suffix in _SUFFIX.values():
         fn = getattr(lib, f"window_attention_bwd_{suffix}")
@@ -72,14 +75,16 @@ def _bind_bwd(lib):
     _bind_info(lib.window_attention_bwd_info)
 
 
-def launch_info(name: str, n: int, d: int) -> dict:
+def launch_info(name: str, n: int, d: int, dtype=torch.float32) -> dict:
     """Kernel `name`'s ("window_attention" or "window_attention_bwd") launch
-    at (N, d) on the current card: threads per block, dynamic shared memory
-    bytes and resident blocks per SM."""
+    at (N, d) on the current card, for its instantiation of qkv's `dtype`:
+    threads per block, dynamic shared memory bytes and resident blocks per
+    SM."""
     lib = load_library(name, {"window_attention": _bind,
                               "window_attention_bwd": _bind_bwd}[name])
     out = (_I * 3)()
-    check_status(name, getattr(lib, name + "_info")(n, d, out))
+    check_status(name, getattr(lib, name + "_info")(
+        n, d, int(dtype == torch.bfloat16), out))
     return dict(zip(("threads", "dynamic_smem_bytes", "blocks_per_sm"), out))
 
 
@@ -260,7 +265,8 @@ def window_attention_bwd(qkv, bias, mask, g, heads: int):
     if g.data_ptr() % 16:
         raise ValueError("fused_window_attention: g must be 16-byte aligned")
     lib = load_library("window_attention_bwd", _bind_bwd)
-    groups = lib.window_attention_bwd_groups(w, n, heads, d)
+    groups = lib.window_attention_bwd_groups(
+        w, n, heads, d, int(qkv.dtype == torch.bfloat16))
     if groups < 1:
         check_status("window_attention_bwd", -groups or 1)
     dqkv = torch.empty_like(qkv)

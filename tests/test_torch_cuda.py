@@ -9,7 +9,11 @@ Without a card every test skips.  Tolerance atol/rtol 1e-4: both sides are
 f32 (TF32 off) and only the summation order differs; the window-attention
 kernel at tests/test_pallas.py's small shapes is held to 1e-5, as there.
 Its backward (K3) is held to its plain version at 1e-4 of the largest
-gradient (the stage shapes sum over up to 2048 windows into dbias).  The
+gradient (the stage shapes sum over up to 2048 windows into dbias).  Their
+bf16 kernels (bf16 tensor cores, p and dS in two bf16 pieces) are held
+element by element within one bf16 ulp of the plain version's value plus
+3e-5, a bound that a plain version with p rounded to bf16 is shown to
+miss, and K3's bf16 launch is deterministic bit for bit.  The
 roll (K4) only moves values, so it is held to torch.roll bit for bit, and a
 served tri-modal forward gives the same logits with it as with torch.roll.
 The `mar_torch::` custom ops equal a direct ctypes launch of their kernels
@@ -21,6 +25,7 @@ the CPU scores on the card with nothing left on the CPU.
 import pytest
 import torch
 
+from chip_smoke import bf16_ulp_excess, p_rounded_reference
 from multimodalaggressionrecognition_tpu_torch.models import swin3d
 from multimodalaggressionrecognition_tpu_torch.models.swin3d import (
     _attention_mask)
@@ -597,10 +602,16 @@ def test_doctor_smoke_on_the_card(cuda, capsys):
     assert "roll" in report["kernels"]["built"]
 
 
-# bf16 I/O of K2, K3 and K4: qkv (and g) in bf16, f32 math inside, each
-# result rounded once to bf16; held to the plain versions (f32 math, the
-# output rounded to bf16) within 1e-2 of each output's largest value (one
-# bf16 rounding of an f32 result is 2^-8 relative); the roll bit for bit
+# K2, K3 and K4 in bf16: qkv (and g) in bf16, each result rounded once to
+# bf16; K2 and K3 on the bf16 tensor cores to f32 accuracy.  Held to the
+# plain versions (f32 math, the output rounded to bf16) within 1e-2 of each
+# output's largest value (one bf16 rounding of an f32 result is 2^-8
+# relative) and, tighter, element by element within one bf16 ulp of the
+# plain version's value plus 3e-5 (the two f32-accurate results round to
+# bf16 at most one ulp apart; a kernel that took p, and dS, in one bf16
+# piece misses it: p_rounded_reference is held to fail it; both are
+# chip_smoke.py's, which runs the same check); dbias (f32 for an f32
+# bias) within 1e-4 of its largest, as the f32 K3.  The roll bit for bit.
 BF16_K2_SHAPES = [(8, 24, 3, 8, 4), (6, 49, 3, 32, 3), (4, 17, 2, 16, 2),
                   (2048, 196, 3, 32, 16), (512, 196, 6, 32, 4),
                   (128, 64, 24, 32, 0), (16, 392, 3, 32, 4)]
@@ -611,6 +622,21 @@ def _bf16_close(got, want):
     scale = want.float().abs().max().item()
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 1e-2 * scale, (err, scale)
+
+
+def _bf16_elementwise(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16
+    excess = bf16_ulp_excess(got, want)
+    assert excess <= 0, excess
+
+
+def _bf16_dbias_close(q16, bias, mask, g16, heads):
+    """K3's dbias for an f32 bias stays f32: within 1e-4 of its largest."""
+    db = window_attention_bwd(q16, bias, mask, g16, heads)[1]
+    want = window_attention_bwd_reference(q16, bias, mask, g16, heads)[1]
+    assert db.dtype == torch.float32
+    torch.testing.assert_close(db, want, rtol=0,
+                               atol=1e-4 * want.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -628,11 +654,70 @@ def test_window_attention_bf16_kernels_match_plain(cuda, w, n, heads, d, nw):
             f"{key}.bf16", 0) + 1
         assert launch_counts[key] == before.get(key, 0)
     assert got.dtype == dq.dtype == db.dtype == torch.bfloat16
-    _bf16_close(got, attention_core_reference(q16, bias, mask, heads))
+    want = attention_core_reference(q16, bias, mask, heads)
+    _bf16_close(got, want)
+    _bf16_elementwise(got, want)
     want_dq, want_db = window_attention_bwd_reference(
         q16, bias.bfloat16(), mask, g16, heads)
     _bf16_close(dq, want_dq)
+    _bf16_elementwise(dq, want_dq)
     _bf16_close(db, want_db)
+    _bf16_dbias_close(q16, bias, mask, g16, heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,n,heads,d,nw", [(6, 49, 3, 32, 3),
+                                            (2048, 196, 3, 32, 16),
+                                            (16, 392, 3, 32, 4)])
+def test_bf16_elementwise_check_fails_p_rounded_to_bf16(cuda, w, n, heads, d,
+                                                        nw):
+    """The kernels pass the element-wise check where the plain version with
+    p and dS rounded to bf16 fails it: the check tells the two-piece design
+    from a one-pass one."""
+    qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=n + d)
+    q16, g16 = qkv.bfloat16(), k3_grad(w, n, heads, d, cuda).bfloat16()
+    want = (attention_core_reference(q16, bias, mask, heads),
+            window_attention_bwd_reference(q16, bias, mask, g16, heads)[0])
+    got = (fused_window_attention(q16, bias, mask, heads),
+           window_attention_bwd(q16, bias, mask, g16, heads)[0])
+    for x, y, c in zip(got, want,
+                       p_rounded_reference(q16, bias, mask, g16, heads)):
+        assert bf16_ulp_excess(x, y) <= 0
+        assert bf16_ulp_excess(c, y) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,n,heads,d,nw", EDGE_SHAPES)
+def test_window_attention_bf16_kernels_at_edge_shapes(cuda, w, n, heads, d,
+                                                      nw):
+    qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=n * 100 + d)
+    q16, g16 = qkv.bfloat16(), k3_grad(w, n, heads, d, cuda).bfloat16()
+    before = dict(launch_counts)
+    got = fused_window_attention(q16, bias, mask, heads)
+    dq, _ = window_attention_bwd(q16, bias, mask, g16, heads)
+    torch.cuda.synchronize()
+    for key in ("window_attention", "window_attention_bwd"):
+        assert launch_counts[f"{key}.bf16"] == before.get(
+            f"{key}.bf16", 0) + 1
+    _bf16_elementwise(got, attention_core_reference(q16, bias, mask, heads))
+    _bf16_elementwise(dq, window_attention_bwd_reference(
+        q16, bias, mask, g16, heads)[0])
+    _bf16_dbias_close(q16, bias, mask, g16, heads)
+
+
+@pytest.mark.cuda
+def test_window_attention_bwd_bf16_kernel_is_deterministic(cuda):
+    """Two bf16 launches on the same inputs (stage 0's shifted block) agree
+    bit for bit, dbias included (bf16 for a bf16 bias, f32 for an f32)."""
+    w, n, heads, d, nw = 2048, 196, 3, 32, 16
+    qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=5)
+    q16, g16 = qkv.bfloat16(), k3_grad(w, n, heads, d, cuda).bfloat16()
+    for b in (bias, bias.bfloat16()):
+        first = window_attention_bwd(q16, b, mask, g16, heads)
+        again = window_attention_bwd(q16, b, mask, g16, heads)
+        torch.cuda.synchronize()
+        for x, y in zip(first, again):
+            assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
 
 
 @pytest.mark.cuda
@@ -908,7 +993,9 @@ def test_window_attention_bf16_at_the_extraction_shapes(cuda, w, n, heads, d,
     torch.cuda.synchronize()
     assert launch_counts["window_attention.bf16"] == before.get(
         "window_attention.bf16", 0) + 1
-    _bf16_close(got, attention_core_reference(q16, b16, mask, heads))
+    want = attention_core_reference(q16, b16, mask, heads)
+    _bf16_close(got, want)
+    _bf16_elementwise(got, want)
 
 
 # the eight export_model entries at tests/test_torch_export.py's small
