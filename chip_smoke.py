@@ -367,7 +367,8 @@ from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
     launch_info as framed_conv_launch_info)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.window_attention import (
     attention_core_reference, fused_window_attention, launch_info,
-    window_attention_bwd, window_attention_bwd_reference)
+    window_attention_bwd, window_attention_bwd_reference,
+    window_attention_fwd)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.roll import (
     circular_roll, roll, roll_reference)
 from multimodalaggressionrecognition_tpu_torch.ops.resample import (
@@ -957,15 +958,47 @@ def k2_inputs(w, n, heads, d, nw, seed, stage_mask=False, window=(4, 7, 7),
     return qkv, bias, mask
 
 
-def k2_work(w, n, heads, d, nw):
+def k2_work(w, n, heads, d, nw, lse=False):
     """(operations, bytes, products) of one launch: two N x N x d products
     per window and head, f32*f32; qkv, bias and mask read once, the output
-    written once."""
+    (and with `lse` the rows' logsumexp) written once."""
     c = heads * d
     flops = 4 * w * heads * n * n * d
     return (flops,
-            4 * (w * n * 3 * c + heads * n * n + nw * n * n + w * n * c),
+            4 * (w * n * 3 * c + heads * n * n + nw * n * n + w * n * c
+                 + (w * heads * n if lse else 0)),
             [(flops, "f32*f32")])
+
+
+def bitwise_equal(x, y):
+    return x.shape == y.shape and torch.equal(x.view(torch.uint8),
+                                              y.view(torch.uint8))
+
+
+# K2's lse against the plain version's: LSE_TOL plus LSE_RTOL of its
+# magnitude (a row whose keys the -100 mask all hides has lse ~ -100, ~ -144
+# in base 2, where f32's own spacing is 1.5e-5)
+LSE_TOL, LSE_RTOL = 1e-5, 1e-6
+
+
+def k2_lse_check(label, qkv, bias, mask, heads, out):
+    """K2 with the rows' logsumexp (window_attention_fwd) against the
+    launch without it and the plain version: its output bit for bit
+    `out`, its lse within LSE_TOL + LSE_RTOL |lse| of the plain version's
+    in the instantiation's base (e for f32, 2 for bf16).  Returns lse's
+    max abs error."""
+    got, lse = window_attention_fwd(qkv, bias, mask, heads)
+    torch.cuda.synchronize()
+    if not bitwise_equal(got, out):
+        raise AssertionError(f"{label}: the output with lse differs from the "
+                             "output without it")
+    want = attention_core_reference(qkv, bias, mask, heads, with_lse=True)[1]
+    err = (lse - want).abs()
+    excess = (err - LSE_TOL - LSE_RTOL * want.abs()).max().item()
+    if lse.dtype != torch.float32 or not excess <= 0:
+        raise AssertionError(f"{label}: lse {lse.dtype}, an element "
+                             f"{excess:.3e} past {LSE_TOL} + {LSE_RTOL} |lse|")
+    return err.max().item()
 
 
 def sdpa_args(qkv, bias, mask, heads):
@@ -982,9 +1015,10 @@ def sdpa_args(qkv, bias, mask, heads):
 
 
 def k2_phase(card: str):
-    """K2 against its plain version at every shape; at stage 0's shifted
-    block the kernel, plain and SDPA times; the kernel's time per stage."""
-    worst = 0.0
+    """K2 against its plain version at every shape, and with the rows'
+    logsumexp (k2_lse_check); at stage 0's shifted block the kernel, plain
+    and SDPA times; the kernel's time per stage."""
+    worst, worst_lse = 0.0, 0.0
     shapes = ([(f"test-{w}x{n}-d{d}", w, n, h, d, nw, 1e-5, False)
                for w, n, h, d, nw in K2_TEST_SHAPES]
               + [(f"edge-N{n}-d{d}-nW{nw}", w, n, h, d, nw, 1e-4, False)
@@ -1000,8 +1034,11 @@ def k2_phase(card: str):
         err = (got - ref).abs().max().item()
         torch.testing.assert_close(got, ref, atol=tol, rtol=tol)
         worst = max(worst, err)
+        lse_err = k2_lse_check(f"k2 {name}", qkv, bias, mask, heads, got)
+        worst_lse = max(worst_lse, lse_err)
         log(f"k2 {name}: W={w} N={n} heads={heads} d={d} nW_img={nw} "
-            f"out={tuple(got.shape)} max_abs_err={err:.3e} <= {tol:g} ok")
+            f"out={tuple(got.shape)} max_abs_err={err:.3e} <= {tol:g}; with "
+            f"lse the same bit for bit, lse {lse_err:.3e} ok")
 
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -1026,7 +1063,9 @@ def k2_phase(card: str):
         if name == "stage0-shifted":
             main = {**times, "bound_ms": bd["bound_ms"],
                     "bound_by": bd["bound_by"],
-                    "fma_bound_ms": bd["fma_bound_ms"]}
+                    "fma_bound_ms": bd["fma_bound_ms"],
+                    "lse_bound_ms": bound(card, *k2_work(
+                        w, n, heads, d, nw, lse=True))["bound_ms"]}
         per_stage[name] = times["ms"]
         fwd_ms += launches * times["ms"]
         fwd_bound += launches * bd["bound_ms"]
@@ -1057,7 +1096,8 @@ def k2_phase(card: str):
     except RuntimeError:
         backend = "another kernel than the memory-efficient one"
     log(f"k2 SDPA at {name}: {backend}, max |d| vs plain {lib_err:.3e}")
-    return {"max_abs_err": worst, **main, "ms_by_stage": per_stage,
+    return {"max_abs_err": worst, "lse_max_abs_err": worst_lse, **main,
+            "ms_by_stage": per_stage,
             "forward_ms": fwd_ms, "forward_bound_ms": fwd_bound,
             "forward_fma_bound_ms": fwd_fma}
 
@@ -1065,13 +1105,13 @@ def k2_phase(card: str):
 def k3_work(w, n, heads, d, nw):
     """(operations, bytes, products) of one backward launch, by the JAX
     kernel's own count: five N x N x d products per window and head,
-    f32*f32; qkv, g, bias and mask read once, dqkv and dbias written
-    once."""
+    f32*f32; qkv, g, bias, mask, and K2's output and lse read once, dqkv
+    and dbias written once."""
     c = heads * d
     flops = 10 * w * heads * n * n * d
     return (flops,
             4 * (2 * w * n * 3 * c + 2 * heads * n * n + nw * n * n
-                 + w * n * c),
+                 + w * n * c + w * n * c + w * heads * n),
             [(flops, "f32*f32")])
 
 
@@ -1081,6 +1121,22 @@ def k3_inputs(w, n, heads, d, nw, seed, stage_mask=False):
                     generator=torch.Generator(device=DEVICE).manual_seed(
                         seed + 1))
     return qkv, bias, mask, g
+
+
+def with_fwd(qkv, bias, mask, g, heads):
+    """K3's inputs (qkv, bias, mask, g, lse, out), lse and the output from
+    K2 (window_attention_fwd) on the same qkv, bias and mask."""
+    out, lse = window_attention_fwd(qkv, bias, mask, heads)
+    return qkv, bias, mask, g, lse, out
+
+
+def plain_bwd(qkv, bias, mask, g, heads, **route):
+    """The plain backward on the plain forward's own lse and output: K3,
+    fed K2's, is held to it, so the two sides share only qkv, bias, mask
+    and g (an lse written in one base and read in the other shows)."""
+    out, lse = attention_core_reference(qkv, bias, mask, heads, with_lse=True)
+    return window_attention_bwd_reference(qkv, bias, mask, g, heads, lse, out,
+                                          **route)
 
 
 def sdpa_backward(qkv, bias, mask, g, heads):
@@ -1111,14 +1167,19 @@ def k3_phase(card: str):
               + [(name, w, n, h, d, nw, True, True)
                  for name, w, n, h, d, nw, _ in K2_STAGES])
     for name, w, n, heads, d, nw, stage, relative in shapes:
-        qkv, bias, mask, g = k3_inputs(w, n, heads, d, nw, seed=n + d,
-                                       stage_mask=stage)
-        got = window_attention_bwd(qkv, bias, mask, g, heads)
+        qkv, bias, mask, g, lse, out = with_fwd(*k3_inputs(
+            w, n, heads, d, nw, seed=n + d, stage_mask=stage), heads)
+        got = window_attention_bwd(qkv, bias, mask, g, heads, lse, out)
         torch.cuda.synchronize()
-        want = window_attention_bwd_reference(qkv, bias, mask, g, heads)
+        want = plain_bwd(qkv, bias, mask, g, heads)
         errs = []
         for part, x, y in zip(("dqkv", "dbias"), got, want):
-            tol = 1e-4 * (y.abs().max().item() if relative else 1.0)
+            # at N = 1 the one key has p = 1, so dS = dP - D and dbias are
+            # 0 in exact arithmetic: each side returns only its rounding of
+            # dP - D (D = g . o against dP on the tensor cores), and dbias
+            # is held to the call's largest gradient, dqkv's, instead
+            ref = want[0] if part == "dbias" and n == 1 else y
+            tol = 1e-4 * (ref.abs().max().item() if relative else 1.0)
             err = (x - y).abs().max().item()
             if not err <= tol:
                 raise AssertionError(f"k3 {name} {part}: max |d| {err:.3e} "
@@ -1130,29 +1191,30 @@ def k3_phase(card: str):
 
     # deterministic: two launches on the same inputs agree bit for bit
     name, w, n, heads, d, nw, _ = K2_STAGES[0]
-    args = k3_inputs(w, n, heads, d, nw, seed=5, stage_mask=True)
-    first = window_attention_bwd(*args, heads)
-    again = window_attention_bwd(*args, heads)
+    q, b, m, g, lse, out = with_fwd(*k3_inputs(w, n, heads, d, nw, seed=5,
+                                               stage_mask=True), heads)
+    first = window_attention_bwd(q, b, m, g, heads, lse, out)
+    again = window_attention_bwd(q, b, m, g, heads, lse, out)
     torch.cuda.synchronize()
     for part, x, y in zip(("dqkv", "dbias"), first, again):
         if not torch.equal(x, y):
             raise AssertionError(f"k3 {name}: two launches differ in {part} "
                                  f"(max |d| {(x - y).abs().max().item():.3e})")
     log(f"k3 {name}: two launches bitwise equal (dqkv, dbias) ok")
-    del args, first, again
+    del q, b, m, g, lse, out, first, again
 
     main, per_stage, step_ms, step_bound, step_fma = {}, {}, 0.0, 0.0, 0.0
     for name, w, n, heads, d, nw, launches in K2_STAGES:
         def make(i):
             return k3_inputs(w, n, heads, d, nw, seed=17 + i, stage_mask=True)
 
-        call = rotating(make)
-        fns = {"ms": call(lambda q, b, m, g: window_attention_bwd(
-            q, b, m, g, heads))}
+        call = rotating(lambda i: with_fwd(*make(i), heads))
+        fns = {"ms": call(lambda q, b, m, g, lse, o: window_attention_bwd(
+            q, b, m, g, heads, lse, o))}
         if name == "stage0-shifted":
-            fns["plain_ms"] = call(lambda q, b, m, g:
+            fns["plain_ms"] = call(lambda q, b, m, g, lse, o:
                                    window_attention_bwd_reference(
-                                       q, b, m, g, heads))
+                                       q, b, m, g, heads, lse, o))
             fns["library_ms"] = rotating(
                 lambda i: (sdpa_backward(*make(i), heads),))(lambda f: f())
         times = in_turns(fns, reps=10)
@@ -1265,26 +1327,28 @@ def p_rounded_reference(qkv, bias, mask, g, heads):
     return out.to(BF16), dqkv.to(BF16)
 
 
-def k2_work_bf16(w, n, heads, d, nw):
-    """k2_work with qkv and the output in bf16 (bias and mask read as f32),
+def k2_work_bf16(w, n, heads, d, nw, lse=False):
+    """k2_work with qkv and the output in bf16 (bias, mask and lse as f32),
     and its products by operand type: Q.K^T is bf16*bf16, P.V (P the f32
     probabilities) f32*bf16."""
     c = heads * d
     one = 2 * w * heads * n * n * d
     return (2 * one,
-            2 * (w * n * 3 * c + w * n * c) + 4 * (heads * n * n + nw * n * n),
+            2 * (w * n * 3 * c + w * n * c) + 4 * (heads * n * n + nw * n * n)
+            + (4 * w * heads * n if lse else 0),
             [(one, "bf16*bf16"), (one, "f32*bf16")])
 
 
 def k3_work_bf16(w, n, heads, d, nw):
-    """k3_work with qkv, g and dqkv in bf16 (bias, mask, dbias as f32), and
-    its products by operand type: Q.K^T and g.V^T are bf16*bf16; P^T.g,
-    dS.K and dS^T.Q (P, dS f32) f32*bf16."""
+    """k3_work with qkv, g and dqkv in bf16 (bias, mask, dbias and K2's lse
+    as f32; K2's output is not read), and its products by operand type:
+    Q.K^T and g.V^T are bf16*bf16; P^T.g, dS.K and dS^T.Q (P, dS f32)
+    f32*bf16."""
     c = heads * d
     one = 2 * w * heads * n * n * d
     return (5 * one,
             2 * (2 * w * n * 3 * c + w * n * c)
-            + 4 * (2 * heads * n * n + nw * n * n),
+            + 4 * (2 * heads * n * n + nw * n * n + w * heads * n),
             [(2 * one, "bf16*bf16"), (3 * one, "f32*bf16")])
 
 
@@ -1315,9 +1379,13 @@ def bf16_kernel_phase(card: str):
     and warm (K2, K3 back to back; K4 in CUDA graphs), against the bound
     with bf16 bytes.  K2's and K3's bf16 results are also held element by
     element (bf16_elementwise_check; dbias in f32 for an f32 bias within
-    1e-4 of its largest), a p-rounded plain version is shown to fail that
-    check, and K2's cold time is taken with and without the mask (the
-    bias and mask reads through L2)."""
+    1e-4 of its largest), a p-rounded plain version and a backward taking
+    D from the bf16-rounded output (D = g . o, the f32 route) are shown to
+    fail that check, K2 with lse is held by k2_lse_check, K3 bit for bit
+    over two launches, and K2's cold time is taken with and without the
+    mask (the bias and mask reads through L2) and with and without lse.
+    K3 reads the lse of K2's bf16 launch (base 2), as the train step
+    does."""
     name, w, n, heads, d, nw, _ = K2_STAGES[0]
     bf = torch.bfloat16
 
@@ -1330,33 +1398,38 @@ def bf16_kernel_phase(card: str):
     out = {}
     err_f32 = 0.0
     q32, b32, g32 = q16.float(), b16.float(), g16.float()
+    o32, lse32 = window_attention_fwd(q32, b32, mask, heads)
     for label, got, want in (
             ("k2 f32", fused_window_attention(q32, b32, mask, heads),
              attention_core_reference(q32, b32, mask, heads)),
             ("k3 f32 dqkv", window_attention_bwd(q32, b32, mask, g32,
-                                                 heads)[0],
-             window_attention_bwd_reference(q32, b32, mask, g32, heads)[0])):
+                                                 heads, lse32, o32)[0],
+             plain_bwd(q32, b32, mask, g32, heads)[0])):
         e = ((got - want).abs().max() / want.abs().max()).item()
         if not e <= 1e-3:
             raise AssertionError(f"{label} {name}: {e:.3e} > 1e-3")
         err_f32 = max(err_f32, e)
-    del q32, b32, g32
-    errs = {
-        "k2": bf16_check("k2 bf16", fused_window_attention(q16, b16, mask,
-                                                           heads),
-                         attention_core_reference(q16, b16, mask, heads))}
-    got = window_attention_bwd(q16, b16, mask, g16, heads)
-    want = window_attention_bwd_reference(q16, b16, mask, g16, heads)
+    del q32, b32, g32, o32, lse32
+    o16 = fused_window_attention(q16, b16, mask, heads)
+    lse_err = k2_lse_check("k2 bf16", q16, b16, mask, heads, o16)
+    lse16 = window_attention_fwd(q16, b16, mask, heads)[1]
+    errs = {"k2": bf16_check("k2 bf16", o16, attention_core_reference(
+        q16, b16, mask, heads))}
+    got = window_attention_bwd(q16, b16, mask, g16, heads, lse16)
+    again = window_attention_bwd(q16, b16, mask, g16, heads, lse16)
+    want = plain_bwd(q16, b16, mask, g16, heads)
+    torch.cuda.synchronize()
+    if not all(bitwise_equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError("k3 bf16: two launches differ")
     errs["k3"] = max(bf16_check(f"k3 bf16 {part}", x, y) for part, x, y in
                      zip(("dqkv", "dbias"), got, want))
     excess = {"k2": bf16_elementwise_check(
-                  "k2 bf16", fused_window_attention(q16, b16, mask, heads),
+                  "k2 bf16", o16,
                   attention_core_reference(q16, b16, mask, heads)),
               "k3": bf16_elementwise_check("k3 bf16 dqkv", got[0], want[0])}
     # dbias stays f32 for an f32 bias: 1e-4 of its largest, as K3 f32
-    db = window_attention_bwd(q16, b16.float(), mask, g16, heads)[1]
-    want_db = window_attention_bwd_reference(q16, b16.float(), mask, g16,
-                                             heads)[1]
+    db = window_attention_bwd(q16, b16.float(), mask, g16, heads, lse16)[1]
+    want_db = plain_bwd(q16, b16.float(), mask, g16, heads)[1]
     db_err = ((db - want_db).abs().max() / want_db.abs().max()).item()
     if db.dtype != torch.float32 or not db_err <= 1e-4:
         raise AssertionError(f"k3 bf16 dbias (f32 bias): {db.dtype}, "
@@ -1364,20 +1437,28 @@ def bf16_kernel_phase(card: str):
     control = [bf16_ulp_excess(x, y) for x, y in zip(
         p_rounded_reference(q16, b16, mask, g16, heads),
         (attention_core_reference(q16, b16, mask, heads), want[0]))]
+    # D = g . o from the stored bf16 output, where f32 takes it
+    control.append(bf16_ulp_excess(plain_bwd(q16, b16, mask, g16, heads,
+                                             same_sweep=False)[0], want[0]))
     if not min(control) > 0:
         raise AssertionError(f"bf16 element-wise check passes p rounded to "
-                             f"bf16 (excess {control})")
+                             f"bf16 or D from the bf16 output (excess "
+                             f"{control})")
     log(f"bf16 k2/k3 {name}: W={w} N={n} heads={heads} d={d} nW={nw}, "
         f"bf16 in and out: k2 {errs['k2']:.3e}, k3 {errs['k3']:.3e} of the "
         f"largest <= {BF16_TOL}; element by element within one bf16 ulp + "
         f"{BF16_ULP_SLACK} (k2 excess {excess['k2']:.3e}, k3 dqkv "
         f"{excess['k3']:.3e} <= 0), k3 dbias (f32 bias) {db_err:.3e} of the "
         f"largest <= 1e-4; p rounded to bf16 fails that check (excess k2 "
-        f"{control[0]:.3e}, k3 {control[1]:.3e}); the same inputs in f32 "
-        f"within {err_f32:.3e} <= 1e-3 ok")
-    del got, want, db, want_db
+        f"{control[0]:.3e}, k3 {control[1]:.3e}), and so does D from the "
+        f"bf16 output (k3 {control[2]:.3e}); k2 with lse the same bit for "
+        f"bit, lse {lse_err:.3e} (base 2); k3 bit for bit over "
+        f"two launches; the same inputs in f32 within {err_f32:.3e} <= 1e-3 "
+        f"ok")
+    del got, again, want, db, want_db, o16, lse16
 
     call = rotating(make)
+    call3 = rotating(lambda i: with_fwd(*make(i), heads))
     works = {"k2": k2_work_bf16(w, n, heads, d, nw),
              "k3": k3_work_bf16(w, n, heads, d, nw)}
     fns = {
@@ -1388,11 +1469,11 @@ def bf16_kernel_phase(card: str):
                # yardstick only: the one PyTorch call for the same function
                "library_ms": rotating(lambda i: sdpa_args_bf16(
                    *make(i)[:3], heads))(sdpa)},
-        "k3": {"ms": call(lambda q, b, m, g: window_attention_bwd(
-                   q, b, m, g, heads)),
-               "plain_ms": call(lambda q, b, m, g:
-                                window_attention_bwd_reference(
-                                    q, b, m, g, heads)),
+        "k3": {"ms": call3(lambda q, b, m, g, lse, o: window_attention_bwd(
+                   q, b, m, g, heads, lse)),
+               "plain_ms": call3(lambda q, b, m, g, lse, o:
+                                 window_attention_bwd_reference(
+                                     q, b, m, g, heads, lse)),
                "library_ms": rotating(lambda i: (sdpa_backward_bf16(
                    *make(i), heads),))(lambda f: f())}}
     labels = {"ms": "kernel", "plain_ms": "plain", "library_ms": "library"}
@@ -1409,8 +1490,12 @@ def bf16_kernel_phase(card: str):
         out[key] = {**cold, "warm": warm, "bound_ms": bd["bound_ms"],
                     "bound_by": bd["bound_by"], "max_abs_err": errs[key],
                     "ulp_excess": excess[key], "shape": [w, n, heads, d, nw]}
+    out["k2"]["lse_bound_ms"] = bound(card, *k2_work_bf16(
+        w, n, heads, d, nw, lse=True))["bound_ms"]
+    out["k2"]["lse_max_abs_err"] = lse_err
     out["k3"]["dbias_f32_rel_err"] = db_err
-    out["k2"]["p_rounded_excess"], out["k3"]["p_rounded_excess"] = control
+    (out["k2"]["p_rounded_excess"], out["k3"]["p_rounded_excess"],
+     out["k3"]["d_from_bf16_output_excess"]) = control
     # the mask's share: the same kernel on the same windows without it
     unmasked = rotating(lambda i: make(i)[:2])
     masks = in_turns({
@@ -1422,7 +1507,31 @@ def bf16_kernel_phase(card: str):
     out["k2"]["unmasked_ms"] = masks["unmasked"]
     log(f"bf16 k2 {name} with and without the mask (cold) on {card}: "
         f"{masks['masked']:.4f} / {masks['unmasked']:.4f} ms")
-    del call, fns, unmasked
+    del call, call3, fns, unmasked
+    # what writing lse costs K2 (the train step's launch against the served
+    # one), in both instantiations: cold, in turns
+    out["k2"]["lse_cost"] = {}
+    for dtype in (torch.float32, bf):
+        def make_fwd(i, dtype=dtype):
+            q, b, m, _ = make(i)
+            return q.to(dtype), b, m
+
+        call = rotating(make_fwd)
+        fns = {"without": call(lambda q, b, m: fused_window_attention(
+                   q, b, m, heads)),
+               "with": call(lambda q, b, m: window_attention_fwd(q, b, m,
+                                                                 heads))}
+        key = "bf16" if dtype == bf else "f32"
+        # cold as the step finds its inputs; warm in CUDA graphs, where
+        # the host's dispatch of either call cannot reach the timing
+        cost = {"cold": in_turns(fns, reps=40, timer=cold_ms),
+                "graph": in_turns(fns, reps=20, timer=graph_ms)}
+        out["k2"]["lse_cost"][key] = cost
+        log(f"k2 {key} {name} with and without lse on {card}: "
+            + "; ".join(f"{label} {t['with']:.4f} / {t['without']:.4f} ms "
+                        f"({(t['with'] / t['without'] - 1) * 100:+.2f} %)"
+                        for label, t in cost.items()))
+        del call, fns
 
     shape = K4_STAGES["stage0"]
     g = torch.Generator(device=DEVICE).manual_seed(SEED + 12)
@@ -1991,6 +2100,8 @@ def train_phase(card_line):
                                                    timing, card_line)
     busy = sum(families.values())
     (on_ms, on_gb), (off_ms, off_gb) = timing[True], timing[False]
+    attention = attention_family_ms(families, on_ms,
+                                    "train step (remat on)")
     log(f"train step b8 (audio,text,video, 128 frames at 112 px) on "
         f"{card_line}: median {on_ms:.3f} ms, peak {on_gb:.2f} GiB with "
         f"remat; {off_ms:.3f} ms, peak {off_gb:.2f} GiB without")
@@ -2005,7 +2116,7 @@ def train_phase(card_line):
                     "step_ms_remat": on_ms, "step_ms_no_remat": off_ms,
                     "peak_gib_remat": on_gb, "peak_gib_no_remat": off_gb,
                     "epoch_clips_per_s": clips_s,
-                    "kernel_ms_by_family": families,
+                    "kernel_ms_by_family": families, **attention,
                     "kernel_busy_pct": busy / on_ms * 100,
                     **parity}))
     return counts, scored

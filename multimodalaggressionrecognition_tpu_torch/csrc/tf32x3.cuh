@@ -220,11 +220,11 @@ __device__ __forceinline__ FragB load_b_pairs(const float* tile, int k0,
                  p[D + (n0 ^ (s1 & ~7)) + (g ^ (s1 & 7))]);
 }
 
-// A operand from device memory: rows a and b (g and g+8 of
-// the tile) of a row-major matrix, columns c0 .. c0+7, times mul
-template <typename T>
-__device__ __forceinline__ FragA load_a_rows(const T* row_a, const T* row_b,
-                                             int c0, int lane, float mul) {
+// A operand from device memory: rows a and b (g and g+8 of the tile) of a
+// row-major matrix, columns c0 .. c0+7, times mul
+__device__ __forceinline__ FragA load_a_rows(const float* row_a,
+                                             const float* row_b, int c0,
+                                             int lane, float mul) {
   const int t = lane & 3;
   return split_a(ldf(row_a + c0 + t) * mul, ldf(row_b + c0 + t) * mul,
                  ldf(row_a + c0 + t + 4) * mul,
@@ -283,11 +283,10 @@ __device__ __forceinline__ int at2(int r, int c) {
 }
 
 // Rows [0, n) of a D-wide f32 slice (row j at src + j * stride, 16-byte
-// aligned), times mul, split into a split
-// tile; rows [n, rows) zero.  Every thread of the block takes its share; the
-// caller synchronizes.
-template <int D, typename T>
-__device__ __forceinline__ void stage_split(float2* tile, const T* src,
+// aligned), times mul, split into a split tile; rows [n, rows) zero.  Every
+// thread of the block takes its share; the caller synchronizes.
+template <int D>
+__device__ __forceinline__ void stage_split(float2* tile, const float* src,
                                             int64_t stride, int n, int rows,
                                             float mul) {
   constexpr int CH = D / 4;

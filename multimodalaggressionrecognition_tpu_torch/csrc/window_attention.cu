@@ -20,7 +20,12 @@
 // numbers to f32 accuracy without widening: q.k^T of bf16 operands is exact
 // products summed in f32, and p.v takes p as two bf16 pieces (bf16mma.cuh);
 // only the output is rounded.  The (W, heads, N, N) score tensor never
-// reaches device memory.
+// reaches device memory.  On the training path the kernel also writes each
+// row's logsumexp, lse (W, heads, N) f32, from the running max and sum it
+// already keeps (base e in f32, base 2 in bf16, where the scores are kept
+// in base 2), so that the backward (K3) rebuilds p = exp(s - lse) without a
+// sweep of its own to find them; 4*W*heads*N bytes more (4.8 MB at stage
+// 0), and the output is the same bit for bit with and without it.
 //
 // Bound.  At Swin3D-T's stage 0 served at batch 8 (W=2048 windows of
 // N=196 tokens, C=96, 3 heads, d=32, shifted mask nW=16) one launch does
@@ -100,11 +105,12 @@ size_t smem_bytes(int n, int d) {
   return sizeof(float) * 2 * static_cast<size_t>(keys_padded(n)) * d;
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 3)
-window_attention_kernel(const T* __restrict__ qkv,
+window_attention_kernel(const float* __restrict__ qkv,
                         const float* __restrict__ bias,
-                        const float* __restrict__ mask, T* __restrict__ out,
+                        const float* __restrict__ mask,
+                        float* __restrict__ out, float* __restrict__ lse,
                         int N, int heads, int nw_img, float scale) {
   constexpr int KT = D / 8;  // k-steps of q.k, n-tiles of p.v
   extern __shared__ __align__(16) float smem[];
@@ -116,7 +122,7 @@ window_attention_kernel(const T* __restrict__ qkv,
   const int64_t C3 = 3 * static_cast<int64_t>(C);
   const int64_t w = blockIdx.x / heads;
   const int h = blockIdx.x % heads;
-  const T* win = qkv + w * N * C3 + h * D;
+  const float* win = qkv + w * N * C3 + h * D;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -195,13 +201,20 @@ window_attention_kernel(const T* __restrict__ qkv,
           mma3(o[nt], pa, load_b_pairs<D>(vs, j0 + 8 * u, nt * 8, lane));
       }
     }
-    const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
-    T* oa = out + (w * N + r0 + g) * C + h * D + 2 * t;
-    T* ob = oa + 8 * C;
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    float* oa = out + (w * N + r0 + g) * C + h * D + 2 * t;
+    float* ob = oa + 8 * C;
 #pragma unroll
     for (int nt = 0; nt < KT; ++nt) {
       if (r0 + g < N) st2(oa + nt * 8, o[nt][0] * inv0, o[nt][1] * inv0);
       if (r0 + g + 8 < N) st2(ob + nt * 8, o[nt][2] * inv1, o[nt][3] * inv1);
+    }
+    if (lse && t == 0) {  // the rows' logsumexp, base e, for K3
+      float* la = lse + (w * heads + h) * N + r0 + g;
+      if (r0 + g < N) la[0] = m0 + __logf(l0);
+      if (r0 + g + 8 < N) la[8] = m1 + __logf(l1);
     }
   }
 }
@@ -209,21 +222,20 @@ window_attention_kernel(const T* __restrict__ qkv,
 template <int D>
 cudaError_t raise_smem_limit() {
   // per call, so that it holds on whichever device is current
-  return cudaFuncSetAttribute(window_attention_kernel<D, float>,
+  return cudaFuncSetAttribute(window_attention_kernel<D>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem_bytes(MAX_N, D)));
 }
 
 template <int D>
 int launch(const float* qkv, const float* bias, const float* mask,
-           float* out, int W, int N, int heads, int nw_img, float scale,
-           cudaStream_t stream) {
+           float* out, float* lse, int W, int N, int heads, int nw_img,
+           float scale, cudaStream_t stream) {
   const cudaError_t err = raise_smem_limit<D>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>(W) * static_cast<unsigned>(heads);
-  window_attention_kernel<D, float><<<blocks, THREADS, smem_bytes(N, D),
-                                      stream>>>(qkv, bias, mask, out, N,
-                                                heads, nw_img, scale);
+  window_attention_kernel<D><<<blocks, THREADS, smem_bytes(N, D), stream>>>(
+      qkv, bias, mask, out, lse, N, heads, nw_img, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -232,7 +244,7 @@ int info(int N, int* out) {
   cudaError_t err = raise_smem_limit<D>();
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[2], window_attention_kernel<D, float>, THREADS, smem_bytes(N, D));
+        &out[2], window_attention_kernel<D>, THREADS, smem_bytes(N, D));
   out[0] = THREADS;
   out[1] = static_cast<int>(smem_bytes(N, D));
   return static_cast<int>(err);
@@ -269,8 +281,8 @@ __global__ void __launch_bounds__(THREADS, JT == 2 ? 4 : 3)
 window_attention_bf16_kernel(const bf16* __restrict__ qkv,
                              const float* __restrict__ bias,
                              const float* __restrict__ mask,
-                             bf16* __restrict__ out, int N, int heads,
-                             int nw_img, float scale) {
+                             bf16* __restrict__ out, float* __restrict__ lse,
+                             int N, int heads, int nw_img, float scale) {
   static_assert(JT % 2 == 0, "p.v's A fragments are pairs of 8-key tiles");
   constexpr int KC = D / 8;  // 8-wide chunks of d: the n-tiles of p.v
   constexpr int STEP = 8 * JT;
@@ -367,13 +379,20 @@ window_attention_bf16_kernel(const bf16* __restrict__ qkv,
           mma_pieces(o[nt], hi, lo, vb[nt][0], vb[nt][1]);
       }
     }
-    const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
     bf16* oa = out + (w * N + r0 + g) * C + h * D + 2 * t;
     bf16* ob = oa + 8 * C;
 #pragma unroll
     for (int nt = 0; nt < KC; ++nt) {
       if (r0 + g < N) st2(oa + nt * 8, o[nt][0] * inv0, o[nt][1] * inv0);
       if (r0 + g + 8 < N) st2(ob + nt * 8, o[nt][2] * inv1, o[nt][3] * inv1);
+    }
+    if (lse && t == 0) {  // the rows' logsumexp, base 2 (as m is), for K3
+      float* la = lse + (w * heads + h) * N + r0 + g;
+      if (r0 + g < N) la[0] = m0 + __log2f(l0);
+      if (r0 + g + 8 < N) la[8] = m1 + __log2f(l1);
     }
   }
 }
@@ -388,25 +407,25 @@ cudaError_t raise_smem_limit() {
 
 template <int D, int JT>
 int launch_jt(const bf16* qkv, const float* bias, const float* mask,
-              bf16* out, int W, int N, int heads, int nw_img, float scale,
-              cudaStream_t stream) {
+              bf16* out, float* lse, int W, int N, int heads, int nw_img,
+              float scale, cudaStream_t stream) {
   const cudaError_t err = raise_smem_limit<D, JT>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned blocks = static_cast<unsigned>(W) * static_cast<unsigned>(heads);
   window_attention_bf16_kernel<D, JT><<<blocks, THREADS, smem_bytes(N, D),
-                                        stream>>>(qkv, bias, mask, out, N,
-                                                  heads, nw_img, scale);
+                                        stream>>>(qkv, bias, mask, out, lse,
+                                                  N, heads, nw_img, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
 int launch(const bf16* qkv, const float* bias, const float* mask, bf16* out,
-           int W, int N, int heads, int nw_img, float scale,
+           float* lse, int W, int N, int heads, int nw_img, float scale,
            cudaStream_t stream) {
-  return jt_for(N) == 2 ? launch_jt<D, 2>(qkv, bias, mask, out, W, N, heads,
-                                          nw_img, scale, stream)
-                        : launch_jt<D, 4>(qkv, bias, mask, out, W, N, heads,
-                                          nw_img, scale, stream);
+  return jt_for(N) == 2 ? launch_jt<D, 2>(qkv, bias, mask, out, lse, W, N,
+                                          heads, nw_img, scale, stream)
+                        : launch_jt<D, 4>(qkv, bias, mask, out, lse, W, N,
+                                          heads, nw_img, scale, stream);
 }
 
 template <int D, int JT>
@@ -453,35 +472,40 @@ bool valid(int W, int N, int heads, const void* mask, int nw_img) {
 // Launch on `stream`; return a cudaError_t (0 = launched).  qkv and out are
 // f32 (window_attention_f32) or bf16 (window_attention_bf16), bias and mask
 // f32.  `mask` may be null (no shifted-window mask; `nw_img` is then
-// ignored).  The caller checks dtypes, contiguity, 16-byte alignment,
-// W % nw_img == 0 and W * heads < 2**31; the shapes the kernel does not take
-// (d not 8, 16 or 32; N outside 1..392) return cudaErrorInvalidValue.
+// ignored).  `lse` may be null; otherwise it gets each row's logsumexp of
+// its scores, (W, heads, N) f32, for the backward (K3): in base e from
+// window_attention_f32, in base 2 (log2 of the sum of 2^(s log2e)) from
+// window_attention_bf16.  `out` is the same with and without it.  The
+// caller checks dtypes, contiguity, 16-byte alignment, W % nw_img == 0 and
+// W * heads < 2**31; the shapes the kernel does not take (d not 8, 16 or
+// 32; N outside 1..392) return cudaErrorInvalidValue.
 extern "C" int window_attention_f32(const void* qkv, const void* bias,
-                                    const void* mask, void* out, int W, int N,
-                                    int heads, int d, int nw_img, float scale,
-                                    void* stream) {
+                                    const void* mask, void* out, void* lse,
+                                    int W, int N, int heads, int d,
+                                    int nw_img, float scale, void* stream) {
   if (!valid(W, N, heads, mask, nw_img))
     return static_cast<int>(cudaErrorInvalidValue);
   return with_head_dim(d, [&](auto D) {
     return f32path::launch<decltype(D)::value>(
         static_cast<const float*>(qkv), static_cast<const float*>(bias),
-        static_cast<const float*>(mask), static_cast<float*>(out), W, N,
-        heads, nw_img, scale, static_cast<cudaStream_t>(stream));
+        static_cast<const float*>(mask), static_cast<float*>(out),
+        static_cast<float*>(lse), W, N, heads, nw_img, scale,
+        static_cast<cudaStream_t>(stream));
   });
 }
 
 extern "C" int window_attention_bf16(const void* qkv, const void* bias,
-                                     const void* mask, void* out, int W,
-                                     int N, int heads, int d, int nw_img,
-                                     float scale, void* stream) {
+                                     const void* mask, void* out, void* lse,
+                                     int W, int N, int heads, int d,
+                                     int nw_img, float scale, void* stream) {
   if (!valid(W, N, heads, mask, nw_img))
     return static_cast<int>(cudaErrorInvalidValue);
   return with_head_dim(d, [&](auto D) {
     return bf16path::launch<decltype(D)::value>(
         static_cast<const bf16mma::bf16*>(qkv),
         static_cast<const float*>(bias), static_cast<const float*>(mask),
-        static_cast<bf16mma::bf16*>(out), W, N, heads, nw_img, scale,
-        static_cast<cudaStream_t>(stream));
+        static_cast<bf16mma::bf16*>(out), static_cast<float*>(lse), W, N,
+        heads, nw_img, scale, static_cast<cudaStream_t>(stream));
   });
 }
 

@@ -7,59 +7,65 @@
 // multimodalaggressionrecognition_tpu/ops/pallas/window_attention.py: the
 // flash-style backward of window attention (the forward is K2,
 // csrc/window_attention.cu).  For every window w and head h, with q, k, v
-// the head's d-wide slices of the packed qkv (W, N, 3C) and g the head's
-// slice of the output gradient (W, N, C), it recomputes
+// the head's d-wide slices of the packed qkv (W, N, 3C), g the head's slice
+// of the output gradient (W, N, C), and the forward's row logsumexp lse
+// (W, heads, N), it recomputes
 //
-//   s = q k^T / sqrt(d) + bias[h] + mask[w mod nW],   p = softmax_rows(s),
+//   s = q k^T / sqrt(d) + bias[h] + mask[w mod nW],   p = exp(s - lse),
 //
 // and from it
 //
-//   dV = p^T g,   dP = g v^T,   dS = p o (dP - rowsum(dP o p)),
+//   dV = p^T g,   dP = g v^T,   D = rowsum(dP o p),   dS = p o (dP - D),
 //   dQ = dS k / sqrt(d),   dK = dS^T q / sqrt(d),   dbias[h] = sum_w dS,
 //
 // writing dqkv (W, N, 3C) and dbias (heads, N, N); the mask gets no
 // gradient.  Neither p nor dS, (W, heads, N, N) each, reaches device memory.
 // qkv, g and dqkv are f32 or all three bf16 (the model's compute dtype);
-// bias, mask and dbias (and its partials) are f32.  The TPU kernel widens
-// bf16 operands to f32 and rounds each stored result once.  The bf16
+// bias, mask, lse and dbias (and its partials) are f32.  The TPU kernel
+// widens bf16 operands to f32 and rounds each stored result once.  The bf16
 // instantiation gets the same numbers to f32 accuracy without widening:
 // q.k^T and g.v^T of bf16 operands are exact products summed in f32, and
-// the products with p or dS (f32) take them as two bf16 pieces
+// the products with p, p o dP or dS (f32) take them as two bf16 pieces
 // (bf16mma.cuh); each stored result is rounded once.
 //
 // Bound.  The JAX kernel's own count (its CostEstimate) is
-// 10*W*heads*N^2*d operations and 4*(2*W*N*3C + 2*heads*N^2 + W*N*C) bytes.
-// At Swin3D-T's stage 0 trained at batch 8 (W=2048, N=196, C=96, 3 heads,
-// d=32) that is 75.5 GFLOP against 1.08 GB.  On an H100 SXM the three TF32
-// passes of every product take 0.458 ms at 495 TFLOP/s, the bytes 0.322 ms
-// at 3.35 TB/s: bound by tensor-core operations (1.127 ms at the 67 TFLOP/s
-// f32 FMA peak, which the earlier designs used).  In bf16 qkv, g and dqkv
-// move half the bytes, 542.9 MB with the mask, 0.162 ms, against 0.122 ms
-// for the products (q.k^T and g.v^T in one bf16 pass, p^T.g, dS.k and
-// dS^T.q in two, at 989 TFLOP/s): bound by bytes.
+// 10*W*heads*N^2*d operations and 4*(2*W*N*3C + 2*heads*N^2 + W*N*C) bytes;
+// K2's lse (4*W*heads*N bytes) and, in f32, its output (4*W*N*C) are read
+// besides.  At Swin3D-T's stage 0 trained at batch 8 (W=2048, N=196, C=96,
+// 3 heads, d=32, the mask nW=16) that is 75.5 GFLOP against 1.24 GB.  On an
+// H100 SXM the three TF32 passes of every product take 0.458 ms at 495
+// TFLOP/s, the bytes 0.371 ms at 3.35 TB/s: bound by tensor-core operations
+// (1.127 ms at the 67 TFLOP/s f32 FMA peak, which the earlier designs
+// used).  In bf16 qkv, g and dqkv move half the bytes, 547.7 MB with the
+// mask and lse, 0.163 ms, against 0.122 ms for the products (q.k^T and
+// g.v^T in one bf16 pass, p^T.g, dS.k and dS^T.q in two, at 989 TFLOP/s):
+// bound by bytes.
 //
 // Design.  The unit of work is one warp per 16-token tile.  A block of 4
 // warps per (group of windows, head) walks its group's windows, in two
 // passes per window, each with its own staging: the pass's B operands are
 // staged in shared memory (zero past N), and its A operands come straight
-// from device memory into registers.
+// from device memory into registers.  K2 hands over each row's lse, so
+// neither pass has to find the rows' softmax statistics.
 //   - row pass (K and V staged), a warp per 16 query rows, their Q and G in
-//     registers.  Sweep 1, 16 keys a step: S = Q K^T / sqrt(d) and
-//     dP = G V^T, then the online logsumexp and D = sum_j p dP in
-//     registers, reduced over the lane quad that shares a row.  Sweep 2: S
-//     and dP again, dS in the accumulator, dQ += dS K with dS taken as the
-//     A operand straight from the accumulators.
+//     registers, one sweep over the keys, 16 a step: S = Q K^T / sqrt(d) and
+//     dP = G V^T, p from lse, and dQ; D by one of two routes (below).  Each
+//     row's lse and D go to shared memory for the column pass.
 //   - column pass (Q and G staged), a warp per 16 keys, their K and V in
 //     registers: for 16 queries a step S^T = K Q^T / sqrt(d) and
-//     dP^T = V G^T, p and dS from the stored logsumexp and D,
+//     dP^T = V G^T, p and dS from the rows' lse and D,
 //     dV += P^T G, dK += dS^T Q, and dS into the block's dbias partial.
 // dK and dV are sums over queries and dQ a sum over keys, so each pass
 // keeps its sums inside one warp's accumulators, with no atomics; the price
-// is computing S and dP three times (9*d multiply-adds per (i, j) where the
-// bound counts 5*d).  Each step fetches the next step's bias, mask and
-// dbias partial (through L2, 8 consecutive keys per row of the tile in both
-// passes) while its products run.
-//   - f32 (mma.sync.m16n8k8, 3xTF32): the staged tiles hold each element
+// is computing S and dP twice, once a pass.  Each step fetches the next
+// step's bias, mask and dbias partial (through L2, 8 consecutive keys per
+// row of the tile in both passes) while its products run.
+//   - f32 (mma.sync.m16n8k8, 3xTF32): D = g . o over the head's d columns,
+//     o the forward's f32 output (equal to rowsum(dP o p), as o = p v),
+//     before the sweep; the sweep forms dS = p (dP - D) in the accumulators
+//     and adds dS K to dQ, dS the A operand straight from them.  7*d
+//     multiply-adds per (i, j) (S, dP and dS.K; S, dP, P^T.G and dS^T.Q)
+//     where the bound counts 5*d.  The staged tiles hold each element
 //     already split (big, small), 106 KB at N=196 and 205 KB at N=392, and
 //     the A operands are split in registers; S and dP each run in two
 //     accumulators (mma3x), 8 independent mma chains a warp.  ptxas gives
@@ -67,19 +73,22 @@
 //     13 tiles of 16 rows over 4 warps leave a warp idle a quarter of each
 //     pass; a version of 8 warps a block at 128 registers spilled and ran
 //     slower.
-//   - bf16 (mma.sync.m16n8k16, m16n8k8 over d = 8): the staged tiles are
-//     the bf16 values as they are, copied with 16-byte cp.async into
-//     swizzled tiles (28 KB at N=196, 53 KB at N=392) that ldmatrix reads
-//     plain (the B operands over d) and transposed (over keys or queries)
-//     without bank conflicts; the A operands are the raw bf16 rows, and p
-//     and dS go from two adjacent 8-wide accumulators into hi and lo A
-//     fragments; the scores are kept in base 2, so each exponential is one
-//     MUFU.EX2.  Fewer registers than the split fragments: at 128 (16 B
-//     spilled) an SM holds 4 blocks, 16 warps, and shared memory no longer
-//     caps them.  As in K2 the bias and mask reads through L2 are a large
-//     share of the time: three sweeps read them, 5.7 GB a launch at stage
-//     0, and the column pass also reads and writes the dbias partial, 1.9
-//     GB more.
+//   - bf16 (mma.sync.m16n8k16, m16n8k8 over d = 8): the output K2 stores
+//     is rounded to bf16, too coarse for D (its rounding moves dQ by more
+//     than one bf16 ulp), so the sweep sums D = rowsum(p o dP) itself beside
+//     A = (p o dP) K and B = p K, and sets dQ = (A - D B) / sqrt(d), which
+//     is dS K: 8*d per (i, j).  The staged tiles are the bf16 values as
+//     they are, copied with 16-byte cp.async into swizzled tiles (28 KB at
+//     N=196, 53 KB at N=392) that ldmatrix reads plain (the B operands over
+//     d) and transposed (over keys or queries) without bank conflicts; the
+//     A operands are the raw bf16 rows, and p, p o dP and dS go from two
+//     adjacent 8-wide accumulators into hi and lo A fragments; the scores
+//     and lse are kept in base 2, so each exponential is one MUFU.EX2.
+//     Fewer registers than the split fragments: at 128 (0 B spilled) an SM
+//     holds 4 blocks, 16 warps, and shared memory does not cap them.  As
+//     in K2 the bias and mask reads through L2 are a large share of the
+//     time: two sweeps read them, 3.8 GB a launch at stage 0, and the
+//     column pass also reads and writes the dbias partial, 1.9 GB more.
 
 // dbias is a sum over all W windows, which the TPU kernel accumulates in a
 // block revisited across its sequential grid.  A GPU grid has no order, so
@@ -128,12 +137,15 @@ size_t smem_bytes(int n, int d) {
   return sizeof(float2) * 2 * np * d + sizeof(float) * 2 * np;
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 2)
-window_attention_bwd_kernel(const T* __restrict__ qkv,
+window_attention_bwd_kernel(const float* __restrict__ qkv,
                             const float* __restrict__ bias,
                             const float* __restrict__ mask,
-                            const T* __restrict__ gout, T* __restrict__ dqkv,
+                            const float* __restrict__ gout,
+                            const float* __restrict__ fwd_out,
+                            const float* __restrict__ row_lse,
+                            float* __restrict__ dqkv,
                             float* __restrict__ partial, int W, int N,
                             int heads, int nw_img, int groups, float scale) {
   constexpr int KT = D / 8;  // k-steps over d, and n-tiles of d
@@ -161,9 +173,11 @@ window_attention_bwd_kernel(const T* __restrict__ qkv,
   const float neg_inf = __int_as_float(0xff800000);
 
   for (int64_t w = w0; w < w1; ++w) {
-    const T* win = qkv + w * N * C3 + h * D;
-    const T* gwin = gout + w * N * C + h * D;
-    T* dwin = dqkv + w * N * C3 + h * D;
+    const float* win = qkv + w * N * C3 + h * D;
+    const float* gwin = gout + w * N * C + h * D;
+    const float* owin = fwd_out + w * N * C + h * D;
+    const float* lse_w = row_lse + (w * heads + h) * N;
+    float* dwin = dqkv + w * N * C3 + h * D;
     const float* mask_w = mask ? mask + (w % nw_img) * NN : nullptr;
 
     __syncthreads();  // the previous window's column pass is done
@@ -171,7 +185,7 @@ window_attention_bwd_kernel(const T* __restrict__ qkv,
     stage_split<D>(ys, win + 2 * C, C3, N, NP, 1.f);
     __syncthreads();
 
-    // row pass: a warp per 16 query rows; logsumexp, D and dQ
+    // row pass: a warp per 16 query rows; D and dQ
     for (int r0 = warp * 16; r0 < N; r0 += WARPS * 16) {
       // rows a = r0+g and b = r0+g+8; a row past N repeats row N-1 (its
       // results are discarded)
@@ -183,6 +197,17 @@ window_attention_bwd_kernel(const T* __restrict__ qkv,
                              scale);
         ga[kk] = load_a_rows(gwin + ra * C, gwin + rb * C, kk * 8, lane, 1.f);
       }
+      // D = sum_j p dP = g . o over the head's d columns (a lane takes every
+      // fourth), o the forward's output; the logsumexp is K2's, base e
+      float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+      for (int c = t; c < D; c += 4) {
+        d0 = fmaf(ldf(gwin + ra * C + c), ldf(owin + ra * C + c), d0);
+        d1 = fmaf(ldf(gwin + rb * C + c), ldf(owin + rb * C + c), d1);
+      }
+      d0 = quad_sum(d0);
+      d1 = quad_sum(d1);
+      const float lse0 = ldf(lse_w + ra), lse1 = ldf(lse_w + rb);
       const RowBias<JT> rows(bias_h, mask_w, ra, rb, N, t);
       // S (with bias and mask) and dP of keys j0 .. j0+STEP-1
       auto scores = [&](int j0, const float (&bv)[JT][4],
@@ -211,52 +236,13 @@ window_attention_bwd_kernel(const T* __restrict__ qkv,
           }
       };
 
-      // sweep 1: the rows' online logsumexp and D = sum_j p dP; each step
+      // the sweep: S and dP, dS in the accumulators, dQ += dS K; each step
       // fetches the next step's bias and mask while its products run
-      float bv[JT][4], mv[JT][4];
-      float m0 = neg_inf, m1 = neg_inf, l0 = 0.f, l1 = 0.f, a0 = 0.f, a1 = 0.f;
-      rows.fetch(0, bv, mv);
-#pragma unroll 1
-      for (int j0 = 0; j0 < N; j0 += STEP) {
-        float s[JT][4], dp[JT][4];
-        scores(j0, bv, mv, s, dp);
-        rows.fetch(j0 + STEP, bv, mv);
-        float x0 = neg_inf, x1 = neg_inf;
-#pragma unroll
-        for (int u = 0; u < JT; ++u) {
-          x0 = fmaxf(x0, fmaxf(s[u][0], s[u][1]));
-          x1 = fmaxf(x1, fmaxf(s[u][2], s[u][3]));
-        }
-        // key j0 < N is in every step, so the new maxima are finite
-        const float n0 = fmaxf(m0, quad_max(x0));
-        const float n1 = fmaxf(m1, quad_max(x1));
-        const float c0 = __expf(m0 - n0), c1 = __expf(m1 - n1);  // 0 first
-        m0 = n0;
-        m1 = n1;
-        l0 *= c0;
-        l1 *= c1;
-        a0 *= c0;
-        a1 *= c1;
-#pragma unroll
-        for (int u = 0; u < JT; ++u) {
-          const float e0 = __expf(s[u][0] - n0), e1 = __expf(s[u][1] - n0);
-          const float e2 = __expf(s[u][2] - n1), e3 = __expf(s[u][3] - n1);
-          l0 += e0 + e1;
-          l1 += e2 + e3;
-          a0 += e0 * dp[u][0] + e1 * dp[u][1];
-          a1 += e2 * dp[u][2] + e3 * dp[u][3];
-        }
-      }
-      l0 = quad_sum(l0);
-      l1 = quad_sum(l1);
-      const float lse0 = m0 + __logf(l0), lse1 = m1 + __logf(l1);
-      const float d0 = quad_sum(a0) / l0, d1 = quad_sum(a1) / l1;
-
-      // sweep 2: S and dP again, dS in the accumulators, dQ += dS K
       float dq[KT][4];
 #pragma unroll
       for (int nt = 0; nt < KT; ++nt)
         dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
+      float bv[JT][4], mv[JT][4];
       rows.fetch(0, bv, mv);
 #pragma unroll 1
       for (int j0 = 0; j0 < N; j0 += STEP) {
@@ -276,8 +262,8 @@ window_attention_bwd_kernel(const T* __restrict__ qkv,
                  load_b_pairs_split<D>(xs, j0 + 8 * u, nt * 8, lane));
         }
       }
-      T* qa_out = dwin + (r0 + g) * C3 + 2 * t;
-      T* qb_out = qa_out + 8 * C3;
+      float* qa_out = dwin + (r0 + g) * C3 + 2 * t;
+      float* qb_out = qa_out + 8 * C3;
 #pragma unroll
       for (int nt = 0; nt < KT; ++nt) {
         if (r0 + g < N)
@@ -303,8 +289,8 @@ window_attention_bwd_kernel(const T* __restrict__ qkv,
       // keys a = j0+g and b = j0+g+8; a key past N repeats key N-1 (its
       // results are discarded)
       const int ja = j0 + g, jb = j0 + g + 8;
-      const T* ka_row = win + C + min(ja, N - 1) * C3;
-      const T* kb_row = win + C + min(jb, N - 1) * C3;
+      const float* ka_row = win + C + min(ja, N - 1) * C3;
+      const float* kb_row = win + C + min(jb, N - 1) * C3;
       FragA ka[KT], va[KT];
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk) {
@@ -393,8 +379,8 @@ window_attention_bwd_kernel(const T* __restrict__ qkv,
           }
         }
       }
-      T* ka_out = dwin + ja * C3 + C + 2 * t;
-      T* kb_out = ka_out + 8 * C3;
+      float* ka_out = dwin + ja * C3 + C + 2 * t;
+      float* kb_out = ka_out + 8 * C3;
 #pragma unroll
       for (int nt = 0; nt < KT; ++nt) {
         if (ja < N) {
@@ -413,7 +399,7 @@ window_attention_bwd_kernel(const T* __restrict__ qkv,
 template <int D>
 cudaError_t raise_smem_limit() {
   // per call, so that it holds on whichever device is current
-  return cudaFuncSetAttribute(window_attention_bwd_kernel<D, float>,
+  return cudaFuncSetAttribute(window_attention_bwd_kernel<D>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem_bytes(MAX_N, D)));
 }
@@ -423,22 +409,22 @@ cudaError_t blocks_per_sm(int N, int* per_sm) {
   cudaError_t err = raise_smem_limit<D>();
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, window_attention_bwd_kernel<D, float>, THREADS,
+      per_sm, window_attention_bwd_kernel<D>, THREADS,
       smem_bytes(N, D));
 }
 
 template <int D>
 cudaError_t launch(const float* qkv, const float* bias, const float* mask,
-                   const float* g, float* dqkv, float* partial, int W, int N,
-                   int heads, int nw_img, int groups, float scale,
-                   cudaStream_t stream) {
+                   const float* g, const float* out, const float* lse,
+                   float* dqkv, float* partial, int W, int N, int heads,
+                   int nw_img, int groups, float scale, cudaStream_t stream) {
   const cudaError_t err = raise_smem_limit<D>();
   if (err != cudaSuccess) return err;
   const unsigned blocks = static_cast<unsigned>(groups) * static_cast<unsigned>(heads);
-  window_attention_bwd_kernel<D, float><<<blocks, THREADS, smem_bytes(N, D),
-                                          stream>>>(qkv, bias, mask, g, dqkv,
-                                                    partial, W, N, heads,
-                                                    nw_img, groups, scale);
+  window_attention_bwd_kernel<D><<<blocks, THREADS, smem_bytes(N, D),
+                                   stream>>>(qkv, bias, mask, g, out, lse,
+                                             dqkv, partial, W, N, heads,
+                                             nw_img, groups, scale);
   return cudaGetLastError();
 }
 
@@ -470,6 +456,7 @@ window_attention_bwd_bf16_kernel(const bf16* __restrict__ qkv,
                                  const float* __restrict__ bias,
                                  const float* __restrict__ mask,
                                  const bf16* __restrict__ gout,
+                                 const float* __restrict__ row_lse,
                                  bf16* __restrict__ dqkv,
                                  float* __restrict__ partial, int W, int N,
                                  int heads, int nw_img, int groups,
@@ -502,6 +489,7 @@ window_attention_bwd_bf16_kernel(const bf16* __restrict__ qkv,
   for (int64_t w = w0; w < w1; ++w) {
     const bf16* win = qkv + w * N * C3 + h * D;
     const bf16* gwin = gout + w * N * C + h * D;
+    const float* lse_w = row_lse + (w * heads + h) * N;
     bf16* dwin = dqkv + w * N * C3 + h * D;
     const float* mask_w = mask ? mask + (w % nw_img) * NN : nullptr;
 
@@ -511,13 +499,15 @@ window_attention_bwd_bf16_kernel(const bf16* __restrict__ qkv,
     cp_async_wait_all();
     __syncthreads();
 
-    // row pass: a warp per 16 query rows; logsumexp, D and dQ
+    // row pass: a warp per 16 query rows; D and dQ
     for (int r0 = warp * 16; r0 < N; r0 += WARPS * 16) {
       // rows a = r0+g and b = r0+g+8; a row past N repeats row N-1 (its
       // results are discarded)
       const int ra = min(r0 + g, N - 1), rb = min(r0 + g + 8, N - 1);
       const Rows<D> qa = load_a_rows<D>(win + ra * C3, win + rb * C3, lane);
       const Rows<D> ga = load_a_rows<D>(gwin + ra * C, gwin + rb * C, lane);
+      // the logsumexp is K2's, base 2
+      const float lse0 = __ldg(lse_w + ra), lse1 = __ldg(lse_w + rb);
       const RowBias<JT> rows(bias_h, mask_w, ra, rb, N, t);
       // S (scaled, with bias and mask, in base 2) and dP of keys j0 ..
       // j0+STEP-1
@@ -541,53 +531,18 @@ window_attention_bwd_bf16_kernel(const bf16* __restrict__ qkv,
             s[u][e] = fmaf(s[u][e], scale2, (bv[u][e] + mv[u][e]) * LOG2E);
       };
 
-      // sweep 1: the rows' online logsumexp and D = sum_j p dP; each step
-      // fetches the next step's bias and mask while its products run
-      float bv[JT][4], mv[JT][4];
-      float m0 = neg_inf, m1 = neg_inf, l0 = 0.f, l1 = 0.f, a0 = 0.f, a1 = 0.f;
-      rows.fetch(0, bv, mv);
-#pragma unroll 1
-      for (int j0 = 0; j0 < N; j0 += STEP) {
-        float s[JT][4], dp[JT][4];
-        scores(j0, bv, mv, s, dp);
-        rows.fetch(j0 + STEP, bv, mv);
-        float x0 = neg_inf, x1 = neg_inf;
-#pragma unroll
-        for (int u = 0; u < JT; ++u) {
-          x0 = fmaxf(x0, fmaxf(s[u][0], s[u][1]));
-          x1 = fmaxf(x1, fmaxf(s[u][2], s[u][3]));
-        }
-        // key j0 < N is in every step, so the new maxima are finite
-        const float n0 = fmaxf(m0, quad_max(x0));
-        const float n1 = fmaxf(m1, quad_max(x1));
-        const float c0 = exp2_ftz(m0 - n0), c1 = exp2_ftz(m1 - n1);  // 0 first
-        m0 = n0;
-        m1 = n1;
-        l0 *= c0;
-        l1 *= c1;
-        a0 *= c0;
-        a1 *= c1;
-#pragma unroll
-        for (int u = 0; u < JT; ++u) {
-          const float e0 = exp2_ftz(s[u][0] - n0), e1 = exp2_ftz(s[u][1] - n0);
-          const float e2 = exp2_ftz(s[u][2] - n1), e3 = exp2_ftz(s[u][3] - n1);
-          l0 += e0 + e1;
-          l1 += e2 + e3;
-          a0 += e0 * dp[u][0] + e1 * dp[u][1];
-          a1 += e2 * dp[u][2] + e3 * dp[u][3];
-        }
-      }
-      l0 = quad_sum(l0);
-      l1 = quad_sum(l1);
-      // the logsumexp in base 2: p = exp2(s - lse)
-      const float lse0 = m0 + __log2f(l0), lse1 = m1 + __log2f(l1);
-      const float d0 = quad_sum(a0) / l0, d1 = quad_sum(a1) / l1;
-
-      // sweep 2: S and dP again, dS in the accumulators, dQ += dS K
-      float dq[KC][4];
+      // the sweep: p = exp2(s - lse) and, with dP, D = sum_j p dP,
+      // A = sum_j (p dP) k_j and B = sum_j p k_j, the products with p dP and
+      // p in two bf16 pieces each; then dQ = dS K = (A - D B) / sqrt(d).
+      // Each step fetches the next step's bias and mask while its products
+      // run.
+      float ak[KC][4], bk[KC][4];
 #pragma unroll
       for (int nt = 0; nt < KC; ++nt)
-        dq[nt][0] = dq[nt][1] = dq[nt][2] = dq[nt][3] = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ak[nt][e] = bk[nt][e] = 0.f;
+      float a0 = 0.f, a1 = 0.f;
+      float bv[JT][4], mv[JT][4];
       rows.fetch(0, bv, mv);
 #pragma unroll 1
       for (int j0 = 0; j0 < N; j0 += STEP) {
@@ -596,27 +551,37 @@ window_attention_bwd_bf16_kernel(const bf16* __restrict__ qkv,
         rows.fetch(j0 + STEP, bv, mv);
 #pragma unroll
         for (int u = 0; u < JT; ++u) {
-          // dS, 0 past N
-          s[u][0] = exp2_ftz(s[u][0] - lse0) * (dp[u][0] - d0);
-          s[u][1] = exp2_ftz(s[u][1] - lse0) * (dp[u][1] - d0);
-          s[u][2] = exp2_ftz(s[u][2] - lse1) * (dp[u][2] - d1);
-          s[u][3] = exp2_ftz(s[u][3] - lse1) * (dp[u][3] - d1);
+          // p in s and p dP in dp, 0 past N
+          s[u][0] = exp2_ftz(s[u][0] - lse0);
+          s[u][1] = exp2_ftz(s[u][1] - lse0);
+          s[u][2] = exp2_ftz(s[u][2] - lse1);
+          s[u][3] = exp2_ftz(s[u][3] - lse1);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[u][e] *= s[u][e];
+          a0 += dp[u][0] + dp[u][1];
+          a1 += dp[u][2] + dp[u][3];
         }
-        uint32_t hi[4], lo[4], kb[KC][2];
-        acc_pair_a(s[0], s[1], hi, lo);
+        uint32_t phi[4], plo[4], dhi[4], dlo[4], kb[KC][2];
+        acc_pair_a(s[0], s[1], phi, plo);
+        acc_pair_a(dp[0], dp[1], dhi, dlo);
         load_b_rows16<D>(xs, j0, lane, kb);
 #pragma unroll
-        for (int nt = 0; nt < KC; ++nt)
-          mma_pieces(dq[nt], hi, lo, kb[nt][0], kb[nt][1]);
+        for (int nt = 0; nt < KC; ++nt) {
+          mma_pieces(ak[nt], dhi, dlo, kb[nt][0], kb[nt][1]);
+          mma_pieces(bk[nt], phi, plo, kb[nt][0], kb[nt][1]);
+        }
       }
+      const float d0 = quad_sum(a0), d1 = quad_sum(a1);
       bf16* qa_out = dwin + (r0 + g) * C3 + 2 * t;
       bf16* qb_out = qa_out + 8 * C3;
 #pragma unroll
       for (int nt = 0; nt < KC; ++nt) {
         if (r0 + g < N)
-          st2(qa_out + nt * 8, dq[nt][0] * scale, dq[nt][1] * scale);
+          st2(qa_out + nt * 8, (ak[nt][0] - d0 * bk[nt][0]) * scale,
+              (ak[nt][1] - d0 * bk[nt][1]) * scale);
         if (r0 + g + 8 < N)
-          st2(qb_out + nt * 8, dq[nt][2] * scale, dq[nt][3] * scale);
+          st2(qb_out + nt * 8, (ak[nt][2] - d1 * bk[nt][2]) * scale,
+              (ak[nt][3] - d1 * bk[nt][3]) * scale);
       }
       if (t == 0) {
         lse[r0 + g] = lse0;
@@ -749,15 +714,15 @@ cudaError_t blocks_per_sm(int N, int* per_sm) {
 
 template <int D>
 cudaError_t launch(const bf16* qkv, const float* bias, const float* mask,
-                   const bf16* g, bf16* dqkv, float* partial, int W, int N,
-                   int heads, int nw_img, int groups, float scale,
-                   cudaStream_t stream) {
+                   const bf16* g, const float* lse, bf16* dqkv,
+                   float* partial, int W, int N, int heads, int nw_img,
+                   int groups, float scale, cudaStream_t stream) {
   const cudaError_t err = raise_smem_limit<D>();
   if (err != cudaSuccess) return err;
   const unsigned blocks = static_cast<unsigned>(groups) * static_cast<unsigned>(heads);
   window_attention_bwd_bf16_kernel<D><<<blocks, THREADS, smem_bytes(N, D),
-                                        stream>>>(qkv, bias, mask, g, dqkv,
-                                                  partial, W, N, heads,
+                                        stream>>>(qkv, bias, mask, g, lse,
+                                                  dqkv, partial, W, N, heads,
                                                   nw_img, groups, scale);
   return cudaGetLastError();
 }
@@ -841,13 +806,16 @@ extern "C" int window_attention_bwd_groups(int W, int N, int heads, int d,
 // Launch both kernels on `stream`; return a cudaError_t (0 = launched).
 // qkv, g and dqkv are f32 (window_attention_bwd_f32) or bf16
 // (window_attention_bwd_bf16); bias, dbias and the partials f32.  `mask`
-// may be null (no shifted-window mask; `nw_img` is then ignored).
-// `partial` holds groups * heads * N * N floats, groups from
-// window_attention_bwd_groups for the same instantiation.  The caller checks
-// dtypes, contiguity, 16-byte alignment of qkv and g, W % nw_img == 0 and
-// the grid size.
+// may be null (no shifted-window mask; `nw_img` is then ignored).  `lse` is
+// the forward's (K2's) row logsumexp, (W, heads, N) f32, in base e for f32
+// and base 2 for bf16, as K2 writes it; the f32 backward also takes the
+// forward's output `out` (W, N, C).  `partial` holds groups * heads * N * N
+// floats, groups from window_attention_bwd_groups for the same
+// instantiation.  The caller checks dtypes, contiguity, 16-byte alignment of
+// qkv and g, W % nw_img == 0 and the grid size.
 extern "C" int window_attention_bwd_f32(const void* qkv, const void* bias,
                                         const void* mask, const void* g,
+                                        const void* out, const void* lse,
                                         void* dqkv, void* dbias, void* partial,
                                         int W, int N, int heads, int d,
                                         int nw_img, int groups, float scale,
@@ -859,6 +827,7 @@ extern "C" int window_attention_bwd_f32(const void* qkv, const void* bias,
     return static_cast<int>(f32path::launch<decltype(D)::value>(
         static_cast<const float*>(qkv), static_cast<const float*>(bias),
         static_cast<const float*>(mask), static_cast<const float*>(g),
+        static_cast<const float*>(out), static_cast<const float*>(lse),
         static_cast<float*>(dqkv), static_cast<float*>(partial), W, N, heads,
         nw_img, groups, scale, s));
   });
@@ -870,9 +839,9 @@ extern "C" int window_attention_bwd_f32(const void* qkv, const void* bias,
 
 extern "C" int window_attention_bwd_bf16(const void* qkv, const void* bias,
                                          const void* mask, const void* g,
-                                         void* dqkv, void* dbias,
-                                         void* partial, int W, int N,
-                                         int heads, int d, int nw_img,
+                                         const void* lse, void* dqkv,
+                                         void* dbias, void* partial, int W,
+                                         int N, int heads, int d, int nw_img,
                                          int groups, float scale,
                                          void* stream) {
   if (!valid(W, N, heads, mask, nw_img, groups))
@@ -882,7 +851,7 @@ extern "C" int window_attention_bwd_bf16(const void* qkv, const void* bias,
     return static_cast<int>(bf16path::launch<decltype(D)::value>(
         static_cast<const bf16mma::bf16*>(qkv),
         static_cast<const float*>(bias), static_cast<const float*>(mask),
-        static_cast<const bf16mma::bf16*>(g),
+        static_cast<const bf16mma::bf16*>(g), static_cast<const float*>(lse),
         static_cast<bf16mma::bf16*>(dqkv), static_cast<float*>(partial), W,
         N, heads, nw_img, groups, scale, s));
   });

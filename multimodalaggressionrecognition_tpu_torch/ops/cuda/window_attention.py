@@ -8,17 +8,28 @@ position bias (heads, N, N) and an optional shifted-window mask
 (nW_img, N, N), where window w uses mask[w % nW_img], it computes per window
 and head `softmax(q k^T / sqrt(d) + bias[h] + mask) v` and returns (W, N, C).
 The JAX layout and signature are kept.  `window_attention` is the
-differentiable entry (a `torch.autograd.Function`, the JAX `custom_vjp`):
-its forward is `fused_window_attention`, its backward
-`window_attention_bwd`, which returns the gradients of qkv and bias; the
-mask gets none.
+differentiable entry (a `torch.autograd.Function`, the JAX `custom_vjp`)
+where a gradient is wanted: its forward is `window_attention_fwd`, which
+also returns each row's logsumexp, its backward `window_attention_bwd`,
+which reads that logsumexp instead of recomputing it and returns the
+gradients of qkv and bias; the mask gets none.  Without a gradient it is
+`fused_window_attention`, which writes no logsumexp.
 
 `fused_window_attention` calls the `mar_torch::window_attention` op
-(torch.library): the plain version on the CPU, the forward kernel on CUDA
-(the only place that counts its launch), and a fake implementation for
-torch.export, which keeps the op in a serving artifact's graph
-(io/export.py).  The backward stays a plain wrapper: export and
-quantization are for inference.
+(torch.library), `window_attention_fwd` the `mar_torch::window_attention_lse`
+op: the plain version on the CPU, the forward kernel on CUDA (the only
+place that counts its launch, under one key for both), and a fake
+implementation for torch.export, which keeps the first op in a serving
+artifact's graph (io/export.py).  The backward stays a plain wrapper:
+export and quantization are for inference.
+
+The row logsumexp lse (W, heads, N) is kept in base e for f32 (and the
+plain versions' f64) and in base 2 for bf16, where the kernels keep their
+scores in base 2 (`lse_in_base2`); it is f32 (f64 for f64 qkv).  The
+backward's D = rowsum(p dP) comes by K3's route for the dtype: from the
+forward's output, D = g . o, in f32, whose output is exact enough; in bf16,
+whose output is rounded too coarsely for that, from p and dP in the one
+sweep that also gives dQ = ((p dP) k - D p k) / sqrt(d).
 
 Dtypes, as in the JAX kernels: qkv (and the output gradient g) are float32
 or bfloat16, and the output and dqkv come back in qkv's dtype, with f32
@@ -35,7 +46,8 @@ before P·V; its TPU kernel, and so this port, does not.)
 """
 
 import ctypes
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -60,7 +72,7 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 def _bind(lib):
     for suffix in _SUFFIX.values():
         fn = getattr(lib, f"window_attention_{suffix}")
-        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P]
+        fn.argtypes = [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P]
         fn.restype = _I
     _bind_info(lib.window_attention_info)
 
@@ -68,9 +80,10 @@ def _bind(lib):
 def _bind_bwd(lib):
     lib.window_attention_bwd_groups.argtypes = [_I] * 5
     lib.window_attention_bwd_groups.restype = _I
-    for suffix in _SUFFIX.values():
+    # f32 also takes the forward's output
+    for suffix, pointers in (("f32", 9), ("bf16", 8)):
         fn = getattr(lib, f"window_attention_bwd_{suffix}")
-        fn.argtypes = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]
+        fn.argtypes = [_P] * pointers + [_I] * 6 + [ctypes.c_float, _P]
         fn.restype = _I
     _bind_info(lib.window_attention_bwd_info)
 
@@ -95,15 +108,24 @@ def _split(qkv, heads: int):
     return qkv.reshape(w, n, 3, heads, d).permute(2, 0, 3, 1, 4)
 
 
-def _probs(q, k, bias, mask):
-    """softmax(q k^T + bias + mask) over (W, heads, N, N); q pre-scaled."""
+def _scores(q, k, bias, mask):
+    """q k^T + bias + mask over (W, heads, N, N); q pre-scaled."""
     w, heads, n, _ = q.shape
     attn = q @ k.transpose(-1, -2) + bias[None]
     if mask is not None:
         nw = mask.shape[0]
         attn = (attn.reshape(w // nw, nw, heads, n, n)
                 + mask[None, :, None]).reshape(w, heads, n, n)
-    return torch.softmax(attn, dim=-1)
+    return attn
+
+
+LOG2E = 1.0 / math.log(2.0)
+
+
+def lse_in_base2(dtype) -> bool:
+    """Whether the row logsumexp for qkv of `dtype` is in base 2 (bf16, as
+    its kernels keep their scores) rather than base e (f32, f64)."""
+    return dtype == torch.bfloat16
 
 
 def _wide(t):
@@ -112,36 +134,63 @@ def _wide(t):
     return t.float() if t is not None and t.dtype == torch.bfloat16 else t
 
 
-def attention_core_reference(qkv, bias, mask, heads: int):
+def attention_core_reference(qkv, bias, mask, heads: int,
+                             with_lse: bool = False):
     """The plain version: (W, N, 3C), (heads, N, N), (nW_img, N, N) | None
     -> (W, N, C) in qkv's dtype, with the score tensor materialized; f32
-    math for bf16 inputs."""
+    math for bf16 inputs.  `with_lse`: (out, lse), lse (W, heads, N) each
+    row's logsumexp of its scores, in `lse_in_base2`'s base."""
     w, n, c3 = qkv.shape
     q, k, v = _split(_wide(qkv), heads)
     # (W, heads, N, d)
-    out = _probs(q * q.shape[-1] ** -0.5, k, _wide(bias), _wide(mask)) @ v
-    return out.transpose(1, 2).reshape(w, n, c3 // 3).to(qkv.dtype)
+    s = _scores(q * q.shape[-1] ** -0.5, k, _wide(bias), _wide(mask))
+    out = (torch.softmax(s, dim=-1) @ v).transpose(1, 2).reshape(
+        w, n, c3 // 3).to(qkv.dtype)
+    if not with_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1)
+    return out, lse * LOG2E if lse_in_base2(qkv.dtype) else lse
 
 
-def window_attention_bwd_reference(qkv, bias, mask, g, heads: int):
-    """The plain backward, the K3 formula in torch ops: recompute p, then
-    dV = p^T g, dP = g v^T, dS = p (dP - rowsum(dP p)), dQ = dS k / sqrt(d),
-    dK = dS^T q / sqrt(d) and dbias = sum over windows of dS, in f32 for
-    bf16 inputs.
+def window_attention_bwd_reference(qkv, bias, mask, g, heads: int, lse,
+                                   out=None, same_sweep=None):
+    """The plain backward, the K3 formula in torch ops: p = exp(s - lse)
+    from the forward's row logsumexp (`lse_in_base2`'s base for qkv's
+    dtype), dV = p^T g, dP = g v^T, D = rowsum(dP p), dS = p (dP - D),
+    dQ = dS k / sqrt(d), dK = dS^T q / sqrt(d) and dbias = sum over windows
+    of dS, in f32 for bf16 inputs.  D comes by K3's route for the dtype:
+    from the forward's output `out` (W, N, C), D = g . o, for f32 and f64;
+    for bf16 (or with `same_sweep`) from p and dP, with
+    dQ = ((p dP) k - D p k) / sqrt(d), where `out` is not read.
     Returns (dqkv (W, N, 3C) in qkv's dtype, dbias (heads, N, N) in the
     bias's)."""
     dtype, bias_dtype = qkv.dtype, bias.dtype
+    if same_sweep is None:
+        same_sweep = dtype == torch.bfloat16
+    if not same_sweep and out is None:
+        raise ValueError("window_attention_bwd: D from the forward's output "
+                         "needs `out`")
     qkv, bias, mask, g = _wide(qkv), _wide(bias), _wide(mask), _wide(g)
     w, n, c3 = qkv.shape
     q, k, v = _split(qkv, heads)
     d = q.shape[-1]
     scale = d ** -0.5
     gh = g.reshape(w, n, heads, d).transpose(1, 2)  # (W, heads, N, d)
-    p = _probs(q * scale, k, bias, mask)
+    s = _scores(q * scale, k, bias, mask)
+    p = (torch.exp2(s * LOG2E - lse[..., None]) if lse_in_base2(dtype)
+         else torch.exp(s - lse[..., None]))
     dv = p.transpose(-1, -2) @ gh
     dp = gh @ v.transpose(-1, -2)
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dq = (ds @ k) * scale
+    if same_sweep:
+        pdp = p * dp
+        dsum = pdp.sum(dim=-1, keepdim=True)
+        dq = (pdp @ k - dsum * (p @ k)) * scale
+    else:
+        oh = _wide(out).reshape(w, n, heads, d).transpose(1, 2)
+        dsum = (gh * oh).sum(dim=-1, keepdim=True)
+    ds = p * (dp - dsum)
+    if not same_sweep:
+        dq = (ds @ k) * scale
     dk = (ds.transpose(-1, -2) @ q) * scale
     dqkv = torch.stack((dq, dk, dv)).permute(1, 3, 0, 2, 4).reshape(w, n, c3)
     return dqkv.to(dtype), ds.sum(dim=0).to(bias_dtype)
@@ -235,35 +284,86 @@ def _(qkv, bias, mask, heads):
 
 @_window_attention_op.register_kernel("cuda")
 def _window_attention_cuda(qkv, bias, mask, heads):
-    """The kernel launch: the only place that counts one."""
+    return _launch_fwd(qkv, bias, mask, heads, with_lse=False)[0]
+
+
+def _launch_fwd(qkv, bias, mask, heads: int, with_lse: bool):
+    """The kernel launch, with or without the row logsumexp: the only place
+    that counts one.  Returns (out, lse or None)."""
     bias = _bias_f32(bias)
     w, n, c, d, nw = _validate(qkv, bias, mask, heads)
     lib = load_library("window_attention", _bind)
     out = torch.empty((w, n, c), dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty((w, heads, n), dtype=torch.float32, device=qkv.device)
+           if with_lse else None)
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
     status = getattr(lib, f"window_attention_{_SUFFIX[qkv.dtype]}")(
         qkv.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         w, n, heads, d, nw, d ** -0.5, stream)
     check_status("window_attention", status)
     launch_counts[launch_key("window_attention", qkv.dtype)] += 1
-    return out
+    return out, lse
 
 
-def window_attention_bwd(qkv, bias, mask, g, heads: int):
+def window_attention_fwd(qkv, bias, mask, heads: int):
+    """`fused_window_attention` that also returns each row's logsumexp for
+    the backward: (out (W, N, C) in qkv's dtype, lse (W, heads, N) f32 in
+    `lse_in_base2`'s base), the `mar_torch::window_attention_lse` op.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    on the current stream or raises."""
+    if qkv.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"fused_window_attention: no kernel for device {qkv.device}")
+    return torch.ops.mar_torch.window_attention_lse(qkv, bias, mask, heads)
+
+
+@torch.library.custom_op("mar_torch::window_attention_lse", mutates_args=(),
+                         device_types="cpu")
+def _window_attention_lse_op(qkv: torch.Tensor, bias: torch.Tensor,
+                             mask: Optional[torch.Tensor],
+                             heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return attention_core_reference(qkv, bias, mask, heads, with_lse=True)
+
+
+@_window_attention_lse_op.register_fake
+def _(qkv, bias, mask, heads):
+    w, n, c3 = qkv.shape
+    return (qkv.new_empty((w, n, c3 // 3)),
+            qkv.new_empty((w, heads, n), dtype=torch.float32))
+
+
+@_window_attention_lse_op.register_kernel("cuda")
+def _window_attention_lse_cuda(qkv, bias, mask, heads):
+    return _launch_fwd(qkv, bias, mask, heads, with_lse=True)
+
+
+def window_attention_bwd(qkv, bias, mask, g, heads: int, lse, out=None):
     """The backward of `fused_window_attention` for output gradient g
-    (W, N, C) in qkv's dtype: returns (dqkv (W, N, 3C) in qkv's dtype,
-    dbias (heads, N, N) in the bias's).
+    (W, N, C) in qkv's dtype, given the forward's row logsumexp `lse` and,
+    for f32 qkv, its output `out` (both as `window_attention_fwd` returns
+    them; a bf16 backward does not read `out`): returns (dqkv (W, N, 3C) in
+    qkv's dtype, dbias (heads, N, N) in the bias's).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     on the current stream or raises."""
     if qkv.device.type == "cpu":
-        return window_attention_bwd_reference(qkv, bias, mask, g, heads)
+        return window_attention_bwd_reference(qkv, bias, mask, g, heads, lse,
+                                              out)
     bias_dtype, bias = bias.dtype, _bias_f32(bias)
     w, n, c, d, nw = _validate(qkv, bias, mask, heads)
     _check("g", g, (w, n, c), qkv.device, qkv.dtype)
     if g.data_ptr() % 16:
         raise ValueError("fused_window_attention: g must be 16-byte aligned")
+    _check("lse", lse, (w, heads, n), qkv.device)
+    f32 = qkv.dtype == torch.float32
+    if f32:
+        if out is None:
+            raise ValueError("window_attention_bwd: the f32 backward takes "
+                             "the forward's output")
+        _check("out", out, (w, n, c), qkv.device)
     lib = load_library("window_attention_bwd", _bind_bwd)
     groups = lib.window_attention_bwd_groups(
         w, n, heads, d, int(qkv.dtype == torch.bfloat16))
@@ -277,6 +377,7 @@ def window_attention_bwd(qkv, bias, mask, g, heads: int):
     status = getattr(lib, f"window_attention_bwd_{_SUFFIX[qkv.dtype]}")(
         qkv.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), g.data_ptr(),
+        *((out.data_ptr(),) if f32 else ()), lse.data_ptr(),
         dqkv.data_ptr(), dbias.data_ptr(), partial.data_ptr(),
         w, n, heads, d, nw, groups, d ** -0.5, stream)
     check_status("window_attention_bwd", status)
@@ -285,22 +386,31 @@ def window_attention_bwd(qkv, bias, mask, g, heads: int):
 
 
 class _WindowAttention(torch.autograd.Function):
+    """K2 with the row logsumexp, and K3 reading it.  Saves qkv, the bias,
+    the mask, lse and, for f32 (whose backward takes D = g . o from it),
+    the output: the tensor the next layer (the projection) keeps anyway."""
+
     @staticmethod
     def forward(ctx, qkv, bias, mask, heads: int):
+        out, lse = window_attention_fwd(qkv, bias, mask, heads)
         ctx.heads = heads
-        ctx.save_for_backward(qkv, bias, mask)
-        return fused_window_attention(qkv, bias, mask, heads)
+        ctx.save_for_backward(qkv, bias, mask, lse,
+                              None if qkv.dtype == torch.bfloat16 else out)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        qkv, bias, mask = ctx.saved_tensors
+        qkv, bias, mask, lse, out = ctx.saved_tensors
         dqkv, dbias = window_attention_bwd(qkv, bias, mask, g.contiguous(),
-                                           ctx.heads)
+                                           ctx.heads, lse, out)
         return dqkv, dbias, None, None
 
 
 def window_attention(qkv, bias, mask, heads: int):
-    """Differentiable fused window attention: the forward kernel, and the
-    backward kernel for the gradients of qkv and bias (the mask gets
-    none)."""
-    return _WindowAttention.apply(qkv, bias, mask, heads)
+    """Differentiable fused window attention: where a gradient of qkv or the
+    bias is wanted, the forward kernel with the row logsumexp and the
+    backward kernel for the gradients of qkv and bias (the mask gets none);
+    elsewhere `fused_window_attention` alone."""
+    if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
+        return _WindowAttention.apply(qkv, bias, mask, heads)
+    return fused_window_attention(qkv, bias, mask, heads)

@@ -9,8 +9,15 @@ Without a card every test skips.  Tolerance atol/rtol 1e-4: both sides are
 f32 (TF32 off) and only the summation order differs; the window-attention
 kernel at tests/test_pallas.py's small shapes is held to 1e-5, as there.
 Its backward (K3) is held to its plain version at 1e-4 of the largest
-gradient (the stage shapes sum over up to 2048 windows into dbias).  Their
-bf16 kernels (bf16 tensor cores, p and dS in two bf16 pieces) are held
+gradient (the stage shapes sum over up to 2048 windows into dbias), K3
+reading the row logsumexp (and in f32 the output) of K2's launch and the
+plain backward the plain forward's own (chip_smoke.plain_bwd).  At N = 1
+K3's dbias is 0 in exact arithmetic (p = 1, dS = dP - D) and both sides
+return only rounding, so in f32 it is held to the largest dqkv there.
+K2's output is the same bit for bit with and without that logsumexp,
+which is within 1e-5 (plus 1e-6 of its magnitude) of the plain version's
+in the instantiation's base (e for f32, 2 for bf16).  Their bf16 kernels
+(bf16 tensor cores, p and dS in two bf16 pieces) are held
 element by element within one bf16 ulp of the plain version's value plus
 3e-5, a bound that a plain version with p rounded to bf16 is shown to
 miss, and K3's bf16 launch is deterministic bit for bit.  The
@@ -25,7 +32,8 @@ the CPU scores on the card with nothing left on the CPU.
 import pytest
 import torch
 
-from chip_smoke import bf16_ulp_excess, p_rounded_reference
+from chip_smoke import (bf16_ulp_excess, k2_lse_check, p_rounded_reference,
+                        plain_bwd)
 from multimodalaggressionrecognition_tpu_torch.models import swin3d
 from multimodalaggressionrecognition_tpu_torch.models.swin3d import (
     _attention_mask)
@@ -33,7 +41,7 @@ from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
     framed_conv1d, framed_conv1d_reference, framed_conv1d_trainable)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.window_attention import (
     attention_core_reference, fused_window_attention, window_attention,
-    window_attention_bwd, window_attention_bwd_reference)
+    window_attention_bwd, window_attention_fwd)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.roll import (
     circular_roll, roll, roll_reference)
 from multimodalaggressionrecognition_tpu_torch.ops.resample import (
@@ -225,6 +233,24 @@ def test_window_attention_kernel_matches_plain_at_edge_shapes(cuda, w, n,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("w,n,heads,d,nw", [s[:5] for s in K2_SHAPES]
+                         + EDGE_SHAPES)
+def test_window_attention_kernel_with_lse(cuda, w, n, heads, d, nw, dtype):
+    """K2 with the rows' logsumexp: one launch under the dtype's key, the
+    output bit for bit the launch's without it, lse within 1e-5 (plus 1e-6
+    of its magnitude) of the plain version's."""
+    qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=n * 100 + d)
+    qkv = qkv.to(dtype)
+    out = fused_window_attention(qkv, bias, mask, heads)
+    key = "window_attention" + (".bf16" if dtype == torch.bfloat16 else "")
+    before = launch_counts[key]
+    k2_lse_check(f"k2 {dtype}", qkv, bias, mask, heads, out)
+    assert launch_counts[key] == before + 1
+
+
+@pytest.mark.cuda
 def test_window_attention_rejects_what_the_kernel_does_not_take(cuda):
     qkv, bias, mask = k2_inputs(8, 24, 3, 8, 4, cuda)
     with pytest.raises(TypeError, match="float32"):
@@ -275,11 +301,12 @@ K3_SHAPES = [(6, 24, 3, 8, 0), (6, 24, 3, 8, 3), (4, 64, 2, 16, 2),
 def test_window_attention_bwd_kernel_matches_plain(cuda, w, n, heads, d, nw):
     qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=n + d)
     g = k3_grad(w, n, heads, d, cuda)
+    out, lse = window_attention_fwd(qkv, bias, mask, heads)
     before = launch_counts["window_attention_bwd"]
-    got = window_attention_bwd(qkv, bias, mask, g, heads)
+    got = window_attention_bwd(qkv, bias, mask, g, heads, lse, out)
     torch.cuda.synchronize()
     assert launch_counts["window_attention_bwd"] == before + 1
-    want = window_attention_bwd_reference(qkv, bias, mask, g, heads)
+    want = plain_bwd(qkv, bias, mask, g, heads)
     for x, y in zip(got, want):
         tol = 1e-4 * y.abs().max().item()
         torch.testing.assert_close(x, y, atol=tol, rtol=0)
@@ -313,11 +340,14 @@ def test_window_attention_bwd_kernel_matches_plain_at_edge_shapes(
         cuda, w, n, heads, d, nw):
     qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=n + d)
     g = k3_grad(w, n, heads, d, cuda)
-    got = window_attention_bwd(qkv, bias, mask, g, heads)
+    out, lse = window_attention_fwd(qkv, bias, mask, heads)
+    got = window_attention_bwd(qkv, bias, mask, g, heads, lse, out)
     torch.cuda.synchronize()
-    want = window_attention_bwd_reference(qkv, bias, mask, g, heads)
-    for x, y in zip(got, want):
-        tol = 1e-4 * y.abs().max().item()
+    want = plain_bwd(qkv, bias, mask, g, heads)
+    # at N = 1 dbias is 0 in exact arithmetic (p = 1, dS = dP - D), and
+    # both sides return rounding: it is held to dqkv's largest there
+    for x, y, ref in zip(got, want, (want[0], want[0] if n == 1 else want[1])):
+        tol = 1e-4 * ref.abs().max().item()
         torch.testing.assert_close(x, y, atol=tol, rtol=0)
 
 
@@ -328,8 +358,9 @@ def test_window_attention_bwd_kernel_is_deterministic(cuda):
     w, n, heads, d, nw = 2048, 196, 3, 32, 16
     qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=5)
     g = k3_grad(w, n, heads, d, cuda)
-    first = window_attention_bwd(qkv, bias, mask, g, heads)
-    again = window_attention_bwd(qkv, bias, mask, g, heads)
+    out, lse = window_attention_fwd(qkv, bias, mask, heads)
+    first = window_attention_bwd(qkv, bias, mask, g, heads, lse, out)
+    again = window_attention_bwd(qkv, bias, mask, g, heads, lse, out)
     torch.cuda.synchronize()
     for x, y in zip(first, again):
         assert torch.equal(x, y)
@@ -632,8 +663,9 @@ def _bf16_elementwise(got, want):
 
 def _bf16_dbias_close(q16, bias, mask, g16, heads):
     """K3's dbias for an f32 bias stays f32: within 1e-4 of its largest."""
-    db = window_attention_bwd(q16, bias, mask, g16, heads)[1]
-    want = window_attention_bwd_reference(q16, bias, mask, g16, heads)[1]
+    lse = window_attention_fwd(q16, bias, mask, heads)[1]
+    db = window_attention_bwd(q16, bias, mask, g16, heads, lse)[1]
+    want = plain_bwd(q16, bias, mask, g16, heads)[1]
     assert db.dtype == torch.float32
     torch.testing.assert_close(db, want, rtol=0,
                                atol=1e-4 * want.abs().max().item())
@@ -644,9 +676,10 @@ def _bf16_dbias_close(q16, bias, mask, g16, heads):
 def test_window_attention_bf16_kernels_match_plain(cuda, w, n, heads, d, nw):
     qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=n + d)
     q16, g16 = qkv.bfloat16(), k3_grad(w, n, heads, d, cuda).bfloat16()
+    b16 = bias.bfloat16()  # a cast model's table, for the forward and back
     before = dict(launch_counts)
-    got = fused_window_attention(q16, bias, mask, heads)
-    dq, db = window_attention_bwd(q16, bias.bfloat16(), mask, g16, heads)
+    got, lse = window_attention_fwd(q16, b16, mask, heads)
+    dq, db = window_attention_bwd(q16, b16, mask, g16, heads, lse)
     torch.cuda.synchronize()
     # the bf16 instantiations ran, under their own keys, and no f32 one
     for key in ("window_attention", "window_attention_bwd"):
@@ -654,11 +687,10 @@ def test_window_attention_bf16_kernels_match_plain(cuda, w, n, heads, d, nw):
             f"{key}.bf16", 0) + 1
         assert launch_counts[key] == before.get(key, 0)
     assert got.dtype == dq.dtype == db.dtype == torch.bfloat16
-    want = attention_core_reference(q16, bias, mask, heads)
+    want = attention_core_reference(q16, b16, mask, heads)
     _bf16_close(got, want)
     _bf16_elementwise(got, want)
-    want_dq, want_db = window_attention_bwd_reference(
-        q16, bias.bfloat16(), mask, g16, heads)
+    want_dq, want_db = plain_bwd(q16, b16, mask, g16, heads)
     _bf16_close(dq, want_dq)
     _bf16_elementwise(dq, want_dq)
     _bf16_close(db, want_db)
@@ -676,14 +708,18 @@ def test_bf16_elementwise_check_fails_p_rounded_to_bf16(cuda, w, n, heads, d,
     from a one-pass one."""
     qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=n + d)
     q16, g16 = qkv.bfloat16(), k3_grad(w, n, heads, d, cuda).bfloat16()
+    lse = window_attention_fwd(q16, bias, mask, heads)[1]
     want = (attention_core_reference(q16, bias, mask, heads),
-            window_attention_bwd_reference(q16, bias, mask, g16, heads)[0])
+            plain_bwd(q16, bias, mask, g16, heads)[0])
     got = (fused_window_attention(q16, bias, mask, heads),
-           window_attention_bwd(q16, bias, mask, g16, heads)[0])
+           window_attention_bwd(q16, bias, mask, g16, heads, lse)[0])
     for x, y, c in zip(got, want,
                        p_rounded_reference(q16, bias, mask, g16, heads)):
         assert bf16_ulp_excess(x, y) <= 0
         assert bf16_ulp_excess(c, y) > 0
+    # nor does D from the bf16 output, where the f32 backward takes it
+    assert bf16_ulp_excess(plain_bwd(q16, bias, mask, g16, heads,
+                                     same_sweep=False)[0], want[1]) > 0
 
 
 @pytest.mark.cuda
@@ -693,15 +729,14 @@ def test_window_attention_bf16_kernels_at_edge_shapes(cuda, w, n, heads, d,
     qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=n * 100 + d)
     q16, g16 = qkv.bfloat16(), k3_grad(w, n, heads, d, cuda).bfloat16()
     before = dict(launch_counts)
-    got = fused_window_attention(q16, bias, mask, heads)
-    dq, _ = window_attention_bwd(q16, bias, mask, g16, heads)
+    got, lse = window_attention_fwd(q16, bias, mask, heads)
+    dq, _ = window_attention_bwd(q16, bias, mask, g16, heads, lse)
     torch.cuda.synchronize()
     for key in ("window_attention", "window_attention_bwd"):
         assert launch_counts[f"{key}.bf16"] == before.get(
             f"{key}.bf16", 0) + 1
     _bf16_elementwise(got, attention_core_reference(q16, bias, mask, heads))
-    _bf16_elementwise(dq, window_attention_bwd_reference(
-        q16, bias, mask, g16, heads)[0])
+    _bf16_elementwise(dq, plain_bwd(q16, bias, mask, g16, heads)[0])
     _bf16_dbias_close(q16, bias, mask, g16, heads)
 
 
@@ -713,8 +748,9 @@ def test_window_attention_bwd_bf16_kernel_is_deterministic(cuda):
     qkv, bias, mask = k2_inputs(w, n, heads, d, nw, cuda, seed=5)
     q16, g16 = qkv.bfloat16(), k3_grad(w, n, heads, d, cuda).bfloat16()
     for b in (bias, bias.bfloat16()):
-        first = window_attention_bwd(q16, b, mask, g16, heads)
-        again = window_attention_bwd(q16, b, mask, g16, heads)
+        lse = window_attention_fwd(q16, b, mask, heads)[1]
+        first = window_attention_bwd(q16, b, mask, g16, heads, lse)
+        again = window_attention_bwd(q16, b, mask, g16, heads, lse)
         torch.cuda.synchronize()
         for x, y in zip(first, again):
             assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
@@ -724,13 +760,19 @@ def test_window_attention_bwd_bf16_kernel_is_deterministic(cuda):
 def test_window_attention_takes_only_f32_or_bf16(cuda):
     qkv, bias, mask = k2_inputs(8, 24, 3, 8, 4, cuda)
     g = k3_grad(8, 24, 3, 8, cuda)
+    out, lse = window_attention_fwd(qkv, bias, mask, 3)
     for dtype in (torch.float16, torch.float64):
         with pytest.raises(TypeError, match="float32 or bfloat16"):
             fused_window_attention(qkv.to(dtype), bias, mask, 3)
         with pytest.raises(TypeError, match="float32 or bfloat16"):
-            window_attention_bwd(qkv.to(dtype), bias, mask, g.to(dtype), 3)
+            window_attention_bwd(qkv.to(dtype), bias, mask, g.to(dtype), 3,
+                                 lse, out)
     with pytest.raises(TypeError, match="g must be torch.bfloat16"):
-        window_attention_bwd(qkv.bfloat16(), bias, mask, g, 3)
+        window_attention_bwd(qkv.bfloat16(), bias, mask, g, 3, lse)
+    with pytest.raises(TypeError, match="lse must be torch.float32"):
+        window_attention_bwd(qkv, bias, mask, g, 3, lse.double(), out)
+    with pytest.raises(ValueError, match="the forward's output"):
+        window_attention_bwd(qkv, bias, mask, g, 3, lse)
 
 
 @pytest.mark.cuda
@@ -868,7 +910,7 @@ def test_custom_ops_equal_the_direct_kernel_launch(cuda):
         want = torch.empty_like(got)
         _direct_launch("window_attention", f"window_attention_{suffix}",
                        wa._bind, (qkv.data_ptr(), bias.data_ptr(), None,
-                                  want.data_ptr(), 32, 196, 3, 32, 0,
+                                  want.data_ptr(), None, 32, 196, 3, 32, 0,
                                   ctypes.c_float(32 ** -0.5)), want)
         assert torch.equal(got, want)
     xr = torch.randn((8, 4, 28, 28, 96), generator=g).to(cuda)

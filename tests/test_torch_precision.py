@@ -547,9 +547,12 @@ def test_plain_attention_bf16_matches_the_pallas_kernel():
     t16 = torch.from_numpy(qkv).to(BF16)
     got = attention_core_reference(t16, torch.from_numpy(bias),
                                    torch.from_numpy(mask), heads)
+    lse = attention_core_reference(t16, torch.from_numpy(bias),
+                                   torch.from_numpy(mask), heads,
+                                   with_lse=True)[1]
     dq, db = window_attention_bwd_reference(
         t16, torch.from_numpy(bias), torch.from_numpy(mask),
-        torch.from_numpy(g).to(BF16), heads)
+        torch.from_numpy(g).to(BF16), heads, lse)
     assert got.dtype == dq.dtype == BF16 and db.dtype == torch.float32
     assert want.dtype == dq_want.dtype == jnp.bfloat16
     assert _rel(got.float(), _np(want)) < 1e-2

@@ -16,7 +16,10 @@ mode (as tests/test_pallas.py runs it off the TPU) on the same values
 widened to f32: `fused_window_attention` at the shapes of
 tests/test_torch_window_attention_tf32x3.py (forward, atol 1e-5) and its
 vjp with the same g (gradients of qkv and the bias, atol 1e-4), each also
-at Swin3D-T's window (4, 196, 3, 32, 2).  A negative control shows that
+at Swin3D-T's window (4, 196, 3, 32, 2).  The backward's row pass is also
+emulated as K3 bf16 runs it: p from the row logsumexp, D = rowsum(p dP)
+summed in the sweep, and dQ = (A - D B) / sqrt(d) with A = (p dP) k and
+B = p k, p dP and p in two bf16 pieces each.  A negative control shows that
 one bf16 piece of p does not hold 1e-5.
 """
 
@@ -115,6 +118,30 @@ def backward(qkv, bias, mask, g, heads):
     return dqkv, ds.sum(dim=0)
 
 
+def backward_same_sweep(qkv, bias, mask, g, heads):
+    """`backward` with dQ as K3 bf16's one row sweep computes it: p =
+    exp(s - lse) from the rows' logsumexp, D = rowsum(p dP), and
+    dQ = (A - D B) / sqrt(d), A = (p dP) k and B = p k each with the f32
+    operand in two bf16 pieces; dK, dV and dbias as the column pass."""
+    w, n, c3 = qkv.shape
+    q, k, v = heads_of(qkv, heads)
+    d = q.shape[-1]
+    scale = d ** -0.5
+    gh = g.reshape(w, n, heads, d).transpose(1, 2).contiguous()
+    s = scores(q, k, bias, mask)
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    dp = mm_exact(gh, v.transpose(-1, -2).contiguous(), min(d, 16))
+    pdp = p * dp
+    dsum = pdp.sum(dim=-1, keepdim=True)
+    dq = (mm_pieces(pdp, k.contiguous())
+          - dsum * mm_pieces(p, k.contiguous())) * scale
+    ds = p * (dp - dsum)
+    dv = mm_pieces(p.transpose(-1, -2).contiguous(), gh)
+    dk = mm_pieces(ds.transpose(-1, -2).contiguous(), q.contiguous()) * scale
+    dqkv = torch.stack((dq, dk, dv)).permute(1, 3, 0, 2, 4).reshape(w, n, c3)
+    return dqkv, ds.sum(dim=0)
+
+
 def inputs(w, n, heads, d, nw, seed, bias_scale):
     """qkv, the bias, the mask and g, rounded to bf16 where the bf16 path
     has them in bf16 (the mask is f32: 0 or -100, exact)."""
@@ -185,6 +212,13 @@ def test_forward_in_bf16_pieces_matches_jax_kernel(fwd_case):
 def test_backward_in_bf16_pieces_matches_jax_vjp(bwd_case):
     (qkv, bias, mask, g, heads), want = bwd_case
     got = backward(qkv, bias, mask, g, heads)
+    for x, ref in zip(got, want):
+        np.testing.assert_allclose(x.numpy(), ref, atol=1e-4)
+
+
+def test_backward_same_sweep_in_bf16_pieces_matches_jax_vjp(bwd_case):
+    (qkv, bias, mask, g, heads), want = bwd_case
+    got = backward_same_sweep(qkv, bias, mask, g, heads)
     for x, ref in zip(got, want):
         np.testing.assert_allclose(x.numpy(), ref, atol=1e-4)
 

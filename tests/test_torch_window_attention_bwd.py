@@ -70,9 +70,10 @@ def test_autograd_function_matches_jax_grad(case):
 
 def test_plain_backward_matches_jax_grad(case):
     (qkv, bias, mask, heads), want = case
-    out = attention_core_reference(_t(qkv), _t(bias), _t(mask), heads)
+    out, lse = attention_core_reference(_t(qkv), _t(bias), _t(mask), heads,
+                                        with_lse=True)
     got = window_attention_bwd_reference(_t(qkv), _t(bias), _t(mask),
-                                         2 * out, heads)
+                                         2 * out, heads, lse, out)
     for g, ref in zip(got, want):
         np.testing.assert_allclose(g.numpy(), ref, atol=1e-4)
 
@@ -86,7 +87,10 @@ def test_plain_backward_matches_autograd_of_the_plain_forward(case):
     g = torch.from_numpy(np.random.default_rng(1).standard_normal(
         out.shape))
     want = torch.autograd.grad(out, (q, b), g)
-    got = window_attention_bwd_reference(q.detach(), b.detach(), m, g, heads)
+    fwd, lse = attention_core_reference(q.detach(), b.detach(), m, heads,
+                                        with_lse=True)
+    got = window_attention_bwd_reference(q.detach(), b.detach(), m, g, heads,
+                                         lse, fwd)
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, atol=1e-12, rtol=1e-10)
 
@@ -94,9 +98,12 @@ def test_plain_backward_matches_autograd_of_the_plain_forward(case):
 def test_cpu_tensor_takes_plain_version_and_counts_nothing():
     qkv, bias, mask = inputs(4, 24, 3, 8, 2, seed=2)
     g = torch.ones((4, 24, 24))
+    out, lse = attention_core_reference(_t(qkv), _t(bias), _t(mask), 3,
+                                        with_lse=True)
     before = launch_counts["window_attention_bwd"]
-    got = window_attention_bwd(_t(qkv), _t(bias), _t(mask), g, 3)
-    want = window_attention_bwd_reference(_t(qkv), _t(bias), _t(mask), g, 3)
+    got = window_attention_bwd(_t(qkv), _t(bias), _t(mask), g, 3, lse, out)
+    want = window_attention_bwd_reference(_t(qkv), _t(bias), _t(mask), g, 3,
+                                          lse, out)
     for x, y in zip(got, want):
         assert torch.equal(x, y)
     assert launch_counts["window_attention_bwd"] == before
@@ -106,4 +113,6 @@ def test_other_devices_raise():
     qkv = torch.zeros((2, 4, 24), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         window_attention_bwd(qkv, torch.zeros((1, 4, 4), device="meta"),
-                             None, torch.zeros((2, 4, 8), device="meta"), 1)
+                             None, torch.zeros((2, 4, 8), device="meta"), 1,
+                             torch.zeros((2, 1, 4), device="meta"),
+                             torch.zeros((2, 4, 8), device="meta"))
