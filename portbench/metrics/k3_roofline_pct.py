@@ -1,0 +1,7 @@
+"""K3 (`window_attention_bwd`): its share of its roofline over the window (`_roofline`)."""
+
+from ._roofline import roofline_pct
+
+
+def read(run):
+    return roofline_pct(run, "window_attention_bwd", "K3")
