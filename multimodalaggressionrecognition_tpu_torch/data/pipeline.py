@@ -22,6 +22,8 @@ from typing import Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 
 def _ordered_window(pool, jobs: Iterable, window: int) -> Iterator:
     """Submit `jobs` ((fn, *args) tuples) to `pool` with at most `window`
@@ -57,9 +59,12 @@ def _leaves(tree):
         yield tree
 
 
-def _pinned(batch):
-    return _tree_map(lambda a: torch.from_numpy(np.asarray(a)).pin_memory(),
-                     batch)
+def _pinned(batch, order=None):
+    """`batch` copied into pinned host memory (`data.pin`, its span keeps
+    `order`: the batch's place in the stream)."""
+    with span("data.pin", order=order):
+        return _tree_map(
+            lambda a: torch.from_numpy(np.asarray(a)).pin_memory(), batch)
 
 
 def readback(tree, device):
@@ -99,8 +104,9 @@ def device_prefetch(batch_iter: Iterable, device, prefetch: int = 2,
         return batch
 
     with ThreadPoolExecutor(max_workers=max(pin_threads, 1)) as pool:
-        for host in _ordered_window(pool, ((_pinned, b) for b in batch_iter),
-                                    prefetch + 1):
+        for host in _ordered_window(
+                pool, ((_pinned, b, i) for i, b in enumerate(batch_iter)),
+                prefetch + 1):
             with torch.cuda.stream(copy_stream):
                 batch = _tree_map(lambda t: t.to(device, non_blocking=True),
                                   host)

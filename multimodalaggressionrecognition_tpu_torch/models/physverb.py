@@ -15,6 +15,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from ..utils.profiling import backward_mark, span
 from .layers import Linear
 from .stochastic import Dropout
 
@@ -156,27 +157,34 @@ class PhysVerbModel(nn.Module):
         first = next(iter(batch.values()))["data"]
         feats = {}
         for name in sorted(self.modalities):
-            if name in batch:
-                data = batch[name]["data"]
-                f = (self.extractors[name](data) if name in self.extractors
-                     else data)
-                present = batch[name].get("present")
-                if present is not None:
-                    f = f * present[:, None, None].to(f.dtype)
-                feats[name] = f
-            else:
-                t, d = self.feature_shapes[name]
-                feats[name] = torch.zeros((first.shape[0], t, d),
-                                          device=first.device)
+            with span("forward." + name, device=True):
+                if name in batch:
+                    data = batch[name]["data"]
+                    f = (self.extractors[name](data)
+                         if name in self.extractors else data)
+                    backward_mark(f, "backward." + name)
+                    present = batch[name].get("present")
+                    if present is not None:
+                        f = f * present[:, None, None].to(f.dtype)
+                    feats[name] = f
+                else:
+                    t, d = self.feature_shapes[name]
+                    feats[name] = torch.zeros((first.shape[0], t, d),
+                                              device=first.device)
         return feats
 
     def fused_features(self, batch):
         """The (fused) per-modality features the classifier reads."""
         feats = self.extract_features(batch)
-        return feats if self.fusion is None else self.fusion(feats)
+        if self.fusion is None:
+            return feats
+        with span("forward.fusion", device=True):
+            return self.fusion(feats)
 
     def forward(self, batch):
-        return self.classifier(self.fused_features(batch))
+        feats = self.fused_features(batch)
+        with span("forward.heads", device=True):
+            return self.classifier(feats)
 
     def head_names(self):
         return self.classifier.head_names()

@@ -28,7 +28,14 @@ preemption, early stopping (the JAX package's train/loop.py).
   batches without building them (`BatchLoader.iter_skipping`), so a
   resumed run logs what the uninterrupted one would;
 - with `profile_dir`, epoch min(profile_epoch, epochs - 1) trains under
-  `torch.profiler` (utils/profiling.py).
+  `torch.profiler` (utils/profiling.py), and its Chrome trace names the
+  phases, each recorded as a span (`profiling.span`): the loader's wait
+  (`train.next_batch`), the metrics' accumulation (`train.accumulate`),
+  the throttle's wait (`train.throttle`), the pin threads' copies
+  (`data.pin`), and each `step` with its forward (`step.forward`,
+  `step.cast` in bf16; `forward.<modality>`, `forward.fusion`,
+  `forward.heads`), `step.loss`, `step.backward` (`step.zero_grad` inside
+  it) and `step.optimizer`.
 
 The epoch runs without host synchronisation: each step's metrics are added
 into accumulators on the device, and the host reads them once per epoch
@@ -60,6 +67,7 @@ import torch
 from ..data.pipeline import ProcessLocalBatches, device_prefetch
 from ..models.stochastic import set_generator
 from ..ops.metrics import metrics_from_confusion
+from ..utils import profiling
 from ..utils.preemption import NullGuard, PreemptionGuard
 from ..utils.runlock import acquire_run_lock
 from .state import TrainState, create_train_state
@@ -297,7 +305,15 @@ class Trainer:
         epoch so far when preempted, the whole epoch otherwise.  A pending
         partial epoch (`self._partial`, from load_checkpoint) resumes: the
         trained batches are skipped, the generator and the accumulators
-        continue from its state."""
+        continue from its state.  Under a caller's running profiler (a
+        benchmark's traced window) the epoch is recorded, its device phases
+        timed on the card (`profiling.last_recording()`)."""
+        if profiling.profiler_running():
+            with profiling.recording(self.device):
+                return self._train_epoch(generator)
+        return self._train_epoch(generator)
+
+    def _train_epoch(self, generator):
         self.init_state()
         partial, self._partial = self._partial, None
         skip, prior_seconds, acc = 0, 0.0, {}
@@ -321,10 +337,19 @@ class Trainer:
                     "seconds": prior_seconds + time.time() - t0,
                     "generator": generator.get_state()}
 
-        for batch in device_prefetch(
-                self._skipping(self.train_loader, skip), self.device):
-            _accumulate(acc, self.train_step(batch), batch["sample_mask"])
-            inflight.push()
+        batches = device_prefetch(self._skipping(self.train_loader, skip),
+                                  self.device)
+        while True:
+            step = self.state.step
+            with profiling.span("train.next_batch", step):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            metrics = self.train_step(batch)
+            with profiling.span("train.accumulate", step):
+                _accumulate(acc, metrics, batch["sample_mask"])
+            with profiling.span("train.throttle", step):
+                inflight.push()
             done += 1
             if self._guard.should_stop():
                 self._snapshot = snapshot()
@@ -506,9 +531,7 @@ class Trainer:
             generator = self.epoch_generator(epoch)
             if self.profile_dir and epoch == min(self.profile_epoch,
                                                  epochs - 1):
-                from ..utils.profiling import trace
-
-                with trace(self.profile_dir):
+                with profiling.trace(self.profile_dir):
                     train_results = self.train_epoch(generator)
             else:
                 train_results = self.train_epoch(generator)

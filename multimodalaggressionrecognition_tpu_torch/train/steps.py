@@ -36,6 +36,7 @@ from torch.func import functional_call
 from ..ops import losses as L
 from ..ops.metrics import confusion_matrix
 from ..utils.precision import cast_floating, resolve_dtype
+from ..utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -148,8 +149,10 @@ def forward(model, modalities, compute_dtype=None, params=None):
         return model(modalities)
     full = dict(model.named_parameters())
     full.update(params or {})
-    return functional_call(model, cast_floating(full, dtype),
-                           (cast_floating(modalities, dtype),))
+    with span("step.cast", device=True):
+        full = cast_floating(full, dtype)
+        modalities = cast_floating(modalities, dtype)
+    return functional_call(model, full, (modalities,))
 
 
 def train_step(state, batch, loss_specs, num_classes: int,
@@ -159,17 +162,24 @@ def train_step(state, batch, loss_specs, num_classes: int,
     forward; the EMA shadow moves after each real update.  Returns the
     metrics (device tensors)."""
     model, optimizer = state.model, state.optimizer
-    model.train()
-    optimizer.zero_grad()
-    total, metrics = head_losses_and_metrics(
-        forward(model, batch["modalities"], compute_dtype), batch,
-        loss_specs, num_classes, state.dp_group())
-    total.backward()
-    # heads without labels still move, on zero gradients
-    if optimizer.step():
-        state.update_ema()
-    state.step += 1
-    metrics["total_loss"] = total_loss(metrics)
+    with span("step", state.step, device=True):
+        with span("step.forward"):
+            model.train()
+            outputs = forward(model, batch["modalities"], compute_dtype)
+        with span("step.loss", device=True):
+            total, metrics = head_losses_and_metrics(
+                outputs, batch, loss_specs, num_classes, state.dp_group())
+            metrics["total_loss"] = total_loss(metrics)
+        with span("step.backward", device=True):
+            # zeroed here, by the backward that refills them
+            with span("step.zero_grad"):
+                optimizer.zero_grad()
+            total.backward()
+        # heads without labels still move, on zero gradients
+        with span("step.optimizer", device=True):
+            if optimizer.step():
+                state.update_ema()
+        state.step += 1
     return metrics
 
 

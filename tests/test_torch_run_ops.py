@@ -165,23 +165,6 @@ def test_profiler_traces_the_profiled_epoch(tmp_path):
     assert any("linear" in str(e.get("name", "")).lower() for e in events)
 
 
-def test_step_timer_means():
-    from multimodalaggressionrecognition_tpu_torch.utils.profiling import (
-        StepTimer)
-
-    timer = StepTimer()
-    for _ in range(3):
-        with timer.section("step"):
-            pass
-    with timer.section("eval"):
-        pass
-    summary = timer.summary()
-    assert sorted(summary) == ["eval", "step"]
-    assert timer.counts["step"] == 3 and summary["step"] >= 0.0
-    timer.reset()
-    assert timer.summary() == {}
-
-
 def test_sweep_stops_at_a_preempted_point(tmp_path, monkeypatch):
     """cli.sweep's checkpoint_preempt branch with the port's own trainer: a
     point whose train entry was preempted leaves its file, gets no
