@@ -13,9 +13,22 @@ the valid count or the summed target weights, and the denominator's
 floor), so a data-parallel step can sum both over its ranks and divide
 once: the global batch's loss, as GSPMD's reduction gives it
 (train/steps.py).
+
+The class weights are gathered from a table on the logits' device
+(`class_weight_table`), built once per (weights, dtype, device) and kept
+for the life of the process: making a CUDA tensor from a Python tuple is a
+pageable copy that waits for the card to drain its queue, which every step
+would otherwise pay.  `TABLE_COUNTS` counts the builds and the hits
+(utils/profiling.Recording reads both over a window).
 """
 
+import threading
+
 import torch
+
+_tables = {}  # (weights tuple, dtype, device) -> the table on that device
+_tables_lock = threading.Lock()
+TABLE_COUNTS = {"builds": 0, "hits": 0}
 
 
 def _log_softmax_gather(logits, labels):
@@ -23,11 +36,32 @@ def _log_softmax_gather(logits, labels):
     return logp.gather(-1, labels.long()[..., None])[..., 0]
 
 
+def class_weight_table(weights, dtype, device):
+    """`weights` (a tuple or list of per-class weights) as a `dtype` tensor
+    on `device`: built with one copy on first use, the same tensor after.
+    A tensor is used as it is, moved with `.to(dtype, device)`."""
+    if isinstance(weights, torch.Tensor):
+        return weights.to(dtype=dtype, device=device)
+    key = (tuple(weights), dtype, torch.device(device))
+    with _tables_lock:
+        table = _tables.get(key)
+        if table is None:
+            table = torch.as_tensor(key[0], dtype=dtype, device=device)
+            _tables[key] = table
+            TABLE_COUNTS["builds"] += 1
+        else:
+            TABLE_COUNTS["hits"] += 1
+    return table
+
+
 def _masked_terms(loss, row_mask):
     """(numerator, denominator, floor) of the masked mean
     sum(loss * m) / max(sum(m), floor)."""
     if row_mask is None:
-        return loss.sum(), loss.new_tensor(float(loss.numel())), 1.0
+        # filled on the device: a host scalar would be a blocking copy
+        count = torch.full((), float(loss.numel()), dtype=loss.dtype,
+                           device=loss.device)
+        return loss.sum(), count, 1.0
     row_mask = row_mask.to(loss.dtype)
     return (loss * row_mask).sum(), row_mask.sum(), 1.0
 
@@ -43,8 +77,8 @@ def cross_entropy_terms(logits, labels, row_mask=None):
 def weighted_cross_entropy_terms(logits, labels, class_weights,
                                  row_mask=None):
     nll = -_log_softmax_gather(logits, labels)
-    w = torch.as_tensor(class_weights, dtype=nll.dtype,
-                        device=nll.device)[labels.long()]
+    w = class_weight_table(class_weights, nll.dtype,
+                           nll.device)[labels.long()]
     if row_mask is not None:
         w = w * row_mask.to(w.dtype)
     return (nll * w).sum(), w.sum(), 1e-12
@@ -55,8 +89,8 @@ def focal_loss_terms(logits, labels, alpha=None, gamma: float = 2.0,
     logp_y = _log_softmax_gather(logits, labels)
     ce = -logp_y
     if alpha is not None:
-        ce = ce * torch.as_tensor(alpha, dtype=ce.dtype,
-                                  device=ce.device)[labels.long()]
+        ce = ce * class_weight_table(alpha, ce.dtype,
+                                     ce.device)[labels.long()]
     loss = (1.0 - logp_y.exp()) ** gamma * ce
     return _masked_terms(loss, row_mask)
 

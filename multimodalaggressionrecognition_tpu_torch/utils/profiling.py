@@ -14,9 +14,10 @@
   CUDA event at each end of a span marked `device`, on the current stream,
   and `backward_mark` splits the backward by tower; the events are
   resolved when the recording is first read, never per step.  The
-  allocator's counters are read when it opens and closes.  Under a running
-  profiler each span is also a `torch.profiler.record_function` range, so
-  the profiler's trace shows the phases by name.
+  allocator's counters and the loss's class-weight table builds and hits
+  (`ops/losses.TABLE_COUNTS`) are read when it opens and closes.  Under a
+  running profiler each span is also a `torch.profiler.record_function`
+  range, so the profiler's trace shows the phases by name.
 
 `Trainer.train_epoch` records (timed) every epoch that runs under a
 caller's profiler, such as a benchmark's traced window, and
@@ -95,9 +96,10 @@ class Segment:
 
 
 class Recording:
-    """The spans, backward marks and allocator counters of one window,
-    opened at `opened_ns` and closed at `closed_ns` (`time.time_ns`).
-    `timed`: device phases record CUDA events (on a card only)."""
+    """The spans, backward marks, allocator counters and loss-table counts
+    of one window, opened at `opened_ns` and closed at `closed_ns`
+    (`time.time_ns`).  `timed`: device phases record CUDA events (on a card
+    only)."""
 
     def __init__(self, device=None, timed=True):
         import torch
@@ -111,10 +113,12 @@ class Recording:
         self.spans: List[Span] = []
         self.marks = []  # (name, step, ns, event) as each prehook fired
         self.allocator: Dict[str, int] = {}
+        self.loss_tables: Dict[str, int] = {}
         self._local = threading.local()
         self._handles = []
         self._segments = None
         self._counters = self._allocator_counters()
+        self._tables = _loss_table_counts()
         self.opened_ns, self.closed_ns = time.time_ns(), None
 
     def _allocator_counters(self):
@@ -158,6 +162,8 @@ class Recording:
         self._handles = []
         after = self._allocator_counters()
         self.allocator = {k: after[k] - v for k, v in self._counters.items()}
+        after = _loss_table_counts()
+        self.loss_tables = {k: after[k] - v for k, v in self._tables.items()}
 
     # ------------------------------------------------------------ reading
     def _resolve(self):
@@ -227,13 +233,19 @@ class Recording:
 
     def summary(self) -> dict:
         """Means a step: host ms by span, card ms by device phase, the card
-        ms between steps, the allocator's counts."""
+        ms between steps; the window's allocator and loss-table counts."""
         between = self.between_steps_ms()
         return {"steps": self.steps, "host_ms": self.host_ms(),
                 "device_ms": self.device_ms(),
                 "between_steps_ms": statistics.fmean(between)
                 if between else None,
-                "allocator": self.allocator}
+                "allocator": self.allocator, "loss_tables": self.loss_tables}
+
+
+def _loss_table_counts() -> Dict[str, int]:
+    from ..ops.losses import TABLE_COUNTS
+
+    return dict(TABLE_COUNTS)
 
 
 class _Open:

@@ -1303,6 +1303,55 @@ def _flagship_step(device, mesh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_train_step_never_blocks_the_host(cuda, compute_dtype):
+    """Steps 2-4 of the hidden-64 flagship's train step, a focal head with
+    alpha and a weighted-CE head, raise nothing under CUDA's sync debug
+    mode "error": no copy from the host, readback or synchronisation in
+    the step.  The first step builds the loss's class-weight tables (one
+    copy each); the later ones only hit them."""
+    import numpy as np
+
+    from multimodalaggressionrecognition_tpu_torch.data.pipeline import (
+        _tree_map)
+    from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
+        set_generator)
+    from multimodalaggressionrecognition_tpu_torch.ops.losses import (
+        TABLE_COUNTS)
+    from multimodalaggressionrecognition_tpu_torch.parallel.dryrun import (
+        _batch, _flagship)
+    from multimodalaggressionrecognition_tpu_torch.train.state import (
+        OptimizerConfig, create_train_state)
+    from multimodalaggressionrecognition_tpu_torch.train.steps import (
+        LossSpec, train_step)
+
+    state = create_train_state(_flagship(), OptimizerConfig(1e-3), cuda)
+    set_generator(state.model, torch.Generator(cuda).manual_seed(0))
+    host = _batch(8)
+    host["labels"]["phys"] = (np.arange(8) // 2 % 2).astype(np.int64)
+    host["label_mask"]["phys"] = np.ones((8,), np.float32)
+    batch = _tree_map(lambda a: torch.from_numpy(np.asarray(a)).to(cuda),
+                      host)
+    specs = {"phys": LossSpec("focal", class_weights=(0.3, 0.7)),
+             "verb": LossSpec("weighted_ce", class_weights=(0.6, 0.4))}
+    train_step(state, batch, specs, 2, compute_dtype=compute_dtype)
+    torch.cuda.synchronize()
+    before = dict(TABLE_COUNTS)
+    losses = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            metrics = train_step(state, batch, specs, 2,
+                                 compute_dtype=compute_dtype)
+            losses.append(metrics["total_loss"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert TABLE_COUNTS["builds"] == before["builds"]
+    assert TABLE_COUNTS["hits"] == before["hits"] + 6
+    assert all(bool(torch.isfinite(x)) for x in losses)
+
+
+@pytest.mark.cuda
 def test_one_rank_nccl_step_matches_plain(cuda):
     """A world of one over NCCL: the data-parallel step (its loss and
     gradient all-reduces) equals the plain step, both under deterministic

@@ -4,7 +4,9 @@ package's.
 The same logits and labels, made with numpy, go through both.  Loss values
 and their logit gradients are held at 1e-6 (f32 on both sides, only the
 order of a few sums differs); the confusion matrix and the metrics derived
-from it must be equal.
+from it must be equal.  The class weights come from a table built once per
+(weights, dtype, device): the weighted terms and their logit gradients are
+bit for bit those of the weights made into a tensor on every call.
 """
 
 import jax
@@ -63,6 +65,99 @@ def test_loss_and_logit_gradient_match_jax(kind, mask_kind):
     np.testing.assert_allclose(lg.grad.numpy(), np.asarray(want_g), atol=TOL)
     if mask_kind == "all":
         assert got.item() == 0.0 and not lg.grad.abs().any()
+
+
+def _inline_terms(kind, logits, labels, weights, row_mask):
+    """The weighted terms with the weights made into a tensor in place, on
+    every call: the formula the table replaces."""
+    logp_y = torch.log_softmax(logits, dim=-1).gather(
+        -1, labels.long()[..., None])[..., 0]
+    w = torch.as_tensor(weights, dtype=logp_y.dtype,
+                        device=logp_y.device)[labels.long()]
+    if kind == "weighted_ce":
+        if row_mask is not None:
+            w = w * row_mask.to(w.dtype)
+        return (-logp_y * w).sum(), w.sum(), 1e-12
+    loss = (1.0 - logp_y.exp()) ** 2.0 * (-logp_y * w)
+    if row_mask is None:
+        return loss.sum(), loss.new_tensor(float(loss.numel())), 1.0
+    row_mask = row_mask.to(loss.dtype)
+    return (loss * row_mask).sum(), row_mask.sum(), 1.0
+
+
+def _port_terms(kind, logits, labels, weights, row_mask):
+    if kind == "weighted_ce":
+        return tl.weighted_cross_entropy_terms(logits, labels, weights,
+                                               row_mask)
+    return tl.focal_loss_terms(logits, labels, alpha=weights, gamma=2.0,
+                               row_mask=row_mask)
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "rows"])
+@pytest.mark.parametrize("container", ["tuple", "list", "tensor"])
+@pytest.mark.parametrize("kind", ["weighted_ce", "focal"])
+def test_weight_table_terms_and_gradients_are_bit_identical(kind, container,
+                                                            mask_kind):
+    logits, labels, mask = _inputs(mask_kind, n=11, seed=3)
+    labels, mask = torch.from_numpy(labels), (
+        None if mask is None else torch.from_numpy(mask))
+    weights = {"tuple": ALPHA, "list": list(ALPHA),
+               "tensor": torch.tensor(ALPHA, dtype=torch.float64)}[container]
+    grads, terms = [], []
+    for fn in (_inline_terms, _port_terms):
+        lg = torch.from_numpy(logits).requires_grad_()
+        num, den, floor = fn(kind, lg, labels, weights, mask)
+        tl.reduce_terms(num, den, floor).backward()
+        terms.append((num.detach(), den, floor))
+        grads.append(lg.grad)
+    (want_num, want_den, want_floor), (num, den, floor) = terms
+    assert torch.equal(num, want_num) and torch.equal(den, want_den)
+    assert floor == want_floor and den.dtype == want_den.dtype
+    assert torch.equal(grads[1], grads[0])
+
+
+def test_weight_table_is_built_once_per_weights_dtype_and_device():
+    counts = tl.TABLE_COUNTS
+    weights = (0.1234, 0.8766)  # no other test builds this table
+
+    def delta(before):
+        return (counts["builds"] - before[0], counts["hits"] - before[1])
+
+    before = (counts["builds"], counts["hits"])
+    table = tl.class_weight_table(weights, torch.float32, "cpu")
+    assert delta(before) == (1, 0)
+    assert torch.equal(table, torch.as_tensor(weights, dtype=torch.float32))
+    assert tl.class_weight_table(list(weights), torch.float32,
+                                 torch.device("cpu")) is table
+    assert delta(before) == (1, 1)
+    f64 = tl.class_weight_table(weights, torch.float64, "cpu")
+    other = tl.class_weight_table((0.4321, 0.5679), torch.float32, "cpu")
+    assert delta(before) == (3, 1)
+    assert f64.dtype == torch.float64 and f64 is not table
+    assert not torch.equal(other, table)
+    given = torch.tensor(weights, dtype=torch.float64)
+    assert torch.equal(tl.class_weight_table(given, torch.float32, "cpu"),
+                       table)
+    assert delta(before) == (3, 1)  # a tensor is used as it is
+    logits, labels, _ = _inputs("none", seed=5)
+    for _ in range(3):
+        tl.focal_loss(torch.from_numpy(logits), torch.from_numpy(labels),
+                      alpha=weights)
+    assert delta(before) == (3, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["ce", "focal"])
+def test_unmasked_denominator_is_the_row_count(kind, dtype):
+    logits, labels, _ = _inputs("none", n=7, seed=2)
+    logits = torch.from_numpy(logits).to(dtype)
+    labels = torch.from_numpy(labels)
+    if kind == "ce":
+        num, den, floor = tl.cross_entropy_terms(logits, labels)
+    else:
+        num, den, floor = tl.focal_loss_terms(logits, labels, alpha=ALPHA)
+    assert den.shape == () and den.dtype == num.dtype == dtype
+    assert den.item() == 7.0 and floor == 1.0
 
 
 def test_masked_head_loss_skips_invalid_heads():
