@@ -17,7 +17,7 @@ import sys
 
 import torch
 
-from . import harness
+from . import harness, models
 
 
 def readings(workload, seed, **kw):
@@ -32,17 +32,17 @@ def readings(workload, seed, **kw):
 # where a limit sits between its readings: this share of the way from the
 # lower to the upper on a log scale, so more room lies above the lower
 LIMIT_AT = 0.6
-KEYS = ("loss_gap", "loss1_gap", "grad_gap", "video_grad_gap",
-        "change_gap")
 
 
-def limits_from(cal, keys=KEYS):
-    """{"limits", "readings"} from a calibration file's readings: the lower
-    reading is the largest of the program's seeds; the upper the smallest
-    of the control's and of each fault's that reads ten times the lower or
-    more (a state left unchanged: three times)."""
+def limits_from(cal, keys=None):
+    """{"limits", "readings"} from a calibration file's readings, of each
+    of `keys` (by default every number the check gave: the whole model's
+    and its model's `GRAD_GROUPS`): the lower reading is the largest of the
+    program's seeds; the upper the smallest of the control's and of each
+    fault's that reads ten times the lower or more (a state left unchanged:
+    three times)."""
     out = {"limits": {}, "readings": {}}
-    for key in keys:
+    for key in keys or next(iter(cal["program"].values())):
         if not all(key in r for r in cal["program"].values()):
             continue
         lower = max(r[key] for r in cal["program"].values())
@@ -75,13 +75,14 @@ def main(argv=None):
     parser.add_argument("--out", required=True)
     args = parser.parse_args(argv)
     _, cfg, job, _, _ = harness.load_cell(args.workload)
+    model = models.load(cfg)
     seeds = [args.first_seed + 7_919 * i for i in range(args.seeds)]
     out = {"workload": args.workload,
            "card": torch.cuda.get_device_name(0), "program": {},
            "control": {}, "half_batch": {}, "unchanged": {},
            "control_products": job["control_products"],
-           "names": harness.trainable_names(
-               cfg, job, harness.L.job_modalities(cfg, job)),
+           "names": model.trainable_names(cfg, job,
+                                          model.modalities(cfg, job)),
            "leaves": {}}
 
     def save():

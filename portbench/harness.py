@@ -7,9 +7,9 @@ What a run does, in order:
 1. set-up (`setup_s`, from process start to the window's first batch):
    the kernels are built (the first run in a checkout) or found; the
    weights and a pool of host batches in pinned memory are made from the
-   seed; the trainer is built as the training entry builds it
-   (`cli/train_multimodal.build_model`, `cli/common.build_trainer`) and
-   loaded with the weights; it trains its first three steps, each through
+   seed; the trainer is built through the port's training entry by the
+   model the configuration names (`models/<model>.py`) and loaded with the
+   weights; it trains its first three steps, each through
    `Trainer.train_epoch` on distinct batches of the pool, from a dropout
    stream seeded by the run's seed: an epoch of one batch, whose
    optimizer state gives the first gradient, then an epoch of two, after
@@ -25,8 +25,8 @@ What a run does, in order:
    weights, batches and draws.  Each step's loss, each leaf's first
    gradient (from Adam's first moment after one step) and each leaf's
    change after three steps are compared by the worst leaf, the first
-   gradient also by the worst of the Swin tower's leaves, with the limits
-   of the cell (`limits/<cell>.json`).
+   gradient also by the worst leaf of each of the model's groups
+   (`GRAD_GROUPS`), with the limits of the cell (`limits/<cell>.json`).
 """
 
 import gc
@@ -60,9 +60,8 @@ PROCESS_START = _process_start()
 
 import torch  # noqa: E402
 
-from . import inputs  # noqa: E402
-from .reference import model as M  # noqa: E402
-from .reference.train import ReferenceTrainer  # noqa: E402
+from . import inputs, models  # noqa: E402
+from .yardstick import families  # noqa: E402
 from .yardstick import launches as L  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -73,7 +72,6 @@ ADAM_B1 = 0.9
 # is nought to rounding (a key's bias under softmax): Adam moves it by
 # round-off alone, so its change is not compared
 NOUGHT = 1e-3
-VIDEO = "extractors.video."  # the Swin tower's leaves
 
 
 class BenchmarkError(RuntimeError):
@@ -93,6 +91,8 @@ def load_cell(name: str):
     config = {c["name"]: c for c in manifest["configs"]}[cell["config"]]
     with open(os.path.join(ROOT, config["file"])) as f:
         cfg = json.load(f)
+    if "model" not in cfg:
+        raise BenchmarkError(f"{config['file']} names no model")
     with open(os.path.join(HERE, "traffic", cell["traffic"] + ".json")) as f:
         job = json.load(f)
     limits_path = os.path.join(HERE, "limits", name + ".json")
@@ -184,38 +184,6 @@ class PoolLoader:
 
 
 # ------------------------------------------------------------ the program
-def build_trainer(cfg, job, modalities, weights, alpha, device, run_root):
-    """The port's Trainer, as the training entry builds it, on `weights`."""
-    from multimodalaggressionrecognition_tpu_torch.cli.common import \
-        build_trainer as port_build_trainer
-    from multimodalaggressionrecognition_tpu_torch.cli.train_multimodal import (
-        MultimodalConfig, build_model)
-    from multimodalaggressionrecognition_tpu_torch.train.steps import LossSpec
-
-    mcfg = MultimodalConfig(
-        modalities=",".join(cfg["modalities"]),
-        hidden_size=cfg["hidden_size"], fusion_layers=cfg["fusion_layers"],
-        fusion_heads=cfg["fusion_heads"], adaptor_out=cfg["adaptor_out"],
-        audio_samples=cfg["audio_samples"], text_tokens=cfg["text_tokens"],
-        video_frames=cfg.get("video_frames", 128),
-        video_size=cfg.get("video_size", 112),
-        video_window=cfg.get("video_window", 8),
-        swin_gelu=cfg.get("swin_gelu", "poly"),
-        video_freeze=job["video_freeze"], video_remat=job["video_remat"],
-        video_remat_policy=job["video_remat_policy"],
-        focal_gamma=cfg["focal_gamma"], batch_size=job["batch_size"],
-        learning_rate=job["learning_rate"],
-        compute_dtype=job["compute_dtype"], saving_dir=run_root,
-        run_name="run", log_console=False, device=str(device))
-    with torch.device(device):
-        model = build_model(mcfg, tuple(cfg["modalities"]))
-    model.load_state_dict(weights, strict=True)
-    loss_specs = {"phys": LossSpec("focal", class_weights=alpha,
-                                   gamma=cfg["focal_gamma"]),
-                  "verb": LossSpec("ce")}
-    return port_build_trainer(mcfg, model, loss_specs, PoolLoader([]), [])
-
-
 def first_gradient_norms(trainer, names):
     """Each leaf's first gradient as Adam got it, from its first moment
     after one step (m = (1 - b1) g); a leaf without state reads 0."""
@@ -250,13 +218,14 @@ def leaf_gaps(program, reference, keep=None):
     return gaps
 
 
-def compare(program, reference, names):
+def compare(program, reference, names, groups):
     """The output check's numbers, from the two sides' readings {losses,
     grad_norms, change_norms} of the leaves `names`: each step's loss by
     the worst step and the first step's alone; the first gradient's norm by
-    the worst leaf, and by the worst of the Swin tower's where it trains;
-    the change's norm by the worst leaf.  A leaf whose reference gradient
-    is nought to rounding is left out of the change."""
+    the worst leaf, and by the worst leaf of each group of `groups` ({key:
+    leaf-name prefix}) that trains; the change's norm by the worst leaf.  A
+    leaf whose reference gradient is nought to rounding is left out of the
+    change."""
     losses = [abs(p - r) / abs(r) if math.isfinite(p) else math.inf
               for p, r in zip(program["losses"], reference["losses"])]
     grads = reference["grad_norms"]
@@ -267,27 +236,25 @@ def compare(program, reference, names):
                        keep)
     out = {"loss_gap": max(losses), "loss1_gap": losses[0],
            "grad_gap": max(grad), "change_gap": max(change)}
-    video = [g for n, g in zip(names, grad) if n.startswith(VIDEO)]
-    if video:
-        out["video_grad_gap"] = max(video)
+    for key, prefix in groups.items():
+        group = [g for n, g in zip(names, grad) if n.startswith(prefix)]
+        if group:
+            out[key] = max(group)
     return out
 
 
-def reference_readings(cfg, job, modalities, seed, pool, device, names,
-                       products=None, steps=3):
+def reference_readings(model, cfg, job, modalities, seed, pool, device,
+                       names, products=None, steps=3):
     """The reference's readings over the first `steps` steps: losses, each
     leaf's first gradient and each leaf's change after the last step."""
-    trains = "video" in modalities and not job["video_freeze"]
-    weights = inputs.make_weights(M.parameter_spec(cfg, modalities), seed,
+    weights = inputs.make_weights(model.parameter_spec(cfg, modalities), seed,
                                   device)
-    ref = ReferenceTrainer(weights, cfg, modalities, trains,
-                           lr=job["learning_rate"], products=products)
+    ref = model.reference_trainer(weights, cfg, job, modalities, products)
     g = inputs.draws_generator(seed, device)
     losses, grad_norms = [], None
     for i in range(steps):
         batch = inputs.to_device(pool[i % len(pool)], device)
-        masks = M.draw_masks(g, cfg, modalities, job["batch_size"], trains,
-                             device)
+        masks = model.draw_masks(g, cfg, job, modalities, device)
         loss, grads = ref.step(batch, masks)
         losses.append(float(loss))
         if i == 0:
@@ -316,8 +283,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     overrides = overrides or {}
     cfg = {**cfg, **overrides.get("config", {})}
     job = {**job, **overrides.get("job", {})}
-    modalities = L.job_modalities(cfg, job)
-    heads = L.HEADS[job["aggr_type"]]
+    model = models.load(cfg)
+    modalities = model.modalities(cfg, job)
+    heads = model.heads(cfg, job)
     device = torch.device(device or "cuda")
     cuda = device.type == "cuda"
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 as stated
@@ -332,22 +300,22 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         kernels.build_all()
     rec.setup_marks["kernels"] = time.time() - PROCESS_START
     run_root = tempfile.mkdtemp(prefix="portbench-")
-    pool = inputs.make_pool(seed, cfg, modalities, job["batch_size"], heads,
-                            job["pool_batches"], device)
+    pool = inputs.make_pool(
+        seed, job["pool_batches"], device,
+        lambda g: model.make_batch(g, cfg, modalities, job["batch_size"],
+                                   heads, device))
     rec.setup_marks["pool"] = time.time() - PROCESS_START
-    cfg["focal_alpha"] = inputs.class_weights(pool) if "phys" in heads \
-        else (0.5, 0.5)
-    spec = M.parameter_spec(cfg, modalities)
+    cfg.update(model.pool_config(pool, heads))
     try:
         if reference_products is not None:
-            names = trainable_names(cfg, job, modalities)
-            program = reference_readings(cfg, job, modalities, seed, pool,
-                                         device, names,
+            names = model.trainable_names(cfg, job, modalities)
+            program = reference_readings(model, cfg, job, modalities, seed,
+                                         pool, device, names,
                                          products=reference_products)
             window = None
         else:
             program, names, window = _program_run(
-                rec, cfg, job, modalities, spec, seed, seconds, trace, pool,
+                rec, model, cfg, job, modalities, seed, seconds, trace, pool,
                 device, run_root, faults)
         if forbidden_modules():
             raise BenchmarkError("loaded after the window: "
@@ -355,30 +323,25 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
-        reference = reference_readings(cfg, job, modalities, seed, pool,
-                                       device, names,
+        reference = reference_readings(model, cfg, job, modalities, seed,
+                                       pool, device, names,
                                        products=job["reference_products"])
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
-    numbers = compare(program, reference, names)
+    numbers = compare(program, reference, names, model.GRAD_GROUPS)
     return _result(manifest, rec, cell, numbers, limits, window, trace,
                    program, reference)
 
 
-def trainable_names(cfg, job, modalities):
-    trains = "video" in modalities and not job["video_freeze"]
-    return [n for n, _, _ in M.parameter_spec(cfg, modalities)
-            if not M.is_buffer(n) and (trains or not n.startswith(VIDEO))]
-
-
-def _program_run(rec, cfg, job, modalities, spec, seed, seconds, trace,
+def _program_run(rec, model, cfg, job, modalities, seed, seconds, trace,
                  pool, device, run_root, faults):
     from multimodalaggressionrecognition_tpu_torch.utils import kernels
 
     cuda = device.type == "cuda"
+    spec = model.parameter_spec(cfg, modalities)
     weights = inputs.make_weights(spec, seed, device)
-    trainer = build_trainer(cfg, job, modalities, weights, cfg["focal_alpha"],
-                            device, run_root)
+    trainer = model.build_trainer(cfg, job, modalities, weights, device,
+                                  run_root)
     del weights
     rec.setup_marks["trainer"] = time.time() - PROCESS_START
     _plant(trainer, faults)
@@ -470,12 +433,10 @@ def _profiler():
 def _kernel_events(prof):
     """[(name, start_ns, duration_ns)] of the card's kernels in the trace,
     sorted by start."""
-    from .yardstick.families import is_transfer
-
     out = [(e.name(), e.start_ns(), e.duration_ns())
            for e in prof.profiler.kineto_results.events()
            if e.device_type() == torch.autograd.DeviceType.CUDA
-           and not is_transfer(e.name())]
+           and not families.is_transfer(e.name())]
     out.sort(key=lambda k: k[1])
     return out
 
@@ -503,12 +464,11 @@ def _short(name: str) -> str:
     return name[:96]
 
 
-def breakdown(kernels):
+def breakdown(kernels, family=families.family):
     """The kernels that took most time, and the longest idle stretches on
-    the card, summed by the kernel that ended each."""
+    the card, summed by the kernel that ended each (labelled with its
+    `family`)."""
     from collections import defaultdict
-
-    from .yardstick.families import family
 
     by_name = defaultdict(int)
     for name, _, dur in kernels:
@@ -568,7 +528,7 @@ def _result(manifest, rec, cell, numbers, limits, window, trace, program,
     out = {"correct": correct, "attempted": rec.steps, "failed": failed,
            "metrics": metrics, "device": device}
     if trace and rec.kernels is not None:
-        out["breakdown"] = breakdown(rec.kernels)
+        out["breakdown"] = breakdown(rec.kernels, models.family_of(rec.cfg))
     out["checks"] = checks
     readings = {"numbers": numbers, "program": program,
                 "reference": reference,

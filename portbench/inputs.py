@@ -1,5 +1,7 @@
 """What a run is made of, from its seed alone: the model's weights, the pool
-of host batches and the dropout stream's seed.
+of host batches and the dropout stream's seed.  What each holds is the
+model's (`models/<model>.py`); the batch functions here are the PhysVerb
+model's.
 
 Weights are drawn on the device in two calls (one of uniforms, one of
 normals) and cut into leaves: fan-in uniform for Linear and convolution
@@ -23,8 +25,6 @@ import math
 import numpy as np
 import torch
 
-from .reference import model as M
-
 _MASK63 = (1 << 63) - 1
 
 
@@ -37,7 +37,7 @@ WEIGHTS, BATCHES, DRAWS = 1, 2, 3
 
 
 def make_weights(spec, seed: int, device):
-    """{name: float32 tensor} for `spec` (reference.model.parameter_spec)."""
+    """{name: float32 tensor} for `spec` (a model's `parameter_spec`)."""
     g = torch.Generator(device=device).manual_seed(subseed(seed, WEIGHTS))
     n_uniform = sum(math.prod(shape) for _, shape, init in spec
                     if isinstance(init, tuple) or init == "bias_table")
@@ -120,15 +120,14 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def make_pool(seed: int, cfg, modalities, batch: int, heads, count: int,
-              device):
+def make_pool(seed: int, count: int, device, draw):
     """`count` batches as host tensors, in pinned memory when `device` is
-    a card; each drawn on the device and copied out."""
+    a card; each drawn on the device by `draw(generator)` and copied out."""
     g = torch.Generator(device=device).manual_seed(subseed(seed, BATCHES))
     pin = torch.device(device).type == "cuda"
     pool = []
     for _ in range(count):
-        on_device = make_batch(g, cfg, modalities, batch, heads, device)
+        on_device = draw(g)
         pool.append(tree_map(lambda t: torch.empty(
             t.shape, dtype=t.dtype, pin_memory=pin).copy_(t), on_device))
         del on_device

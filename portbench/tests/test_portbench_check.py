@@ -11,13 +11,11 @@ import os
 import pytest
 import torch
 
-from portbench import harness
+from portbench import harness, models
+from portbench.models import physverb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-TINY = {"config": {"audio_samples": 16000, "text_tokens": 8,
-                   "text_min_tokens": 2, "video_frames": 16, "video_size": 32},
-        "job": {"batch_size": 4}}
 SEED = 3_000_000_019
 
 
@@ -27,9 +25,11 @@ def cells():
 
 
 def tiny_run(cell, **kw):
+    """A run of `cell` at its model's CPU sizes (`TINY`)."""
     torch.set_num_threads(4)
+    tiny = models.load(harness.load_cell(cell)[1]).TINY
     result, readings = harness.run(cell, SEED, 0.0, False, device="cpu",
-                                   overrides=TINY, **kw)
+                                   overrides=tiny, **kw)
     return result, readings
 
 
@@ -67,8 +67,9 @@ def test_swin_gradient_gap_reads_the_swin_leaves_alone():
     reference = {"losses": [1.0] * 3, "grad_norms": [1.0, 2.0, 2.0, 1.0],
                  "change_norms": [1.0] * 4}
     program = dict(reference, grad_norms=[1.3, 2.0, 2.2, 1.0])
-    numbers = harness.compare(program, reference, names)
+    numbers = harness.compare(program, reference, names, physverb.GRAD_GROUPS)
     assert numbers["grad_gap"] == pytest.approx(0.2)  # over the median, 1.5
     assert numbers["video_grad_gap"] == pytest.approx(0.1)
     assert "video_grad_gap" not in harness.compare(
-        program, reference, [n.replace("video", "text") for n in names])
+        program, reference, [n.replace("video", "text") for n in names],
+        physverb.GRAD_GROUPS)

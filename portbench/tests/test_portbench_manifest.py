@@ -8,11 +8,18 @@ import re
 
 import pytest
 
+from portbench import models
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 SOURCES = {"device_trace", "program_span", "program_counter", "host_clock"}
+# what a model module gives the harness (`portbench/models/__init__.py`)
+MODEL_GIVES = ("TINY", "modalities", "heads", "parameter_spec", "make_batch",
+               "pool_config", "draw_masks", "reference_trainer",
+               "trainable_names", "build_trainer", "GRAD_GROUPS",
+               "launch_plan", "meta_step")
 
 
 @pytest.fixture(scope="module")
@@ -48,6 +55,17 @@ def test_configs(manifest):
         assert 1 <= len(c["source"]) <= 200 and 1 <= len(c["why"]) <= 200
     used = {w["config"] for w in manifest["workloads"]}
     assert used == names
+
+
+def test_each_config_names_a_model(manifest):
+    for c in manifest["configs"]:
+        with open(os.path.join(ROOT, c["file"])) as f:
+            cfg = json.load(f)
+        assert NAME.match(cfg["model"]), c["name"]
+        model = models.load(cfg)
+        assert [n for n in MODEL_GIVES if not hasattr(model, n)] == []
+        assert set(model.TINY) <= {"config", "job"}
+        assert all(k.endswith("_gap") for k in model.GRAD_GROUPS)
 
 
 def test_workloads(manifest):

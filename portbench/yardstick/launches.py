@@ -1,6 +1,8 @@
 """The hand-written kernels' launches in one training step, with their
 shapes, worked out from the configuration and the job alone: the yardstick
-a roofline share sums its bounds over.
+a roofline share sums its bounds over.  `expected_counts` and
+`bound_per_step` read the plan of the configuration's model
+(`models/<model>.py` `launch_plan`); `plan` is the PhysVerb model's:
 
 - K1: the audio stem, one forward launch a step (its backward is plain
   ops), in float32 under any compute dtype;
@@ -14,6 +16,7 @@ a roofline share sums its bounds over.
 Keys are the program's `launch_counts` keys: `<kernel>` for float32,
 `<kernel>.bf16` for bfloat16."""
 
+from .. import models
 from . import peaks as P
 
 
@@ -95,13 +98,14 @@ def job_modalities(cfg, job):
 
 def expected_counts(cfg, job):
     """{launch key: launches per step}."""
-    return {k: sum(c for c, _ in v) for k, v in plan(cfg, job).items()}
+    return {k: sum(c for c, _ in v)
+            for k, v in models.load(cfg).launch_plan(cfg, job).items()}
 
 
 def bound_per_step(card, cfg, job, key):
     """Seconds: the sum of `key`'s launches' bounds in one step, or None
     when the step launches no such kernel."""
-    launches = plan(cfg, job).get(key)
+    launches = models.load(cfg).launch_plan(cfg, job).get(key)
     if not launches:
         return None
     return sum(c * P.bound_s(card, *work) for c, work in launches)
