@@ -2,7 +2,8 @@
 
 Pipeline: time-intervals table + cluster split -> aggr-type-homogeneous
 batches with the EMPTY protocol -> PhysVerbModel (CNN1D audio tower +
-Linear 512->hidden, identity text tower, optional windowed Swin3D-T video
+Linear 512->hidden, or with --audio_extractor xlsr_300m XLS-R 300M +
+Linear 1024->hidden; identity text tower; optional windowed Swin3D-T video
 tower, frozen or fine-tuned) -> fusion transformer -> PhysVerb concat heads,
 with focal loss ('phys', inverse-frequency alpha) + CE ('verb'), Adam (or
 the optimizer chain of cli/common.make_optimizer) and best-UAR
@@ -13,6 +14,14 @@ CUDA unless --device cpu.
   python -m multimodalaggressionrecognition_tpu_torch.cli.train_multimodal \
       --dataset_root data/avabos --modalities audio,text,video \
       --video_freeze false --synthetic
+
+XLS-R 300M (models/wav2vec.py `XLSR_300M`) is fine-tuned as it is
+published for fine-tuning: its conv feature encoder frozen (no gradient,
+no optimizer state), time masking and dropout on, on 10 s clips:
+
+  python -m multimodalaggressionrecognition_tpu_torch.cli.train_multimodal \
+      --modalities audio,text --audio_extractor xlsr_300m \
+      --compute_dtype bfloat16 --audio_samples 160000 --synthetic
 """
 
 from dataclasses import dataclass
@@ -23,12 +32,16 @@ from .common import (TrainConfig, build_trainer, compute_dtype,
                      ensure_dataset, parse_config, run_training)
 
 SWIN_WIDTH = 768  # Swin3D-T's final width: the video tokens' width
+AUDIO_EXTRACTORS = ("cnn1d", "xlsr_300m")
 
 
 @dataclass
 class MultimodalConfig(TrainConfig):
     model_name: str = "multimodal_physverb"
     modalities: str = "audio,text"       # comma-separated; +video to enable
+    # the audio tower: "cnn1d", or "xlsr_300m" (XLS-R 300M, its conv
+    # encoder frozen)
+    audio_extractor: str = "cnn1d"
     hidden_size: int = 768
     fusion_layers: int = 1
     fusion_heads: int = 8
@@ -68,28 +81,41 @@ def audio_tokens(audio_samples: int) -> int:
     return t
 
 
-def build_model(cfg, modalities):
+def build_model(cfg, modalities, audio_config=None):
     """The PhysVerbModel for `modalities` (a subset of audio, text, video),
     on the CPU with torch's default initialization; the caller loads
-    weights."""
+    weights.  `audio_config` (a `FineTuneConfig`) replaces the XLS-R
+    tower's published geometry (tests' small sizes); a `cfg` without
+    `audio_extractor` (the JAX package's configs) takes the CNN1D."""
     from ..models.cnn1d import AudioCnn1DExtractorWrapper
     from ..models.fusion import EqualSizedTransformerModalitiesFusion
     from ..models.physverb import (IdentityExtractor,
                                    PhysVerbClassifierConcatFeatures,
                                    PhysVerbModel)
+    from ..models.wav2vec import XLSR_300M, Wav2Vec2ExtractorWrapper
 
     unknown = sorted(set(modalities) - {"audio", "text", "video"})
     if unknown:
         raise SystemExit(f"unknown modalities {unknown}: the model takes "
                          "audio, text and video")
+    audio = getattr(cfg, "audio_extractor", "cnn1d")
+    if audio not in AUDIO_EXTRACTORS:
+        raise SystemExit(f"--audio_extractor must be one of "
+                         f"{AUDIO_EXTRACTORS}, got {audio!r}")
     extractors = {}
     adaptor_sizes = {}
     feature_shapes = {}
     if "audio" in modalities:
-        extractors["audio"] = AudioCnn1DExtractorWrapper(cfg.hidden_size)
+        if audio == "cnn1d":
+            extractors["audio"] = AudioCnn1DExtractorWrapper(cfg.hidden_size)
+            tokens = audio_tokens(cfg.audio_samples)
+        else:
+            xlsr = audio_config or XLSR_300M
+            extractors["audio"] = Wav2Vec2ExtractorWrapper(xlsr,
+                                                           cfg.hidden_size)
+            tokens = xlsr.frames(cfg.audio_samples)
         adaptor_sizes["audio"] = (cfg.hidden_size, cfg.adaptor_out)
-        feature_shapes["audio"] = (audio_tokens(cfg.audio_samples),
-                                   cfg.hidden_size)
+        feature_shapes["audio"] = (tokens, cfg.hidden_size)
     if "text" in modalities:
         extractors["text"] = IdentityExtractor()
         adaptor_sizes["text"] = (cfg.hidden_size, cfg.adaptor_out)

@@ -37,6 +37,7 @@ partials are summed on the input's device in rank order
 """
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -153,22 +154,31 @@ class MultiheadSelfAttention(nn.Module):
 class TransformerEncoderLayer(nn.Module):
     """torch's nn.TransformerEncoderLayer: post-LN with ReLU by default;
     `activation` 'gelu' (the exact GELU) and `norm_first` (pre-LN) are the
-    wav2vec-2 and HuBERT variants."""
+    wav2vec-2 and HuBERT variants.  `dropout` is every dropout's rate
+    unless `attention_dropout` (the attention weights') or
+    `activation_dropout` (the feed-forward's hidden units') is given (HF
+    wav2vec-2's separate rates); a rate of 0 draws nothing."""
 
     def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
                  dropout: float = 0.1, activation: str = "relu",
-                 norm_first: bool = False):
+                 norm_first: bool = False,
+                 attention_dropout: Optional[float] = None,
+                 activation_dropout: Optional[float] = None):
         super().__init__()
         if activation not in ("relu", "gelu"):
             raise ValueError(f"activation must be 'relu' or 'gelu', got "
                              f"{activation!r}")
         self.activation, self.norm_first = activation, norm_first
-        self.self_attn = MultiheadSelfAttention(d_model, nhead, dropout)
+        self.self_attn = MultiheadSelfAttention(
+            d_model, nhead,
+            dropout if attention_dropout is None else attention_dropout)
         self.linear1 = Linear(d_model, dim_feedforward)
         self.linear2 = Linear(dim_feedforward, d_model)
         self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.norm2 = LayerNorm(d_model, eps=1e-5)
         self.dropout = Dropout(dropout)
+        self.activation_dropout = Dropout(
+            dropout if activation_dropout is None else activation_dropout)
         self.tp = None  # (group, rank, size): linear1/linear2 split
         self.tp_shards = None  # one process's split over several devices
 
@@ -176,7 +186,7 @@ class TransformerEncoderLayer(nn.Module):
         """The activation and dropout of rank's columns of linear1's
         output."""
         h = gelu(h, "erf") if self.activation == "gelu" else torch.relu(h)
-        return self.dropout(h, shards=((-1, rank, size),))
+        return self.activation_dropout(h, shards=((-1, rank, size),))
 
     def _ff(self, x):
         if self.tp_shards is not None:
@@ -241,13 +251,15 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     relative-position bias tables from a normal with std 0.02 truncated at
     two standard deviations; GRU and LSTM weights and biases from
     U(+-1/sqrt(H)); wav2vec's positional conv from a normal with std
-    sqrt(4 / (K * E)) and a zero bias.  Deterministic on
+    sqrt(4 / (K * E)) and a zero bias (weight-normed: v so, g its norm)
+    and its time mask's embedding from U[0, 1).  Deterministic on
     the CPU, so a model built this way and moved to any device carries the
     same weights."""
     from .nn1d import BatchNorm1d, Conv1d
     from .nn3d import Conv2d, Conv3d
     from .swin3d import ShiftedWindowAttention3d
-    from .wav2vec import ConvPositionalEmbedding
+    from .wav2vec import (ConvPositionalEmbedding, Wav2Vec2Model,
+                          weight_norm_of)
 
     g = torch.Generator().manual_seed(seed)
 
@@ -272,10 +284,16 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
             for p in m.parameters(recurse=False):
                 fan_in_uniform_(p, m.hidden_size)
         elif isinstance(m, ConvPositionalEmbedding):
-            k, e = m.weight.shape[-1], m.weight.shape[0]
-            m.weight.copy_(torch.randn(m.weight.shape, generator=g)
-                           * math.sqrt(4.0 / (k * e)))
+            w = m.weight_v if m.weight_norm else m.weight
+            k, e = w.shape[-1], w.shape[0]
+            w.copy_(torch.randn(w.shape, generator=g)
+                    * math.sqrt(4.0 / (k * e)))
+            if m.weight_norm:
+                m.weight_g.copy_(weight_norm_of(w))
             m.bias.zero_()
+        elif isinstance(m, Wav2Vec2Model) and hasattr(m, "masked_spec_embed"):
+            m.masked_spec_embed.copy_(
+                torch.rand(m.masked_spec_embed.shape, generator=g))
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, BatchNorm1d)):
             m.weight.fill_(1.0)
             m.bias.zero_()

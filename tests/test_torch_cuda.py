@@ -1352,6 +1352,64 @@ def test_train_step_never_blocks_the_host(cuda, compute_dtype):
 
 
 @pytest.mark.cuda
+def test_xlsr_bf16_train_step_never_blocks_the_host(cuda):
+    """Steps 2-4 of the audio,text model's bf16 train step with a two-layer
+    XLS-R tower at its published widths (1 s clips: the frozen conv
+    encoder with K1 on conv0, time masking, the weight-normed positional
+    conv, dropout) raise nothing under CUDA's sync debug mode "error": the
+    time mask's spans are drawn and applied on the card, and the frozen
+    encoder's leaves get no gradient."""
+    import dataclasses
+
+    from multimodalaggressionrecognition_tpu_torch.cli.train_multimodal import (
+        MultimodalConfig, build_model)
+    from multimodalaggressionrecognition_tpu_torch.models.layers import (
+        seeded_init_)
+    from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
+        set_generator)
+    from multimodalaggressionrecognition_tpu_torch.models.wav2vec import (
+        XLSR_300M)
+    from multimodalaggressionrecognition_tpu_torch.train.state import (
+        OptimizerConfig, create_train_state)
+    from multimodalaggressionrecognition_tpu_torch.train.steps import (
+        LossSpec, train_step)
+
+    cfg = MultimodalConfig(audio_extractor="xlsr_300m", audio_samples=16000,
+                           text_tokens=8)
+    model = seeded_init_(build_model(
+        cfg, ("audio", "text"),
+        audio_config=dataclasses.replace(XLSR_300M, num_layers=2)), 0)
+    state = create_train_state(model, OptimizerConfig(3e-4), cuda)
+    set_generator(state.model, torch.Generator(cuda).manual_seed(0))
+    g = torch.Generator(cuda).manual_seed(1)
+    ones = torch.ones(4, device=cuda)
+    batch = {"modalities": {
+        "audio": {"data": torch.randn(4, 16000, generator=g, device=cuda)
+                  * 0.1, "present": ones},
+        "text": {"data": torch.randn(4, 8, 768, generator=g, device=cuda),
+                 "present": ones}},
+        "labels": {"verb": torch.arange(4, device=cuda) % 2},
+        "label_mask": {"verb": ones}, "sample_mask": ones}
+    specs = {"phys": LossSpec("focal", class_weights=(0.5, 0.5)),
+             "verb": LossSpec("ce")}
+    train_step(state, batch, specs, 2, compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    launches = launch_counts["framed_conv1d"]
+    losses = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            losses.append(train_step(state, batch, specs, 2,
+                                     compute_dtype="bfloat16")["total_loss"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert launch_counts["framed_conv1d"] == launches + 3
+    assert all(bool(torch.isfinite(x)) for x in losses)
+    frozen = state.model.extractors["audio"].encoder.feature_extractor
+    assert all(p.grad is None for p in frozen.parameters())
+
+
+@pytest.mark.cuda
 def test_one_rank_nccl_step_matches_plain(cuda):
     """A world of one over NCCL: the data-parallel step (its loss and
     gradient all-reduces) equals the plain step, both under deterministic
