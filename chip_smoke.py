@@ -69,7 +69,13 @@ Phases (any failure raises, and the script exits non-zero):
                 fails that), and in f32 on the same inputs within 1e-3, K4
                 bit for bit; K2 cold with and without the mask; each kernel's, plain version's and
                 library call's (SDPA, its backward, torch.roll, in bf16)
-                time cold and warm against the bound with bf16 bytes.
+                time cold and warm against the bound with bf16 bytes.  The
+                self-attention pair (no Pallas counterpart; XLS-R's layer):
+                output and dqkv element by element within one bf16 ulp +
+                3e-5 of the plain version in f32 at B 2, the keep bits
+                `u < keep`, the backward twice bit for bit; at B 32 each
+                kernel cold and warm against its bound, one layer's draw,
+                forward and backward against the plain composition's.
   4. slices   - each served model at full width with seeded random weights:
                 audio,text (hidden 768, 80 000 samples, 48 tokens, 1 fusion
                 layer, 8 heads, batch 32), then audio,text,video (+ the frozen
@@ -2842,13 +2848,15 @@ def _eval_loss(model, batch, specs, num_classes, dtype):
 
 
 def bf16_cli_phase(label, cli, args, card_line, batch, timing32, per_step,
-                   heads=("main",), cpu_frames=None, cpu_tol=2e-2):
+                   heads=("main",), cpu_frames=None, cpu_tol=2e-2,
+                   train_only=None):
     """The entry under --compute_dtype bfloat16 through cli.main for one
     epoch on the f32 run's data, `batch` its first train batch and
     `timing32` its (median step ms, peak GiB); the caller has dropped its
     f32 trainer, so the peak is the bf16 run's own (launch counts reset
     just before, read just after): its launches by kernel and dtype (kernels.launch_key) against
-    `per_step` per train and eval step, the dtype JAX's flow gives; one
+    `per_step` per train and eval step, the dtype JAX's flow gives, and
+    `train_only` more per train step (a backward kernel); one train
     step's launches on the f32 run's batch; the median bf16 step and peak
     memory beside the f32 ones; the kernel families; the master state f32;
     from the entry's seeded initial weights, one bf16 train step's loss on
@@ -2873,14 +2881,17 @@ def bf16_cli_phase(label, cli, args, card_line, batch, timing32, per_step,
         trainer, counts, clips_s = run_cli(cli.main, args, card_line, name,
                                            heads, epochs=1)
         steps, eval_steps = trainer.state.step, len(trainer.test_loader)
-        want = {k: v * (steps + eval_steps) for k, v in per_step.items()}
+        train_only = train_only or {}
+        want = {k: per_step.get(k, 0) * (steps + eval_steps)
+                + train_only.get(k, 0) * steps
+                for k in {**per_step, **train_only}}
         if counts != want or steps < 1:
             raise AssertionError(f"{name}: {steps} train and {eval_steps} "
                                  f"eval steps launched {counts}, want {want}")
         one = step_counts(trainer, batch)
-        if one != per_step:
+        if one != {**per_step, **train_only}:
             raise AssertionError(f"{name}: a step launched {one}, want "
-                                 f"{per_step}")
+                                 f"{per_step} and {train_only}")
         step_ms, peak_gb = median_step_ms(trainer, batch)
         families = kernel_breakdown(lambda: trainer.train_step(batch),
                                     reps=3)
@@ -3575,8 +3586,11 @@ def audio_transformer_w2v_phase(card_line):
                 "transformer", "--batch_size", "16"]
         counts, _, batch, timing = train_cli_phase(
             "audio_transformer_w2v", cli, args, card_line, {}, parity)
+        # bf16: the classifier's two layers (d = 64, no mask) run the
+        # self-attention kernels, the backward's in train steps only
         bf16_cli_phase("audio_transformer_w2v", cli, args, card_line, batch,
-                       timing, {})
+                       timing, {"self_attention.bf16": 2},
+                       train_only={"self_attention_bwd.bf16": 2})
         return counts
 
 # extract_features at its CLI defaults (b4 clips of 304 frames at 112 px,
@@ -3669,6 +3683,126 @@ def k2_extract_phase(card: str):
         f"({fwd_bound / fwd_ms * 100:.1f}%)")
     return {"max_abs_err": worst, **out, "forward_ms": fwd_ms,
             "forward_bound_ms": fwd_bound}
+
+
+# the self-attention kernels (ops/cuda/self_attention.py) at XLS-R's layer
+# in the audio,text cell (B 32, 16 heads, 499 frames of a 10 s clip, d 64,
+# attention dropout 0.1), and at B 2 for the element-by-element check
+XLSR_ATTENTION = (32, 16, 499, 64, 0.1)
+
+
+def self_attention_phase(card: str):
+    """The bf16 self-attention pair against its plain version in f32 on the
+    same uniforms (output and dqkv within one bf16 ulp + 3e-5 at B 2), its
+    keep mask against `u < keep` bit for bit, each kernel bit for bit over
+    two launches; then at B 32 each kernel's time cold (L2 flushed) and
+    warm (CUDA graphs) against its bound, the eval forward (no dropout)
+    warm, the layer's draw, and one layer's draw, forward and backward
+    through the kernels and through the plain composition (CUDA events),
+    with the peak memory each adds."""
+    from multimodalaggressionrecognition_tpu_torch.ops.cuda import (
+        self_attention as sa)
+
+    b, heads, t, d, rate = XLSR_ATTENTION
+    keep = 1.0 - rate
+    g = torch.Generator(DEVICE).manual_seed(SEED + 41)
+
+    def inputs(batch):
+        qkv = (torch.randn(batch, t, 3 * heads * d, generator=g,
+                           device=DEVICE) * 0.5).bfloat16()
+        u = torch.rand((batch, heads, t, t), generator=g, device=DEVICE)
+        cot = torch.randn(batch, t, heads * d, generator=g,
+                          device=DEVICE).bfloat16()
+        return qkv, u, cot
+
+    qkv, u, cot = inputs(2)
+    x = qkv.clone().requires_grad_(True)
+    out = sa.self_attention(x, u, heads, keep)
+    out.backward(cot)
+    xf = qkv.float().requires_grad_(True)
+    want = sa.self_attention_reference(xf, u, heads, keep)
+    want.backward(cot.float())
+    excess = {"out": bf16_elementwise_check("self_attention out",
+                                            out.detach(),
+                                            want.detach().bfloat16()),
+              "dqkv": bf16_elementwise_check("self_attention dqkv", x.grad,
+                                             xf.grad.bfloat16())}
+    _, lse, bits = sa._launch_fwd(qkv, u, heads, keep, for_grad=True)
+    shifts = torch.arange(32, dtype=torch.int32, device=DEVICE)
+    kept = ((bits[..., None] >> shifts) & 1).flatten(-2).bool()
+    if not (torch.equal(kept[..., :t], u < keep) and not kept[..., t:].any()):
+        raise AssertionError("self_attention: keep bits are not u < keep")
+    first = sa.self_attention_bwd(qkv, cot, lse, bits, heads, keep)
+    again = sa.self_attention_bwd(qkv, cot, lse, bits, heads, keep)
+    if not torch.equal(first.view(torch.int16), again.view(torch.int16)):
+        raise AssertionError("self_attention_bwd: two launches differ")
+
+    qkv, u, cot = inputs(b)
+    _, lse, bits = sa._launch_fwd(qkv, u, heads, keep, for_grad=True)
+    n = 2 * b * heads * t * t * d
+    mask_bytes, lse_bytes = 4 * bits.numel(), 4 * lse.numel()
+    qkv_bytes, out_bytes = 2 * qkv.numel(), 2 * cot.numel()
+    bounds = {
+        "fwd": bound(card, 2 * n, 4 * u.numel() + qkv_bytes + out_bytes
+                     + mask_bytes + lse_bytes,
+                     [(n, "bf16*bf16"), (n, "f32*bf16")]),
+        "bwd": bound(card, 5 * n, 2 * qkv_bytes + out_bytes + mask_bytes
+                     + lse_bytes,
+                     [(n, "bf16*bf16")] * 2 + [(n, "f32*bf16")] * 3)}
+
+    def fwd():
+        return sa._launch_fwd(qkv, u, heads, keep, for_grad=True)
+
+    def bwd():
+        return sa.self_attention_bwd(qkv, cot, lse, bits, heads, keep)
+
+    times = {"fwd": {"cold": cold_ms(fwd), "warm": graph_ms(fwd)},
+             "bwd": {"cold": cold_ms(bwd), "warm": graph_ms(bwd)},
+             "fwd_eval_warm": graph_ms(
+                 lambda: sa._launch_fwd(qkv, None, heads, 1.0, False))}
+
+    def layer(attend):
+        x = qkv.clone().requires_grad_(True)
+        uu = torch.rand((b, heads, t, t), generator=g, device=DEVICE)
+        attend(x, uu, heads, keep).backward(cot)
+
+    def events_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    times["draw"] = events_ms(
+        lambda: torch.rand((b, heads, t, t), generator=g, device=DEVICE))
+    layers = {}
+    for name, attend in (("kernels", sa.self_attention),
+                         ("plain", sa.self_attention_reference)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        layers[name] = {"draw_fwd_bwd_ms": events_ms(
+            lambda: layer(attend)),
+            "peak_added_mb": (torch.cuda.max_memory_allocated() - base)
+            / 1e6}
+    for k in ("fwd", "bwd"):
+        times[k]["roofline_cold_pct"] = (100 * bounds[k]["bound_ms"]
+                                         / times[k]["cold"])
+        log(f"self_attention {k} b{b} T{t}: {times[k]['cold']:.4f} ms cold, "
+            f"{times[k]['warm']:.4f} warm; {bound_text(bounds[k])}")
+    log(f"self_attention layer (draw, forward, backward): kernels "
+        f"{layers['kernels']['draw_fwd_bwd_ms']:.3f} ms, plain "
+        f"{layers['plain']['draw_fwd_bwd_ms']:.3f} ms; draw "
+        f"{times['draw']:.4f} ms; check excess {excess}")
+    return {"times": times, "bounds": bounds, "layer": layers,
+            "excess": excess, "launch": sa.launch_info(d, True),
+            "resources": {lib: ptxas_usage(kernels.build_log(lib))
+                          for lib in ("self_attention",
+                                      "self_attention_bwd")}}
 
 
 def k2_extract_bf16_phase(card: str):
@@ -5708,6 +5842,7 @@ def main():
     k3 = {**k3_phase(name), "resources": resources["window_attention_bwd"]}
     bf16 = bf16_kernel_phase(name)
     k2["bf16_extract"] = k2_extract_bf16_phase(name)
+    log(json.dumps({"self_attention": self_attention_phase(name)}))
     launches = {label: run_slice(label, cfg, bs, parity_n, per_forward,
                                  card_line)
                 for label, cfg, bs, parity_n, per_forward in SLICES}

@@ -1,7 +1,9 @@
 // bf16 products on Hopper's tensor cores for the window-attention kernels'
 // bf16 instantiations (K2, window_attention.cu; K3,
-// window_attention_bwd.cu): fragments, ldmatrix loads from swizzled bf16
-// tiles in shared memory, cp.async staging, and the bias and mask reads.
+// window_attention_bwd.cu) and the self-attention pair
+// (self_attention.cu, self_attention_bwd.cu): fragments, ldmatrix loads
+// from swizzled bf16 tiles in shared memory, cp.async staging, and the
+// bias and mask reads.
 // The f32 instantiations use tf32x3.cuh instead.
 //
 // Products.  A product of two bf16 operands (q.k^T, g.v^T) is one
@@ -28,7 +30,7 @@
 // Tiles.  A (rows x D) bf16 tile sits in shared memory unpadded, its
 // 16-byte chunks (8 elements) XOR-swizzled per row (at): an ldmatrix reads
 // 8 rows of one 16-byte chunk, and for rows r0 .. r0+7 (r0 a multiple of 8)
-// the swizzle puts them in 8 distinct bank groups, for D = 32, 16 and 8,
+// the swizzle puts them in 8 distinct bank groups, for D = 64, 32, 16 and 8,
 // in both the plain and the transposed loads.
 
 #pragma once
@@ -193,6 +195,51 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
+// double buffering: close the copies started since the last commit into a
+// group, and wait until at most N groups are in flight
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// 4- and 8-byte copies (through L1) for data whose rows are not 16-byte
+// aligned; the _evict_first copy takes an evict_first_policy()
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_evict_first(void* smem,
+                                                      const void* gmem,
+                                                      uint64_t policy) {
+  asm volatile(
+      "cp.async.ca.shared.global.L2::cache_hint [%0], [%1], 4, %2;" ::"r"(
+          smem_addr(smem)),
+      "l"(gmem), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
+// an L2 policy for data read once: its lines are evicted first
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
 // Start copying rows [0, n) of a D-wide bf16 slice (row j at src + j *
 // stride, 16-byte aligned) into a swizzled tile with 16-byte cp.async, as
 // they are, and zero rows [n, rows).  Every thread of the block takes its
@@ -253,7 +300,18 @@ __device__ __forceinline__ void load_bt(const bf16* tile, int n0, int lane,
                                         uint32_t (&b)[D / 8]) {
   constexpr int U = D / 8;
   const int r = n0 + (lane & 7);
-  ldsm<U>(b, smem_addr(tile + at<D>(r, (lane >> 3) & (U - 1))));
+  if constexpr (U == 8) {  // D = 64: two loads of four chunks
+    uint32_t x[4], y[4];
+    ldsm<4>(x, smem_addr(tile + at<D>(r, lane >> 3)));
+    ldsm<4>(y, smem_addr(tile + at<D>(r, 4 + (lane >> 3))));
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      b[c] = x[c];
+      b[4 + c] = y[c];
+    }
+  } else {
+    ldsm<U>(b, smem_addr(tile + at<D>(r, (lane >> 3) & (U - 1))));
+  }
 }
 
 // B operand X over 16 rows (k = row k0 .. k0+15, k0 a multiple of 8, n =

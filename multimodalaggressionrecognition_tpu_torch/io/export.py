@@ -43,7 +43,8 @@ PLATFORMS = ("cpu", "cuda")
 
 def _import_ops():
     """Register the `mar_torch::` ops an artifact's graph calls."""
-    from ..ops.cuda import framed_conv, roll, window_attention  # noqa: F401
+    from ..ops.cuda import (framed_conv, roll, self_attention,  # noqa: F401
+                            window_attention)
 
 
 def export_predictor(predictor, example_modalities: Dict[str, np.ndarray],

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda.self_attention import kernel_takes, self_attention
 from ..ops.erf import gelu
 from ..parallel.mesh import copy_to_group, reduce_from_group, sum_partials
 from .stochastic import Dropout
@@ -96,10 +97,18 @@ class MultiheadSelfAttention(nn.Module):
 
     def _attend(self, qkv, key_padding_mask, rank: int, size: int):
         """The attention of the heads whose packed q, k, v rows `qkv` (B, T,
-        3 h d) holds (rank's h = num_heads / size): (B, T, h d)."""
+        3 h d) holds (rank's h = num_heads / size): (B, T, h d).  Without
+        a key padding mask, a CUDA bf16 qkv at a head dim the kernels take
+        runs ops/cuda/self_attention.py's kernels on the dropout's own
+        draw; anything else the composition below."""
         b, t, _ = qkv.shape
         h = self.num_heads // size
         d = qkv.shape[-1] // (3 * h)
+        if key_padding_mask is None and kernel_takes(qkv, d):
+            drop = self.dropout
+            u = (drop.draw((b, h, t, t), qkv.device, shards=((1, rank, size),))
+                 if drop.training and drop.rate != 0.0 else None)
+            return self_attention(qkv, u, h, 1.0 - drop.rate)
         # (B, T, 3E) -> 3 x (B, H, T, d)
         q, k, v = qkv.view(b, t, 3, h, d).permute(2, 0, 3, 1, 4)
         # the scores and the softmax in f32 whatever the compute dtype, the

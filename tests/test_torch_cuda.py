@@ -26,7 +26,11 @@ served tri-modal forward gives the same logits with it as with torch.roll.
 The `mar_torch::` custom ops equal a direct ctypes launch of their kernels
 bit for bit, their fakes give the kernels' shapes and dtypes, the padded
 int8 GEMM (`utils/quantize.int8_mm`) is exact, and an artifact exported on
-the CPU scores on the card with nothing left on the CPU.
+the CPU scores on the card with nothing left on the CPU.  The bf16
+self-attention kernels (ops/cuda/self_attention.py) are held to their
+plain version in f32 on the same uniforms, output and dqkv within one bf16
+ulp + 3e-5, their keep mask to `u < keep` bit for bit, each bit for bit
+over two launches, and an XLS-R train step launches each once a layer.
 """
 
 import pytest
@@ -1357,7 +1361,8 @@ def test_xlsr_bf16_train_step_never_blocks_the_host(cuda):
     XLS-R tower at its published widths (1 s clips: the frozen conv
     encoder with K1 on conv0, time masking, the weight-normed positional
     conv, dropout) raise nothing under CUDA's sync debug mode "error": the
-    time mask's spans are drawn and applied on the card, and the frozen
+    time mask's spans are drawn and applied on the card, each layer's
+    attention runs the self-attention kernel pair, and the frozen
     encoder's leaves get no gradient."""
     import dataclasses
 
@@ -1395,6 +1400,7 @@ def test_xlsr_bf16_train_step_never_blocks_the_host(cuda):
     train_step(state, batch, specs, 2, compute_dtype="bfloat16")
     torch.cuda.synchronize()
     launches = launch_counts["framed_conv1d"]
+    attention = dict(launch_counts)
     losses = []
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1404,6 +1410,8 @@ def test_xlsr_bf16_train_step_never_blocks_the_host(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert launch_counts["framed_conv1d"] == launches + 3
+    for key in ("self_attention.bf16", "self_attention_bwd.bf16"):
+        assert launch_counts[key] == attention.get(key, 0) + 2 * 3, key
     assert all(bool(torch.isfinite(x)) for x in losses)
     frozen = state.model.extractors["audio"].encoder.feature_extractor
     assert all(p.grad is None for p in frozen.parameters())
@@ -1505,3 +1513,140 @@ def test_predictor_tensor_parallel_on_one_card(cuda, n_devices):
     assert launch_counts["framed_conv1d"] == before + n_devices // 2
     for head in want:
         np.testing.assert_allclose(got[head], want[head], rtol=0, atol=1e-5)
+
+
+# the self-attention kernels (ops/cuda/self_attention.py): XLS-R's layer at
+# B = 2 (16 heads, 499 frames of a 10 s clip, d = 64), ragged and single
+# tiles, head dim 32, and one key
+SELF_ATTENTION_SHAPES = [(2, 16, 499, 64), (1, 2, 37, 64), (2, 3, 64, 64),
+                         (1, 2, 65, 32), (2, 4, 130, 32), (1, 1, 1, 64)]
+
+
+def _self_attention_inputs(cuda, b, heads, t, d, seed=0):
+    """bf16 qkv, the f32 uniforms and a bf16 output gradient."""
+    g = torch.Generator(cuda).manual_seed(seed)
+    qkv = (torch.randn(b, t, 3 * heads * d, generator=g, device=cuda)
+           * 0.5).bfloat16()
+    u = torch.rand((b, heads, t, t), generator=g, device=cuda)
+    cot = torch.randn(b, t, heads * d, generator=g, device=cuda).bfloat16()
+    return qkv, u, cot
+
+
+def _unpack_keep_bits(bits, t):
+    """(B, heads, T, words) int32 -> (B, heads, T, 32 words) bool, key j at
+    bit j % 32 of word j // 32."""
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    return ((bits[..., None] >> shifts) & 1).flatten(-2).bool()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("b,heads,t,d", SELF_ATTENTION_SHAPES)
+def test_self_attention_kernels_match_plain_in_f32(cuda, b, heads, t, d,
+                                                   rate):
+    """The forward and dqkv (both kernels, the dS pieces in the products)
+    within one bf16 ulp + 3e-5 of the plain version in f32 on the same
+    uniforms, one launch each; without a gradient the same forward bit for
+    bit (no dropout: the `mar_torch::self_attention` op)."""
+    from multimodalaggressionrecognition_tpu_torch.ops.cuda.self_attention import (
+        self_attention, self_attention_reference)
+
+    qkv, u, cot = _self_attention_inputs(cuda, b, heads, t, d)
+    keep, u = 1.0 - rate, (u if rate else None)
+    x = qkv.clone().requires_grad_(True)
+    before = dict(launch_counts)
+    out = self_attention(x, u, heads, keep)
+    out.backward(cot)
+    torch.cuda.synchronize()
+    assert launch_counts["self_attention.bf16"] == before.get(
+        "self_attention.bf16", 0) + 1
+    assert launch_counts["self_attention_bwd.bf16"] == before.get(
+        "self_attention_bwd.bf16", 0) + 1
+    xf = qkv.float().requires_grad_(True)
+    want = self_attention_reference(xf, u, heads, keep)
+    want.backward(cot.float())
+    _bf16_elementwise(out.detach(), want.detach().bfloat16())
+    _bf16_elementwise(x.grad, xf.grad.bfloat16())
+    with torch.no_grad():
+        again = self_attention(qkv, u, heads, keep)
+    assert torch.equal(again.view(torch.int16), out.detach().view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,heads,t,d", SELF_ATTENTION_SHAPES[:3])
+def test_self_attention_keep_bits_are_u_below_keep(cuda, b, heads, t, d):
+    """The forward's bit-packed mask is `u < keep` (the plain dropout's f32
+    comparison) bit for bit, with 0 past T; lse is finite."""
+    from multimodalaggressionrecognition_tpu_torch.ops.cuda.self_attention import (
+        _launch_fwd)
+
+    qkv, u, _ = _self_attention_inputs(cuda, b, heads, t, d, seed=3)
+    for keep in (0.9, 1.0 - 0.1, 0.5):
+        _, lse, bits = _launch_fwd(qkv, u, heads, keep, for_grad=True)
+        kept = _unpack_keep_bits(bits, t)
+        assert torch.equal(kept[..., :t], u < keep)
+        assert not kept[..., t:].any()
+        assert bool(torch.isfinite(lse).all())
+
+
+@pytest.mark.cuda
+def test_self_attention_kernels_are_deterministic(cuda):
+    """Two launches of each kernel at XLS-R's shape agree bit for bit."""
+    from multimodalaggressionrecognition_tpu_torch.ops.cuda.self_attention import (
+        _launch_fwd, self_attention_bwd)
+
+    b, heads, t, d = SELF_ATTENTION_SHAPES[0]
+    qkv, u, cot = _self_attention_inputs(cuda, b, heads, t, d, seed=4)
+    first = _launch_fwd(qkv, u, heads, 0.9, for_grad=True)
+    again = _launch_fwd(qkv, u, heads, 0.9, for_grad=True)
+    dq1 = self_attention_bwd(qkv, cot, first[1], first[2], heads, 0.9)
+    dq2 = self_attention_bwd(qkv, cot, first[1], first[2], heads, 0.9)
+    torch.cuda.synchronize()
+    for x, y in zip(first + (dq1,), again + (dq2,)):
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+
+
+@pytest.mark.cuda
+def test_xlsr_train_step_launches_the_self_attention_kernels(cuda):
+    """One bf16 train step of the audio,text model with the published
+    24-layer XLS-R tower (b2, 1 s clips) launches the forward and the
+    backward kernel once a layer, 24 each; the fusion layer, masked, takes
+    the composition."""
+    from multimodalaggressionrecognition_tpu_torch.cli.train_multimodal import (
+        MultimodalConfig, build_model)
+    from multimodalaggressionrecognition_tpu_torch.models.layers import (
+        seeded_init_)
+    from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
+        set_generator)
+    from multimodalaggressionrecognition_tpu_torch.models.wav2vec import (
+        XLSR_300M)
+    from multimodalaggressionrecognition_tpu_torch.train.state import (
+        OptimizerConfig, create_train_state)
+    from multimodalaggressionrecognition_tpu_torch.train.steps import (
+        LossSpec, train_step)
+
+    cfg = MultimodalConfig(audio_extractor="xlsr_300m", audio_samples=16000,
+                           text_tokens=8)
+    assert XLSR_300M.num_layers == 24
+    model = seeded_init_(build_model(cfg, ("audio", "text"),
+                                     audio_config=XLSR_300M), 0)
+    state = create_train_state(model, OptimizerConfig(3e-4), cuda)
+    set_generator(state.model, torch.Generator(cuda).manual_seed(0))
+    g = torch.Generator(cuda).manual_seed(1)
+    ones = torch.ones(2, device=cuda)
+    batch = {"modalities": {
+        "audio": {"data": torch.randn(2, 16000, generator=g, device=cuda)
+                  * 0.1, "present": ones},
+        "text": {"data": torch.randn(2, 8, 768, generator=g, device=cuda),
+                 "present": ones}},
+        "labels": {"verb": torch.arange(2, device=cuda) % 2},
+        "label_mask": {"verb": ones}, "sample_mask": ones}
+    specs = {"phys": LossSpec("focal", class_weights=(0.5, 0.5)),
+             "verb": LossSpec("ce")}
+    before = dict(launch_counts)
+    loss = train_step(state, batch, specs, 2,
+                      compute_dtype="bfloat16")["total_loss"]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    for key in ("self_attention.bf16", "self_attention_bwd.bf16"):
+        assert launch_counts[key] - before.get(key, 0) == 24, key

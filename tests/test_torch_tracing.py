@@ -191,6 +191,8 @@ def test_trainer_epoch_records_each_step_and_its_phases(tmp_path):
     assert summary["device_ms"] == {} and summary["between_steps_ms"] is None
     assert summary["allocator"] == {}
     assert summary["loss_tables"] == {"builds": 0, "hits": 0}
+    assert summary["self_attention"] == {"self_attention.bf16": 0,
+                                         "self_attention_bwd.bf16": 0}
 
 
 def test_recording_counts_the_loss_tables_built_and_hit(tmp_path):
@@ -206,6 +208,32 @@ def test_recording_counts_the_loss_tables_built_and_hit(tmp_path):
     assert first.loss_tables == {"builds": 2, "hits": 4}
     assert rec.steps == 3 and rec.loss_tables == {"builds": 0, "hits": 6}
     assert rec.summary()["loss_tables"] == rec.loss_tables
+
+
+def test_recording_counts_the_self_attention_launches(tmp_path):
+    """A window's self-attention launches: the delta of the two kernels'
+    `launch_counts` keys, 0 for an epoch that launches neither (the CPU
+    trainer's model has no attention), and what the wrappers add while it
+    is open (24 forward and 24 backward launches, an XLS-R step's)."""
+    from multimodalaggressionrecognition_tpu_torch.utils.kernels import (
+        launch_counts)
+
+    trainer = _trainer(tmp_path, [_batch(i) for i in range(2)])
+    saved = dict(launch_counts)
+    try:
+        launch_counts["self_attention.bf16"] += 5  # not the window's
+        with profiling.recording("cpu") as rec:
+            trainer.train_epoch(trainer.epoch_generator(0))
+        assert rec.summary()["self_attention"] == {
+            "self_attention.bf16": 0, "self_attention_bwd.bf16": 0}
+        with profiling.recording("cpu") as rec:
+            launch_counts["self_attention.bf16"] += 24
+            launch_counts["self_attention_bwd.bf16"] += 24
+        assert rec.summary()["self_attention"] == {
+            "self_attention.bf16": 24, "self_attention_bwd.bf16": 24}
+    finally:
+        launch_counts.clear()
+        launch_counts.update(saved)
 
 
 def test_trainer_records_an_epoch_under_a_profiler_only(tmp_path):
