@@ -382,6 +382,8 @@ from multimodalaggressionrecognition_tpu_torch.ops.resample import (
 from multimodalaggressionrecognition_tpu_torch.train.steps import (
     LossSpec, head_losses_and_metrics)
 from multimodalaggressionrecognition_tpu_torch.utils import kernels
+from portbench.yardstick.peaks import (PASSES, k1_work, k2_work, k2_work_bf16,
+                                       k3_work, k3_work_bf16, peaks)
 
 SEED = 0
 DEVICE = "cuda"
@@ -472,35 +474,11 @@ EDGE_SHAPES = [(4, n, 2, d, nw) for n in (1, 17, 392) for d in (8, 16, 32)
                for nw in (0, 2)]
 
 
-def peaks(name: str):
-    """{f32 non-tensor, dense TF32 and dense bf16 tensor-core FLOP/s, HBM
-    bytes/s} from NVIDIA's data sheets (tensor cores: half the figure with
-    sparsity)."""
-    if "PCIe" in name:
-        return {"fma": 51.2e12, "tf32": 378e12, "bf16": 756.5e12,
-                "bw": 2.0e12}
-    if "NVL" in name:
-        return {"fma": 60.0e12, "tf32": 417.5e12, "bf16": 835.5e12,
-                "bw": 3.9e12}
-    return {"fma": 67.0e12, "tf32": 495e12, "bf16": 989e12,
-            "bw": 3.35e12}  # H100 SXM
-
-
-# the least tensor-core passes a product of these operand types needs for
-# an f32-accurate result, and the peak they run at: f32 x f32 in 3xTF32
-# (big*small, small*big, big*big); f32 x bf16 in two bf16 passes (the f32
-# side split into bf16 hi and lo pieces, each product with the bf16 side
-# exact: what is dropped is below 2^-16 of the f32 value, which holds the
-# f32 kernels' tolerances); bf16 x bf16 in one bf16 pass (exact products,
-# f32 accumulation)
-PASSES = {"f32*f32": (3, "tf32"), "f32*bf16": (2, "bf16"),
-          "bf16*bf16": (1, "bf16")}
-
-
 def bound(card: str, flops: float, nbytes: float, products=None):
     """The least time the card could take: {bound_ms, bound_by, and both
     terms}.  `products`: the work runs on the tensor cores, listed as
-    (flops, operand types) per product, each at its PASSES; the f32 FMA
+    (flops, operand types) per product, each at its PASSES (the
+    benchmark's yardstick, portbench/yardstick/peaks.py); the f32 FMA
     pipe's bound (the only one before the tensor-core designs) is then
     kept beside it as fma_bound_ms."""
     peak = peaks(card)
@@ -795,13 +773,6 @@ def k1_inputs(b, length, f, c, epilogue, seed):
             for t in (x, w, bias, scale, shift)]
 
 
-def k1_work(b, length, f, hop, pad, c):
-    """(operations, bytes) of one launch: 2*B*T*F*C; x, w, bias, scale and
-    shift read once, y written once."""
-    t = out_length(length, f, hop, pad)
-    return 2 * b * t * f * c, 4 * (b * length + f * c + 3 * c + b * t * c)
-
-
 def k1_phase(card: str):
     """K1 against its plain version at every shape (1e-4), bit for bit over
     two launches at the served stem; at each K1_TIMED shape the kernel's,
@@ -856,8 +827,8 @@ def k1_phase(card: str):
                    x[:, None, :], w_conv, bi, stride=hop, padding=pad))}
         times = in_turns(fns, reps=20, timer=cold_ms)
         warm = in_turns(fns, reps=20, timer=graph_ms)
-        flops, nbytes = k1_work(b, length, f, hop, pad, c)
-        bd = bound(card, flops, nbytes, [(flops, "f32*f32")])
+        flops, nbytes, products = k1_work(b, length, f, hop, pad, c)
+        bd = bound(card, flops, nbytes, products)
         for label, t in (("cold", times), ("warm", warm)):
             log(f"k1 {name} timing ({label}) on {card}: "
                 + ", ".join(f"{labels[k]} {v:.4f} ms" for k, v in t.items())
@@ -962,18 +933,6 @@ def k2_inputs(w, n, heads, d, nw, seed, stage_mask=False, window=(4, 7, 7),
         mask = torch.where(torch.rand((nw, n, n), generator=g,
                                       device=DEVICE) > 0.7, -100.0, 0.0)
     return qkv, bias, mask
-
-
-def k2_work(w, n, heads, d, nw, lse=False):
-    """(operations, bytes, products) of one launch: two N x N x d products
-    per window and head, f32*f32; qkv, bias and mask read once, the output
-    (and with `lse` the rows' logsumexp) written once."""
-    c = heads * d
-    flops = 4 * w * heads * n * n * d
-    return (flops,
-            4 * (w * n * 3 * c + heads * n * n + nw * n * n + w * n * c
-                 + (w * heads * n if lse else 0)),
-            [(flops, "f32*f32")])
 
 
 def bitwise_equal(x, y):
@@ -1106,19 +1065,6 @@ def k2_phase(card: str):
             "ms_by_stage": per_stage,
             "forward_ms": fwd_ms, "forward_bound_ms": fwd_bound,
             "forward_fma_bound_ms": fwd_fma}
-
-
-def k3_work(w, n, heads, d, nw):
-    """(operations, bytes, products) of one backward launch, by the JAX
-    kernel's own count: five N x N x d products per window and head,
-    f32*f32; qkv, g, bias, mask, and K2's output and lse read once, dqkv
-    and dbias written once."""
-    c = heads * d
-    flops = 10 * w * heads * n * n * d
-    return (flops,
-            4 * (2 * w * n * 3 * c + 2 * heads * n * n + nw * n * n
-                 + w * n * c + w * n * c + w * heads * n),
-            [(flops, "f32*f32")])
 
 
 def k3_inputs(w, n, heads, d, nw, seed, stage_mask=False):
@@ -1331,31 +1277,6 @@ def p_rounded_reference(qkv, bias, mask, g, heads):
     dv = pr.transpose(-1, -2) @ gh
     dqkv = torch.stack((dq, dk, dv)).permute(1, 3, 0, 2, 4).reshape(w, n, c3)
     return out.to(BF16), dqkv.to(BF16)
-
-
-def k2_work_bf16(w, n, heads, d, nw, lse=False):
-    """k2_work with qkv and the output in bf16 (bias, mask and lse as f32),
-    and its products by operand type: Q.K^T is bf16*bf16, P.V (P the f32
-    probabilities) f32*bf16."""
-    c = heads * d
-    one = 2 * w * heads * n * n * d
-    return (2 * one,
-            2 * (w * n * 3 * c + w * n * c) + 4 * (heads * n * n + nw * n * n)
-            + (4 * w * heads * n if lse else 0),
-            [(one, "bf16*bf16"), (one, "f32*bf16")])
-
-
-def k3_work_bf16(w, n, heads, d, nw):
-    """k3_work with qkv, g and dqkv in bf16 (bias, mask, dbias and K2's lse
-    as f32; K2's output is not read), and its products by operand type:
-    Q.K^T and g.V^T are bf16*bf16; P^T.g, dS.K and dS^T.Q (P, dS f32)
-    f32*bf16."""
-    c = heads * d
-    one = 2 * w * heads * n * n * d
-    return (5 * one,
-            2 * (2 * w * n * 3 * c + w * n * c)
-            + 4 * (2 * heads * n * n + nw * n * n + w * heads * n),
-            [(2 * one, "bf16*bf16"), (3 * one, "f32*bf16")])
 
 
 def sdpa_args_bf16(qkv, bias, mask, heads):

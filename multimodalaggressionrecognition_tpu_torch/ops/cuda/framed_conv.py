@@ -23,7 +23,7 @@ the tensor cores' bound.
 
 `framed_conv1d` calls the `mar_torch::framed_conv1d` op (torch.library):
 its CPU implementation is the plain version, its CUDA one launches the
-kernel (the only place that counts a launch), and its fake one gives the
+kernel (counted by `utils/kernels.launch`), and its fake one gives the
 output's shape and dtype, so torch.export keeps the op whole in a serving
 artifact's graph (io/export.py).
 
@@ -34,34 +34,26 @@ backward the JAX package's XLA formula in torch ops
 (scale, shift, ReLU) is for inference only.
 """
 
-import ctypes
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from ...utils.kernels import check_status, launch_counts, load_library
+from ...utils.kernels import check_tensor, launch, load_library, query
 from ..framing import framed_matmul
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
-
-def _bind(lib):
-    lib.framed_conv1d_f32.argtypes = [_P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _I, _I, _I, _P]
-    lib.framed_conv1d_f32.restype = _I
-    lib.framed_conv1d_info.argtypes = [_I, ctypes.POINTER(_I)]
-    lib.framed_conv1d_info.restype = _I
+# framed_conv1d_f32: x, w, bias, scale, shift, y, B, L, F, C, T, hop, pad,
+# relu; framed_conv1d_info: m_tiles, out[3]
+_SIGNATURES = {"framed_conv1d_f32": "PPPPPPiiiiiiii",
+               "framed_conv1d_info": "io"}
 
 
 def launch_info(m_tiles: int) -> dict:
     """The launch of the kernel's tile with `m_tiles` (1 or 2) 16-frame
     m-tiles a warp on the current card (one shape for every C): threads per
     block, dynamic shared memory bytes, resident blocks per SM."""
-    lib = load_library("framed_conv", _bind)
-    out = (_I * 3)()
-    check_status("framed_conv1d", lib.framed_conv1d_info(m_tiles, out))
+    out = query(load_library("framed_conv", _SIGNATURES),
+                "framed_conv1d_info", m_tiles, n_out=3)
     return dict(zip(("threads", "dynamic_smem_bytes", "blocks_per_sm"), out))
 
 
@@ -79,22 +71,6 @@ def framed_conv1d_reference(x, weight, bias, kernel_size: int, stride: int,
     if shift is not None:
         y = y + shift
     return torch.relu(y) if relu else y
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _check(name, t, shape, device):
-    if t.dtype != torch.float32:
-        raise TypeError(f"framed_conv1d: {name} must be float32, got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"framed_conv1d: {name} on {t.device}, x on {device}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"framed_conv1d: {name} shape {tuple(t.shape)} != "
-                         f"{shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"framed_conv1d: {name} must be contiguous")
 
 
 def framed_conv1d(x, weight, bias, kernel_size: int, stride: int, pad: int = 0,
@@ -131,17 +107,18 @@ def _(x, weight, bias, kernel_size, stride, pad, scale, shift, relu):
 @_framed_conv1d_op.register_kernel("cuda")
 def _framed_conv1d_cuda(x, weight, bias, kernel_size, stride, pad, scale,
                         shift, relu):
-    """The kernel launch: the only place that counts one."""
     if x.dim() != 2:
         raise ValueError(f"framed_conv1d: x must be (B, L), got {tuple(x.shape)}")
     b, length = x.shape
     c_out = weight.shape[-1]
-    _check("x", x, (b, length), x.device)
-    _check("weight", weight, (kernel_size, c_out), x.device)
-    _check("bias", bias, (c_out,), x.device)
+    for name, t, shape in (("x", x, (b, length)),
+                           ("weight", weight, (kernel_size, c_out)),
+                           ("bias", bias, (c_out,))):
+        check_tensor("framed_conv1d", name, t, shape, torch.float32, x.device)
     for name, t in (("scale", scale), ("shift", shift)):
         if t is not None:
-            _check(name, t, (c_out,), x.device)
+            check_tensor("framed_conv1d", name, t, (c_out,), torch.float32,
+                         x.device)
     t_out = out_length(length, kernel_size, stride, pad)
     if t_out <= 0 or stride <= 0 or pad < 0 or b <= 0:
         raise ValueError(f"framed_conv1d: unsupported shape B={b} L={length} "
@@ -152,14 +129,10 @@ def _framed_conv1d_cuda(x, weight, bias, kernel_size, stride, pad, scale,
     if -(-b * t_out // 128) * 128 >= 2 ** 31:  # frames in whole 128-frame tiles
         raise ValueError("framed_conv1d: 2**31 output frames or more are not "
                          "supported")
-    lib = load_library("framed_conv", _bind)
     y = torch.empty((b, t_out, c_out), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = lib.framed_conv1d_f32(
-        _ptr(x), _ptr(weight), _ptr(bias), _ptr(scale), _ptr(shift), _ptr(y),
-        b, length, kernel_size, c_out, t_out, stride, pad, int(relu), stream)
-    check_status("framed_conv1d", status)
-    launch_counts["framed_conv1d"] += 1
+    launch(load_library("framed_conv", _SIGNATURES), "framed_conv1d_f32",
+           "framed_conv1d", x.device, x, weight, bias, scale, shift, y, b,
+           length, kernel_size, c_out, t_out, stride, pad, int(relu))
     return y
 
 

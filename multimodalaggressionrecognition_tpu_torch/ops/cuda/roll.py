@@ -15,9 +15,9 @@ dtypes; a copy is exact in either) of fewer than 2**31 elements and raise on
 anything else; nothing is copied quietly.
 
 `circular_roll` calls the `mar_torch::roll` op (torch.library): the plain
-version on the CPU, the kernel on CUDA (the only place that counts a
-launch), and a fake implementation for torch.export, which keeps the op in
-a serving artifact's graph (io/export.py).
+version on the CPU, the kernel on CUDA (launched and counted by
+`utils/kernels.launch`), and a fake implementation for torch.export, which
+keeps the op in a serving artifact's graph (io/export.py).
 
 `roll` is the differentiable entry (a `torch.autograd.Function`): the
 gradient of a roll is the roll of the gradient by the negated shifts, on a
@@ -25,26 +25,14 @@ CUDA tensor the same kernel again.  JAX differentiates `jnp.roll` the same
 way; the prototype has no custom VJP.
 """
 
-import ctypes
-
 import torch
 
-from ...utils.kernels import (check_status, launch_counts, launch_key,
-                               load_library)
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-
+from ...utils.kernels import check_tensor, launch, launch_key, load_library
 
 # dtype -> (the kernel's entry, elements per 16-byte vector)
 _ENTRIES = {torch.float32: ("roll_f32", 4), torch.bfloat16: ("roll_16bit", 8)}
-
-
-def _bind(lib):
-    for entry, _ in _ENTRIES.values():
-        fn = getattr(lib, entry)
-        fn.argtypes = [_P, _P] + [_I] * 9 + [_P]
-        fn.restype = _I
+# x, out, B, T, H, W, C, st, sh, sw, vec
+_SIGNATURES = {entry: "PPiiiiiiiii" for entry, _ in _ENTRIES.values()}
 
 
 def roll_reference(x, shifts):
@@ -61,8 +49,7 @@ def _validate(x, shifts):
                          f"{tuple(x.shape)}")
     if x.dtype not in _ENTRIES:
         raise TypeError(f"roll: x must be float32 or bfloat16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("roll: x must be contiguous")
+    check_tensor("roll", "x", x, x.shape, x.dtype, x.device)
     if not 0 < x.numel() < 2 ** 31:  # the kernel's indices are 32-bit ints
         raise ValueError(f"roll: {x.numel()} elements; the kernel takes "
                          "1 to 2**31 - 1")
@@ -97,19 +84,15 @@ def _(x, st, sh, sw):
 
 @_roll_op.register_kernel("cuda")
 def _roll_cuda(x, st, sh, sw):
-    """The kernel launch: the only place that counts one."""
     shifts = _validate(x, (st, sh, sw))
     b, t, h, w, c = x.shape
     out = torch.empty_like(x)
     entry, per_vec = _ENTRIES[x.dtype]
     vec = (c % per_vec == 0 and x.data_ptr() % 16 == 0
            and out.data_ptr() % 16 == 0)
-    lib = load_library("roll", _bind)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    status = getattr(lib, entry)(x.data_ptr(), out.data_ptr(), b, t, h, w, c,
-                                 *shifts, int(vec), stream)
-    check_status("roll", status)
-    launch_counts[launch_key("roll", x.dtype)] += 1
+    launch(load_library("roll", _SIGNATURES), entry,
+           launch_key("roll", x.dtype), x.device, x, out, b, t, h, w, c,
+           *shifts, int(vec))
     return out
 
 

@@ -28,24 +28,21 @@ them.  Without uniforms (eval, rate 0) there is no mask.
 Without a gradient and without uniforms the forward is the
 `mar_torch::self_attention` op (torch.library): the plain version on the
 CPU, the kernel on CUDA, and a fake for torch.export, which keeps the op
-in a serving artifact's graph (io/export.py).  Launches count under
-`self_attention.bf16` and `self_attention_bwd.bf16` (utils/kernels.py).
+in a serving artifact's graph (io/export.py).  `utils/kernels.launch`
+counts the launches under `self_attention.bf16` and
+`self_attention_bwd.bf16`.
 
 `kernel_takes(qkv, head_dim)` is the routing predicate `_attend` applies,
 with no key padding mask: a CUDA bf16 qkv at a head dim the kernels take.
 """
 
-import ctypes
 import math
 from typing import Optional
 
 import torch
 
-from ...utils.kernels import (check_status, launch_counts, launch_key,
-                               load_library)
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
+from ...utils.kernels import (check_tensor, launch, launch_key, load_library,
+                               query)
 
 HEAD_DIMS = (32, 64)  # the kernels' instantiations
 TILE = 64  # keys a mask word pair covers (csrc/self_attention.cuh)
@@ -78,55 +75,27 @@ def _tiles(t: int) -> int:
     return (t + TILE - 1) // TILE
 
 
-def _bind(lib):
-    lib.self_attention_bf16.argtypes = ([_P] * 5 + [_I] * 4
-                                        + [ctypes.c_float, _P])
-    lib.self_attention_bf16.restype = _I
-    lib.self_attention_info.argtypes = [_I, _I, ctypes.POINTER(_I)]
-    lib.self_attention_info.restype = _I
-
-
-def _bind_bwd(lib):
-    lib.self_attention_bwd_bf16.argtypes = ([_P] * 6 + [_I] * 4
-                                            + [ctypes.c_float, _P])
-    lib.self_attention_bwd_bf16.restype = _I
-    lib.self_attention_bwd_info.argtypes = [_I, _I, ctypes.POINTER(_I)]
-    lib.self_attention_bwd_info.restype = _I
+# qkv, u, out, lse, bits, B, T, heads, d, keep; info: d, drop, out[3]
+_FWD = {"self_attention_bf16": "PPPPPiiiif", "self_attention_info": "iio"}
+# qkv, g, lse, bits, dqkv, dsum, B, T, heads, d, keep; info: d, drop, out[5]
+_BWD = {"self_attention_bwd_bf16": "PPPPPPiiiif",
+        "self_attention_bwd_info": "iio"}
 
 
 def launch_info(d: int, drop: bool) -> dict:
     """The kernels' launches at head dim `d`, with or without dropout, on
     the current card: threads per block, and each kernel's dynamic shared
     memory bytes and resident blocks per SM."""
-    lib = load_library("self_attention", _bind)
-    out = (_I * 3)()
-    check_status("self_attention", lib.self_attention_info(d, int(drop), out))
+    out = query(load_library("self_attention", _FWD), "self_attention_info",
+                d, int(drop), n_out=3)
     info = {"threads": out[0], "fwd": {"dynamic_smem_bytes": out[1],
                                        "blocks_per_sm": out[2]}}
-    lib = load_library("self_attention_bwd", _bind_bwd)
-    out = (_I * 5)()
-    check_status("self_attention_bwd",
-                 lib.self_attention_bwd_info(d, int(drop), out))
+    out = query(load_library("self_attention_bwd", _BWD),
+                "self_attention_bwd_info", d, int(drop), n_out=5)
     info["bwd_rows"] = {"dynamic_smem_bytes": out[1], "blocks_per_sm": out[2]}
     info["bwd_columns"] = {"dynamic_smem_bytes": out[3],
                            "blocks_per_sm": out[4]}
     return info
-
-
-def _check(name, t, shape, dtype, device):
-    if t.dtype != dtype:
-        raise TypeError(f"self_attention: {name} must be {dtype}, got "
-                        f"{t.dtype}")
-    if t.device != device:
-        raise ValueError(f"self_attention: {name} on {t.device}, qkv on "
-                         f"{device}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"self_attention: {name} shape {tuple(t.shape)} != "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"self_attention: {name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"self_attention: {name} must be 16-byte aligned")
 
 
 def _validate(qkv, heads: int):
@@ -140,7 +109,8 @@ def _validate(qkv, heads: int):
         raise ValueError(f"self_attention: the kernels take a CUDA bf16 qkv "
                          f"at head dim {HEAD_DIMS}, got {qkv.dtype} on "
                          f"{qkv.device} at d={d}")
-    _check("qkv", qkv, qkv.shape, torch.bfloat16, qkv.device)
+    check_tensor("self_attention", "qkv", qkv, qkv.shape, torch.bfloat16,
+                 qkv.device, aligned=True)
     if not (b >= 1 and t >= 1 and b * heads * _tiles(t) < 2 ** 31):
         raise ValueError(f"self_attention: B={b} T={t} heads={heads} do not "
                          "fit the kernels' grid")
@@ -148,13 +118,12 @@ def _validate(qkv, heads: int):
 
 
 def _launch_fwd(qkv, u, heads: int, keep: float, for_grad: bool):
-    """The forward launch: the only place that counts one.  Returns (out,
-    lse or None, bits or None); lse and bits where `for_grad` (bits where
-    there are uniforms)."""
+    """The forward launch.  Returns (out, lse or None, bits or None); lse
+    and bits where `for_grad` (bits where there are uniforms)."""
     b, t, d = _validate(qkv, heads)
     if u is not None:
-        _check("u", u, (b, heads, t, t), torch.float32, qkv.device)
-    lib = load_library("self_attention", _bind)
+        check_tensor("self_attention", "u", u, (b, heads, t, t),
+                     torch.float32, qkv.device, aligned=True)
     dev = qkv.device
     out = torch.empty((b, t, heads * d), dtype=qkv.dtype, device=dev)
     lse = (torch.empty((b, heads, t), dtype=torch.float32, device=dev)
@@ -162,14 +131,9 @@ def _launch_fwd(qkv, u, heads: int, keep: float, for_grad: bool):
     bits = (torch.empty((b, heads, t, 2 * _tiles(t)), dtype=torch.int32,
                         device=dev)
             if for_grad and u is not None else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = lib.self_attention_bf16(
-        qkv.data_ptr(), None if u is None else u.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(),
-        None if bits is None else bits.data_ptr(), b, t, heads, d, keep,
-        stream)
-    check_status("self_attention", status)
-    launch_counts[launch_key("self_attention", qkv.dtype)] += 1
+    launch(load_library("self_attention", _FWD), "self_attention_bf16",
+           launch_key("self_attention", qkv.dtype), dev, qkv, u, out, lse,
+           bits, b, t, heads, d, keep)
     return out, lse, bits
 
 
@@ -179,21 +143,20 @@ def self_attention_bwd(qkv, g, lse, bits, heads: int, keep: float = 1.0):
     without uniforms), as `_launch_fwd` returns them: dqkv (B, T, 3 heads d)
     bf16.  CUDA only: the plain version's gradient is autograd's."""
     b, t, d = _validate(qkv, heads)
-    _check("g", g, (b, t, heads * d), torch.bfloat16, qkv.device)
-    _check("lse", lse, (b, heads, t), torch.float32, qkv.device)
+    check_tensor("self_attention", "g", g, (b, t, heads * d), torch.bfloat16,
+                 qkv.device, aligned=True)
+    check_tensor("self_attention", "lse", lse, (b, heads, t), torch.float32,
+                 qkv.device, aligned=True)
     if bits is not None:
-        _check("bits", bits, (b, heads, t, 2 * _tiles(t)), torch.int32,
-               qkv.device)
-    lib = load_library("self_attention_bwd", _bind_bwd)
+        check_tensor("self_attention", "bits", bits,
+                     (b, heads, t, 2 * _tiles(t)), torch.int32, qkv.device,
+                     aligned=True)
     dqkv = torch.empty_like(qkv)
     dsum = torch.empty_like(lse)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    status = lib.self_attention_bwd_bf16(
-        qkv.data_ptr(), g.data_ptr(), lse.data_ptr(),
-        None if bits is None else bits.data_ptr(), dqkv.data_ptr(),
-        dsum.data_ptr(), b, t, heads, d, keep, stream)
-    check_status("self_attention_bwd", status)
-    launch_counts[launch_key("self_attention_bwd", qkv.dtype)] += 1
+    launch(load_library("self_attention_bwd", _BWD),
+           "self_attention_bwd_bf16",
+           launch_key("self_attention_bwd", qkv.dtype), qkv.device, qkv, g,
+           lse, bits, dqkv, dsum, b, t, heads, d, keep)
     return dqkv
 
 

@@ -17,8 +17,8 @@ gradients of qkv and bias; the mask gets none.  Without a gradient it is
 
 `fused_window_attention` calls the `mar_torch::window_attention` op
 (torch.library), `window_attention_fwd` the `mar_torch::window_attention_lse`
-op: the plain version on the CPU, the forward kernel on CUDA (the only
-place that counts its launch, under one key for both), and a fake
+op: the plain version on the CPU, the forward kernel on CUDA (its launch
+counted under one key for both, by `utils/kernels.launch`), and a fake
 implementation for torch.export, which keeps the first op in a serving
 artifact's graph (io/export.py).  The backward stays a plain wrapper:
 export and quantization are for inference.
@@ -45,47 +45,31 @@ package's CPU reference rounds the softmax probabilities to v's dtype
 before P·V; its TPU kernel, and so this port, does not.)
 """
 
-import ctypes
 import math
 from typing import Optional, Tuple
 
 import torch
 
-from ...utils.kernels import (check_status, launch_counts, launch_key,
-                               load_library)
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
+from ...utils.kernels import (check_tensor, launch, launch_key, load_library,
+                               query)
 
 MAX_TOKENS = 392             # a full (8, 7, 7) window
 HEAD_DIMS = (8, 16, 32)      # the kernel's instantiations
 
-
-def _bind_info(fn):
-    fn.argtypes, fn.restype = [_I, _I, _I, ctypes.POINTER(_I)], _I
-
-
+_OP = "fused_window_attention"  # the kernels' name in their errors
 # the storage dtypes of qkv, g, out and dqkv: the kernels' entry suffixes
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
-
-def _bind(lib):
-    for suffix in _SUFFIX.values():
-        fn = getattr(lib, f"window_attention_{suffix}")
-        fn.argtypes = [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P]
-        fn.restype = _I
-    _bind_info(lib.window_attention_info)
-
-
-def _bind_bwd(lib):
-    lib.window_attention_bwd_groups.argtypes = [_I] * 5
-    lib.window_attention_bwd_groups.restype = _I
-    # f32 also takes the forward's output
-    for suffix, pointers in (("f32", 9), ("bf16", 8)):
-        fn = getattr(lib, f"window_attention_bwd_{suffix}")
-        fn.argtypes = [_P] * pointers + [_I] * 6 + [ctypes.c_float, _P]
-        fn.restype = _I
-    _bind_info(lib.window_attention_bwd_info)
+_SIGNATURES = {
+    # qkv, bias, mask, out, lse, W, N, heads, d, nW_img, scale
+    "window_attention": {"window_attention_f32": "PPPPPiiiiif",
+                         "window_attention_bf16": "PPPPPiiiiif",
+                         "window_attention_info": "iiio"},
+    # qkv, bias, mask, g, (f32: out,) lse, dqkv, dbias, partial, W, N,
+    # heads, d, nW_img, groups, scale; groups: W, N, heads, d, bf16
+    "window_attention_bwd": {"window_attention_bwd_f32": "PPPPPPPPPiiiiiif",
+                             "window_attention_bwd_bf16": "PPPPPPPPiiiiiif",
+                             "window_attention_bwd_groups": "iiiii",
+                             "window_attention_bwd_info": "iiio"}}
 
 
 def launch_info(name: str, n: int, d: int, dtype=torch.float32) -> dict:
@@ -93,11 +77,8 @@ def launch_info(name: str, n: int, d: int, dtype=torch.float32) -> dict:
     at (N, d) on the current card, for its instantiation of qkv's `dtype`:
     threads per block, dynamic shared memory bytes and resident blocks per
     SM."""
-    lib = load_library(name, {"window_attention": _bind,
-                              "window_attention_bwd": _bind_bwd}[name])
-    out = (_I * 3)()
-    check_status(name, getattr(lib, name + "_info")(
-        n, d, int(dtype == torch.bfloat16), out))
+    out = query(load_library(name, _SIGNATURES[name]), name + "_info", n, d,
+                int(dtype == torch.bfloat16), n_out=3)
     return dict(zip(("threads", "dynamic_smem_bytes", "blocks_per_sm"), out))
 
 
@@ -196,20 +177,6 @@ def window_attention_bwd_reference(qkv, bias, mask, g, heads: int, lse,
     return dqkv.to(dtype), ds.sum(dim=0).to(bias_dtype)
 
 
-def _check(name, t, shape, device, dtype=torch.float32):
-    if t.dtype != dtype:
-        raise TypeError(f"fused_window_attention: {name} must be {dtype}, "
-                        f"got {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"fused_window_attention: {name} on {t.device}, qkv "
-                         f"on {device}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"fused_window_attention: {name} shape "
-                         f"{tuple(t.shape)} != {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"fused_window_attention: {name} must be contiguous")
-
-
 def _validate(qkv, bias, mask, heads: int):
     """Check what the kernels take; returns (W, N, C, d, nW_img).  `bias`
     is the f32 copy the kernels read."""
@@ -228,12 +195,13 @@ def _validate(qkv, bias, mask, heads: int):
         raise ValueError(f"fused_window_attention: C={c} is not a multiple of "
                          f"heads={heads}")
     d = c // heads
-    _check("qkv", qkv, (w, n, c3), qkv.device, qkv.dtype)
-    _check("bias", bias, (heads, n, n), qkv.device)
+    check_tensor(_OP, "qkv", qkv, (w, n, c3), qkv.dtype, qkv.device,
+                 aligned=True)
+    check_tensor(_OP, "bias", bias, (heads, n, n), torch.float32, qkv.device)
     nw = 0
     if mask is not None:
         nw = mask.shape[0] if mask.dim() == 3 else 0
-        _check("mask", mask, (nw, n, n), qkv.device)
+        check_tensor(_OP, "mask", mask, (nw, n, n), torch.float32, qkv.device)
         if nw < 1 or w % nw:
             raise ValueError(f"fused_window_attention: W={w} windows is not "
                              f"a multiple of the mask's nW_img={nw}")
@@ -244,8 +212,6 @@ def _validate(qkv, bias, mask, heads: int):
     if not 0 < w * heads < 2 ** 31:
         raise ValueError(f"fused_window_attention: W*heads={w * heads} blocks "
                          "do not fit the kernel's grid")
-    if qkv.data_ptr() % 16:
-        raise ValueError("fused_window_attention: qkv must be 16-byte aligned")
     return w, n, c, d, nw
 
 
@@ -288,22 +254,17 @@ def _window_attention_cuda(qkv, bias, mask, heads):
 
 
 def _launch_fwd(qkv, bias, mask, heads: int, with_lse: bool):
-    """The kernel launch, with or without the row logsumexp: the only place
-    that counts one.  Returns (out, lse or None)."""
+    """The kernel launch, with or without the row logsumexp.  Returns (out,
+    lse or None)."""
     bias = _bias_f32(bias)
     w, n, c, d, nw = _validate(qkv, bias, mask, heads)
-    lib = load_library("window_attention", _bind)
     out = torch.empty((w, n, c), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((w, heads, n), dtype=torch.float32, device=qkv.device)
            if with_lse else None)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    status = getattr(lib, f"window_attention_{_SUFFIX[qkv.dtype]}")(
-        qkv.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(),
-        w, n, heads, d, nw, d ** -0.5, stream)
-    check_status("window_attention", status)
-    launch_counts[launch_key("window_attention", qkv.dtype)] += 1
+    launch(load_library("window_attention", _SIGNATURES["window_attention"]),
+           f"window_attention_{_SUFFIX[qkv.dtype]}",
+           launch_key("window_attention", qkv.dtype), qkv.device, qkv, bias,
+           mask, out, lse, w, n, heads, d, nw, d ** -0.5)
     return out, lse
 
 
@@ -354,34 +315,26 @@ def window_attention_bwd(qkv, bias, mask, g, heads: int, lse, out=None):
                                               out)
     bias_dtype, bias = bias.dtype, _bias_f32(bias)
     w, n, c, d, nw = _validate(qkv, bias, mask, heads)
-    _check("g", g, (w, n, c), qkv.device, qkv.dtype)
-    if g.data_ptr() % 16:
-        raise ValueError("fused_window_attention: g must be 16-byte aligned")
-    _check("lse", lse, (w, heads, n), qkv.device)
+    check_tensor(_OP, "g", g, (w, n, c), qkv.dtype, qkv.device, aligned=True)
+    check_tensor(_OP, "lse", lse, (w, heads, n), torch.float32, qkv.device)
     f32 = qkv.dtype == torch.float32
     if f32:
         if out is None:
             raise ValueError("window_attention_bwd: the f32 backward takes "
                              "the forward's output")
-        _check("out", out, (w, n, c), qkv.device)
-    lib = load_library("window_attention_bwd", _bind_bwd)
-    groups = lib.window_attention_bwd_groups(
-        w, n, heads, d, int(qkv.dtype == torch.bfloat16))
-    if groups < 1:
-        check_status("window_attention_bwd", -groups or 1)
+        check_tensor(_OP, "out", out, (w, n, c), torch.float32, qkv.device)
+    lib = load_library("window_attention_bwd",
+                       _SIGNATURES["window_attention_bwd"])
+    groups = query(lib, "window_attention_bwd_groups", w, n, heads, d,
+                   int(not f32))
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty_like(bias)
     partial = torch.empty((groups, heads, n, n), dtype=torch.float32,
                           device=qkv.device)
-    stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    status = getattr(lib, f"window_attention_bwd_{_SUFFIX[qkv.dtype]}")(
-        qkv.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), g.data_ptr(),
-        *((out.data_ptr(),) if f32 else ()), lse.data_ptr(),
-        dqkv.data_ptr(), dbias.data_ptr(), partial.data_ptr(),
-        w, n, heads, d, nw, groups, d ** -0.5, stream)
-    check_status("window_attention_bwd", status)
-    launch_counts[launch_key("window_attention_bwd", qkv.dtype)] += 1
+    launch(lib, f"window_attention_bwd_{_SUFFIX[qkv.dtype]}",
+           launch_key("window_attention_bwd", qkv.dtype), qkv.device, qkv,
+           bias, mask, g, *((out,) if f32 else ()), lse, dqkv, dbias, partial,
+           w, n, heads, d, nw, groups, d ** -0.5)
     return dqkv, dbias.to(bias_dtype)
 
 

@@ -18,8 +18,7 @@ The class weights are gathered from a table on the logits' device
 (`class_weight_table`), built once per (weights, dtype, device) and kept
 for the life of the process: making a CUDA tensor from a Python tuple is a
 pageable copy that waits for the card to drain its queue, which every step
-would otherwise pay.  `TABLE_COUNTS` counts the builds and the hits
-(utils/profiling.Recording reads both over a window).
+would otherwise pay.  `TABLE_COUNTS` counts the builds and the hits.
 """
 
 import threading

@@ -1,4 +1,4 @@
-"""Build, load and count the port's hand-written CUDA kernels.
+"""Build, load, launch and count the port's hand-written CUDA kernels.
 
 Each kernel lives in `csrc/<name>.cu` with a plain C entry point.  On first
 use it is compiled with `nvcc` for Hopper (`sm_90a`) into a shared library
@@ -7,11 +7,14 @@ the flags, and loaded with `ctypes` — no PyTorch headers, so a build takes
 seconds.  Nothing here runs at import time: the CPU-only test environment
 imports every module and never builds.
 
-Every wrapper adds one to `launch_counts[<name>]` each time it launches its
-kernel, and nowhere else, so a run can show that its path went through the
-kernel (chip_smoke.py resets and reads the counts).  A kernel's bf16
-instantiation counts under `<name>.bf16` (`launch_key`), so a bf16 path
-shows which instantiation it ran.
+The wrappers (`ops/cuda/`) declare each entry point's C signature as data
+(`load_library`), check the tensors they hand it (`check_tensor`) and call
+it through `launch` or `query`.  `launch` is the one place that adds to
+`launch_counts`: one under the launch's key, after its status is checked,
+so a run can show that its path went through the kernel (chip_smoke.py and
+the benchmark's launch plan read the counts).  A kernel's bf16 instantiation
+counts under `<name>.bf16` (`launch_key`), so a bf16 path shows which
+instantiation it ran.
 
 There is no automatic kernel selection: a wrapper takes its plain PyTorch
 version only for a tensor on the CPU, and for a CUDA tensor launches the
@@ -25,6 +28,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+import torch
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -115,14 +120,33 @@ def build_all() -> dict:
     return {n: _finish_build(n, *proc_tmp) for n, proc_tmp in started.items()}
 
 
-def load_library(name: str, bind) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<name>.cu`; `bind(lib)` declares the
-    argtypes/restype of its entry points once."""
+# one code per C parameter: a pointer (a tensor, or None for a null one),
+# an int, a float, an int out-array
+_CTYPES = {"P": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+           "o": ctypes.POINTER(ctypes.c_int)}
+
+
+def bind(lib, signatures: dict):
+    """Declare the argtypes and (int) restype of each entry point of `lib`
+    from `signatures`, {entry: codes}, one `_CTYPES` code a parameter.  An
+    entry that takes a pointer launches kernels: its last parameter, the
+    stream, is appended here.  ctypes then checks every call's arguments
+    against the declaration."""
+    for entry, codes in signatures.items():
+        fn = getattr(lib, entry)
+        fn.argtypes = [_CTYPES[c] for c in codes + ("P" if "P" in codes
+                                                     else "")]
+        fn.restype = ctypes.c_int
+
+
+def load_library(name: str, signatures: dict) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<name>.cu`, its entry points bound
+    once from `signatures` (`bind`)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(_finish_build(name, *_start_build(name)))
-            bind(lib)
+            bind(lib, signatures)
             _libs[name] = lib
         return lib
 
@@ -131,3 +155,49 @@ def check_status(name: str, status: int):
     """Raise on a non-zero cudaError_t returned by a launch."""
     if status != 0:
         raise RuntimeError(f"{name} launch failed: cudaError_t {status}")
+
+
+def check_tensor(op: str, name: str, t, shape, dtype, device,
+                 aligned: bool = False):
+    """Raise unless `t`, the tensor `op` hands its kernel as `name`, has
+    `dtype` (else TypeError), is on `device`, has `shape`, is contiguous
+    and, where `aligned`, starts on a 16-byte boundary (else ValueError)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{op}: {name} must be {dtype}, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{op}: {name} on {t.device}, not {device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{op}: {name} shape {tuple(t.shape)} != "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{op}: {name} must be contiguous")
+    if aligned and t.data_ptr() % 16:
+        raise ValueError(f"{op}: {name} must be 16-byte aligned")
+
+
+def launch(lib, entry: str, key: str, device, *args):
+    """Run `lib`'s launch entry point `entry` on `device`'s current stream
+    with `args` (a tensor passes its data pointer, None a null one), raise
+    on its status and add one to `launch_counts` under `key`: the only
+    place a launch is counted."""
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    check_status(entry, getattr(lib, entry)(*args, stream))
+    launch_counts[key] += 1
+
+
+def query(lib, entry: str, *args, n_out: int = 0):
+    """Call `lib`'s query entry point `entry` (no stream, nothing launched)
+    and raise on a failure.  With `n_out`, the entry fills an int array of
+    that length, passed last, and returns a cudaError_t: the array comes
+    back as a list.  Without, it returns a count, or minus a cudaError_t:
+    the count comes back."""
+    fn = getattr(lib, entry)
+    if n_out:
+        out = (ctypes.c_int * n_out)()
+        check_status(entry, fn(*args, out))
+        return list(out)
+    value = fn(*args)
+    if value < 1:
+        check_status(entry, -value or 1)
+    return value

@@ -14,10 +14,7 @@
   CUDA event at each end of a span marked `device`, on the current stream,
   and `backward_mark` splits the backward by tower; the events are
   resolved when the recording is first read, never per step.  The
-  allocator's counters, the loss's class-weight table builds and hits
-  (`ops/losses.TABLE_COUNTS`) and the self-attention kernels' launches
-  (`SELF_ATTENTION_KEYS` of `utils/kernels.launch_counts`) are read when
-  it opens and closes.  Under a
+  allocator's counters are read when it opens and closes.  Under a
   running profiler each span is also a `torch.profiler.record_function`
   range, so the profiler's trace shows the phases by name.
 
@@ -38,7 +35,6 @@ _last = None  # the last Recording closed
 _OFF = contextlib.nullcontext()
 ALLOCATOR_COUNTERS = ("num_device_alloc", "num_device_free",
                       "num_alloc_retries")
-SELF_ATTENTION_KEYS = ("self_attention.bf16", "self_attention_bwd.bf16")
 
 
 @contextlib.contextmanager
@@ -99,10 +95,9 @@ class Segment:
 
 
 class Recording:
-    """The spans, backward marks, allocator counters, loss-table counts
-    and self-attention launches of one window, opened at `opened_ns` and closed at `closed_ns`
-    (`time.time_ns`).  `timed`: device phases record CUDA events (on a card
-    only)."""
+    """The spans, backward marks and allocator counters of one window,
+    opened at `opened_ns` and closed at `closed_ns` (`time.time_ns`).
+    `timed`: device phases record CUDA events (on a card only)."""
 
     def __init__(self, device=None, timed=True):
         import torch
@@ -116,14 +111,10 @@ class Recording:
         self.spans: List[Span] = []
         self.marks = []  # (name, step, ns, event) as each prehook fired
         self.allocator: Dict[str, int] = {}
-        self.loss_tables: Dict[str, int] = {}
-        self.self_attention: Dict[str, int] = {}
         self._local = threading.local()
         self._handles = []
         self._segments = None
         self._counters = self._allocator_counters()
-        self._tables = _loss_table_counts()
-        self._launches = _self_attention_counts()
         self.opened_ns, self.closed_ns = time.time_ns(), None
 
     def _allocator_counters(self):
@@ -167,11 +158,6 @@ class Recording:
         self._handles = []
         after = self._allocator_counters()
         self.allocator = {k: after[k] - v for k, v in self._counters.items()}
-        after = _loss_table_counts()
-        self.loss_tables = {k: after[k] - v for k, v in self._tables.items()}
-        after = _self_attention_counts()
-        self.self_attention = {k: after[k] - v
-                               for k, v in self._launches.items()}
 
     # ------------------------------------------------------------ reading
     def _resolve(self):
@@ -241,27 +227,13 @@ class Recording:
 
     def summary(self) -> dict:
         """Means a step: host ms by span, card ms by device phase, the card
-        ms between steps; the window's allocator and loss-table counts and
-        self-attention launches."""
+        ms between steps; the window's allocator counts."""
         between = self.between_steps_ms()
         return {"steps": self.steps, "host_ms": self.host_ms(),
                 "device_ms": self.device_ms(),
                 "between_steps_ms": statistics.fmean(between)
                 if between else None,
-                "allocator": self.allocator, "loss_tables": self.loss_tables,
-                "self_attention": self.self_attention}
-
-
-def _loss_table_counts() -> Dict[str, int]:
-    from ..ops.losses import TABLE_COUNTS
-
-    return dict(TABLE_COUNTS)
-
-
-def _self_attention_counts() -> Dict[str, int]:
-    from .kernels import launch_counts
-
-    return {k: launch_counts[k] for k in SELF_ATTENTION_KEYS}
+                "allocator": self.allocator}
 
 
 class _Open:

@@ -870,13 +870,13 @@ def test_bf16_finetune_step_on_the_card(cuda):
         assert buf.dtype == torch.float32
 
 
-def _direct_launch(name, entry, bind, args, out):
+def _direct_launch(name, signatures, entry, args, out):
     """The kernel launched straight through ctypes, as the wrappers did
     before the custom ops: the reference the op's CUDA body must equal."""
     from multimodalaggressionrecognition_tpu_torch.utils.kernels import (
         check_status, load_library)
 
-    lib = load_library(name, bind)
+    lib = load_library(name, signatures)
     stream = torch.cuda.current_stream().cuda_stream
     check_status(name, getattr(lib, entry)(*args, stream))
     torch.cuda.synchronize()
@@ -902,7 +902,7 @@ def test_custom_ops_equal_the_direct_kernel_launch(cuda):
     got = torch.ops.mar_torch.framed_conv1d(x, w, b, 160, 40, 80, s, None,
                                             True)
     want = torch.empty_like(got)
-    _direct_launch("framed_conv", "framed_conv1d_f32", fc._bind,
+    _direct_launch("framed_conv", fc._SIGNATURES, "framed_conv1d_f32",
                    (x.data_ptr(), w.data_ptr(), b.data_ptr(), s.data_ptr(),
                     None, want.data_ptr(), 8, 80000, 160, 64, got.shape[1],
                     40, 80, 1), want)
@@ -912,15 +912,16 @@ def test_custom_ops_equal_the_direct_kernel_launch(cuda):
         bias = torch.randn((3, 196, 196), generator=g).to(cuda)
         got = torch.ops.mar_torch.window_attention(qkv, bias, None, 3)
         want = torch.empty_like(got)
-        _direct_launch("window_attention", f"window_attention_{suffix}",
-                       wa._bind, (qkv.data_ptr(), bias.data_ptr(), None,
-                                  want.data_ptr(), None, 32, 196, 3, 32, 0,
-                                  ctypes.c_float(32 ** -0.5)), want)
+        _direct_launch("window_attention", wa._SIGNATURES["window_attention"],
+                       f"window_attention_{suffix}",
+                       (qkv.data_ptr(), bias.data_ptr(), None,
+                        want.data_ptr(), None, 32, 196, 3, 32, 0,
+                        ctypes.c_float(32 ** -0.5)), want)
         assert torch.equal(got, want)
     xr = torch.randn((8, 4, 28, 28, 96), generator=g).to(cuda)
     got = torch.ops.mar_torch.roll(xr, 0, 3, 3)
     want = torch.empty_like(got)
-    _direct_launch("roll", "roll_f32", rl._bind,
+    _direct_launch("roll", rl._SIGNATURES, "roll_f32",
                    (xr.data_ptr(), want.data_ptr(), 8, 4, 28, 28, 96, 0, 3,
                     3, 1), want)
     assert torch.equal(got, want)

@@ -1,9 +1,12 @@
 """Port plumbing: import isolation, device rules, weight-bridge strictness,
-checkpoints, config parsing and the kernel build keys."""
+checkpoints, config parsing, and the kernels' build keys, signatures and
+tensor checks."""
 
+import ctypes
 import os
 import subprocess
 import sys
+import types
 
 import jax
 import numpy as np
@@ -132,3 +135,62 @@ def test_kernel_library_is_keyed_by_source():
     assert path == kernels.library_path("framed_conv")
     with pytest.raises(RuntimeError, match="launch failed"):
         kernels.check_status("framed_conv1d", 9)
+
+
+def _offset_view():
+    """A (2, 8) f32 view 4 bytes past a 16-byte aligned allocation."""
+    base = torch.zeros(17)
+    assert base.data_ptr() % 16 == 0
+    return base[1:].view(2, 8)
+
+
+@pytest.mark.parametrize("make,aligned,err,match", [
+    (lambda: torch.zeros(2, 8, dtype=torch.float64), False, TypeError,
+     "op: t must be torch.float32, got torch.float64"),
+    (lambda: torch.zeros(2, 8, device="meta"), False, ValueError,
+     "op: t on meta, not cpu"),
+    (lambda: torch.zeros(2, 9), False, ValueError,
+     r"op: t shape \(2, 9\) != \(2, 8\)"),
+    (lambda: torch.zeros(8, 2).t(), False, ValueError,
+     "op: t must be contiguous"),
+    (_offset_view, True, ValueError, "op: t must be 16-byte aligned"),
+    (_offset_view, False, None, None),
+    (lambda: torch.zeros(2, 8), True, None, None),
+], ids=["dtype", "device", "shape", "contiguous", "misaligned",
+        "offset_unchecked", "fits"])
+def test_check_tensor_names_the_op_and_the_tensor(make, aligned, err, match):
+    """The one tensor check every kernel wrapper makes: TypeError for the
+    dtype, ValueError for the device, shape, layout and, where asked, a
+    pointer off 16 bytes."""
+    t = make()
+    if err is None:
+        kernels.check_tensor("op", "t", t, (2, 8), torch.float32,
+                             torch.device("cpu"), aligned=aligned)
+        return
+    with pytest.raises(err, match=match):
+        kernels.check_tensor("op", "t", t, (2, 8), torch.float32,
+                             torch.device("cpu"), aligned=aligned)
+
+
+@pytest.mark.parametrize("codes,want", [
+    ("PPif", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+              ctypes.c_void_p]),  # a launch: the stream appended
+    ("iio", [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]),
+    ("iiiii", [ctypes.c_int] * 5),
+], ids=["launch", "info", "count"])
+def test_a_declared_signature_binds_its_ctypes_types(codes, want):
+    lib = types.SimpleNamespace(entry=types.SimpleNamespace())
+    kernels.bind(lib, {"entry": codes})
+    assert lib.entry.argtypes == want
+    assert lib.entry.restype is ctypes.c_int
+
+
+def test_a_bound_entry_refuses_a_call_off_its_signature():
+    """ctypes holds each call to the declaration (libc's `abs`, int(int))."""
+    libc = ctypes.CDLL(None)
+    kernels.bind(libc, {"abs": "i"})
+    assert libc.abs(-3) == 3
+    with pytest.raises(TypeError):
+        libc.abs()
+    with pytest.raises(ctypes.ArgumentError):
+        libc.abs("3")

@@ -53,9 +53,8 @@ def _tensors(batch):
     return pipeline._tree_map(torch.from_numpy, batch)
 
 
-def _trainer(tmp_path, batches, specs=None, **kw):
-    specs = specs or {"phys": LossSpec("ce"), "verb": LossSpec("ce")}
-    return Trainer(_model(), specs,
+def _trainer(tmp_path, batches, **kw):
+    return Trainer(_model(), {"phys": LossSpec("ce"), "verb": LossSpec("ce")},
                    OptimizerConfig(learning_rate=1e-2), batches, batches[:1],
                    num_classes=2, saving_dir=str(tmp_path), model_name="trace",
                    device="cpu", run_dir=str(tmp_path / "run"),
@@ -190,50 +189,6 @@ def test_trainer_epoch_records_each_step_and_its_phases(tmp_path):
     assert set(STEP_CHILDREN) <= set(summary["host_ms"])
     assert summary["device_ms"] == {} and summary["between_steps_ms"] is None
     assert summary["allocator"] == {}
-    assert summary["loss_tables"] == {"builds": 0, "hits": 0}
-    assert summary["self_attention"] == {"self_attention.bf16": 0,
-                                         "self_attention_bwd.bf16": 0}
-
-
-def test_recording_counts_the_loss_tables_built_and_hit(tmp_path):
-    """A window's loss-table counts: both tables built in the first epoch's
-    first step, then one hit a weighted head a step."""
-    specs = {"phys": LossSpec("focal", class_weights=(0.2468, 0.7532)),
-             "verb": LossSpec("weighted_ce", class_weights=(0.6543, 0.3457))}
-    trainer = _trainer(tmp_path, [_batch(i) for i in range(3)], specs)
-    with profiling.recording("cpu") as first:
-        trainer.train_epoch(trainer.epoch_generator(0))
-    with profiling.recording("cpu") as rec:
-        trainer.train_epoch(trainer.epoch_generator(1))
-    assert first.loss_tables == {"builds": 2, "hits": 4}
-    assert rec.steps == 3 and rec.loss_tables == {"builds": 0, "hits": 6}
-    assert rec.summary()["loss_tables"] == rec.loss_tables
-
-
-def test_recording_counts_the_self_attention_launches(tmp_path):
-    """A window's self-attention launches: the delta of the two kernels'
-    `launch_counts` keys, 0 for an epoch that launches neither (the CPU
-    trainer's model has no attention), and what the wrappers add while it
-    is open (24 forward and 24 backward launches, an XLS-R step's)."""
-    from multimodalaggressionrecognition_tpu_torch.utils.kernels import (
-        launch_counts)
-
-    trainer = _trainer(tmp_path, [_batch(i) for i in range(2)])
-    saved = dict(launch_counts)
-    try:
-        launch_counts["self_attention.bf16"] += 5  # not the window's
-        with profiling.recording("cpu") as rec:
-            trainer.train_epoch(trainer.epoch_generator(0))
-        assert rec.summary()["self_attention"] == {
-            "self_attention.bf16": 0, "self_attention_bwd.bf16": 0}
-        with profiling.recording("cpu") as rec:
-            launch_counts["self_attention.bf16"] += 24
-            launch_counts["self_attention_bwd.bf16"] += 24
-        assert rec.summary()["self_attention"] == {
-            "self_attention.bf16": 24, "self_attention_bwd.bf16": 24}
-    finally:
-        launch_counts.clear()
-        launch_counts.update(saved)
 
 
 def test_trainer_records_an_epoch_under_a_profiler_only(tmp_path):
