@@ -75,7 +75,13 @@ Phases (any failure raises, and the script exits non-zero):
                 3e-5 of the plain version in f32 at B 2, the keep bits
                 `u < keep`, the backward twice bit for bit; at B 32 each
                 kernel cold and warm against its bound, one layer's draw,
-                forward and backward against the plain composition's.
+                forward and backward against the plain composition's.  The
+                Swin's patch embedding as one patch GEMM (no Pallas
+                counterpart; the tri-modal cells' b32 clips, f32 and bf16):
+                output, dW and db against an f64 product and F.conv3d's, dX
+                at b2 against the conv's; forward and backward cold and
+                warm against their bound and F.conv3d's with cuDNN's
+                backward of it.
   4. slices   - each served model at full width with seeded random weights:
                 audio,text (hidden 768, 80 000 samples, 48 tokens, 1 fusion
                 layer, 8 heads, batch 32), then audio,text,video (+ the frozen
@@ -340,6 +346,7 @@ import copy
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -348,6 +355,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.request
 import warnings
@@ -363,10 +371,11 @@ from multimodalaggressionrecognition_tpu_torch.cli.train_multimodal import (
 from multimodalaggressionrecognition_tpu_torch.models.layers import (
     seeded_init_)
 from multimodalaggressionrecognition_tpu_torch.models.nn1d import BatchNorm1d
+from multimodalaggressionrecognition_tpu_torch.models.nn3d import Conv3d
 from multimodalaggressionrecognition_tpu_torch.models.physverb import (
     IdentityExtractor)
 from multimodalaggressionrecognition_tpu_torch.models.swin3d import (
-    _attention_mask)
+    PatchEmbed3d, _attention_mask, _PatchGemm, _patches, patch_gemm)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
     framed_conv1d, framed_conv1d_reference, out_length)
 from multimodalaggressionrecognition_tpu_torch.ops.cuda.framed_conv import (
@@ -1974,6 +1983,11 @@ def train_phase(card_line):
         if steps < 6 or video_steps < 3:
             raise AssertionError(f"train: {steps} steps, {video_steps} with "
                                  "video (want >= 6 and >= 3)")
+        swin = trainer.state.model.extractors["video"].backbone.backbone
+        embeds = swin.patch_embed.calls  # the patch GEMM, once a forward
+        if embeds < video_steps:
+            raise AssertionError(f"train: the patch GEMM ran {embeds} times "
+                                 f"in {video_steps} video steps")
         files = set(os.listdir(trainer.run_dir))
         need = {"checkpoint_current", "checkpoint_best_phys",
                 "checkpoint_best_verb", "config.json"} | {
@@ -2012,7 +2026,6 @@ def train_phase(card_line):
         log(f"train launches per step by pattern: {per_pattern} ok")
 
         batch = patterns["audio,text,video"]
-        swin = trainer.state.model.extractors["video"].backbone.backbone
         timing = {}
         for remat in (True, False):
             swin.remat = remat
@@ -2040,6 +2053,7 @@ def train_phase(card_line):
     log(json.dumps({"train": "audio,text,video", "batch": TRAIN["batch_size"],
                     "video_freeze": False, "steps": steps,
                     "launches": counts, "launches_per_pattern": per_pattern,
+                    "patch_embed_calls": embeds,
                     "step_ms_remat": on_ms, "step_ms_no_remat": off_ms,
                     "peak_gib_remat": on_gb, "peak_gib_no_remat": off_gb,
                     "epoch_clips_per_s": clips_s,
@@ -3724,6 +3738,134 @@ def self_attention_phase(card: str):
             "resources": {lib: ptxas_usage(kernels.build_log(lib))
                           for lib in ("self_attention",
                                       "self_attention_bwd")}}
+
+
+# the tri-modal cells' clip batch, (B, T, H, W, C), and the Swin's patch
+PATCH_EMBED = ((32, 128, 112, 112, 3), (2, 4, 4), 96)
+
+
+def _gap(got, want):
+    """max |got - want| over max |want|."""
+    want = want.double()
+    return ((got.double() - want).abs().max() / want.abs().max()).item()
+
+
+def patch_embed_phase(card: str):
+    """The Swin's patch embedding as one patch GEMM (models/swin3d.py
+    `PatchEmbed3d`) at the tri-modal cells' b32 clips, in f32 (TF32 off)
+    and bf16: the output, dW and db against the same product in f64 (within
+    1e-5 of the largest in f32, 1e-2 in bf16; the conv's own distance
+    beside it) and the output against F.conv3d's; dX at b2 against the
+    conv's autograd; the forward and the backward (dW, db: what a step
+    asks) cold (L2 flushed) and warm (CUDA graphs) against their bound and
+    against F.conv3d and cuDNN's backward of it on the permuted clip, as
+    nn3d.Conv3d ran it (`library_ms`); the peak memory a forward and
+    backward adds through each module."""
+    shape, kernel, c_out = PATCH_EMBED
+    g = torch.Generator(DEVICE).manual_seed(SEED + 43)
+    out = {}
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        label = str(dtype).split(".")[-1]
+        embed = PatchEmbed3d(shape[-1], c_out, kernel).to(DEVICE)
+        conv = Conv3d(shape[-1], c_out, kernel, stride=kernel).to(DEVICE)
+        conv.load_state_dict(embed.state_dict())
+
+        small = torch.randn((2,) + shape[1:], generator=g,
+                            device=DEVICE).to(dtype)
+        xs = [small.clone().requires_grad_(True) for _ in range(2)]
+        ys = [m(x) for m, x in zip((embed, conv), xs)]
+        cot = torch.randn(ys[0].shape, generator=g, device=DEVICE).to(dtype)
+        for y in ys:
+            y.backward(cot)
+        gaps = {"dx_b2": _gap(xs[0].grad, xs[1].grad)}
+        embed.zero_grad(set_to_none=True)
+        conv.zero_grad(set_to_none=True)
+
+        x = torch.rand(shape, generator=g, device=DEVICE).to(dtype)
+        w = embed.weight.detach().to(dtype)
+        b = embed.bias.detach().to(dtype)
+        y = patch_gemm(x, w, b, kernel)
+        dy = torch.randn(y.shape, generator=g, device=DEVICE).to(dtype)
+        ctx = types.SimpleNamespace(saved_tensors=(x, w), kernel=kernel,
+                                    needs_input_grad=(False, True, True,
+                                                      False))
+        xc, dyc = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+
+        def fwd():
+            return patch_gemm(x, w, b, kernel)
+
+        def bwd():
+            return _PatchGemm.backward(ctx, dy)
+
+        def conv_fwd():
+            return F.conv3d(xc, w, b, stride=kernel)
+
+        def conv_bwd():
+            return torch.ops.aten.convolution_backward(
+                dyc, xc, w, [c_out], list(kernel), [0] * 3, [1] * 3, False,
+                [0] * 3, 1, [False, True, True])
+
+        _, dw, db, _ = bwd()
+        yc = conv_fwd().permute(0, 2, 3, 4, 1)
+        _, dwc, dbc = conv_bwd()
+        p64, dy64 = _patches(x.double(), kernel), dy.double().reshape(
+            -1, c_out)
+        want = {"out": torch.addmm(b.double(), p64,
+                                   w.double().permute(0, 2, 3, 4, 1).reshape(
+                                       c_out, -1).t()),
+                "dw": dy64.t().mm(p64).view(c_out, *kernel, shape[-1])
+                .permute(0, 4, 1, 2, 3),
+                "db": dy64.sum(0)}
+        del p64, dy64
+        for key, got, lib in (("out", y.reshape(-1, c_out),
+                               yc.reshape(-1, c_out)),
+                              ("dw", dw, dwc), ("db", db, dbc)):
+            gaps[key] = _gap(got, want[key])
+            gaps["conv_" + key] = _gap(lib, want[key])
+        gaps["out_vs_conv"] = _gap(y, yc)
+        del want, yc, dwc, dbc
+        bad = {k: v for k, v in gaps.items()
+               if not k.startswith("conv_") and v > tol}
+        if bad:
+            raise AssertionError(f"patch embedding {label}: {bad} > {tol}")
+
+        n = y.numel() // c_out
+        k = math.prod(kernel) * shape[-1]
+        flops = 2 * n * k * c_out
+        size = x.element_size()
+        products = None if dtype == torch.float32 else [
+            (flops, "bf16*bf16")]
+        bounds = {"fwd": bound(card, flops, size * (x.numel() + y.numel()),
+                               products),
+                  "bwd": bound(card, flops + n * c_out,
+                               size * (x.numel() + dy.numel()), products)}
+        times = {"fwd": {"cold": cold_ms(fwd), "warm": graph_ms(fwd),
+                         "library_ms": cold_ms(conv_fwd, reps=5)},
+                 "bwd": {"cold": cold_ms(bwd), "warm": graph_ms(bwd),
+                         "library_ms": cold_ms(conv_bwd, reps=3)}}
+        for key, t in times.items():
+            t["bound_ms"] = bounds[key]["bound_ms"]
+            t["roofline_cold_pct"] = 100 * t["bound_ms"] / t["cold"]
+            log(f"patch embedding {key} {label} b{shape[0]}: {t['cold']:.4f} "
+                f"ms cold, {t['warm']:.4f} warm; F.conv3d"
+                f"{' backward' if key == 'bwd' else ''} "
+                f"{t['library_ms']:.4f}; {bound_text(bounds[key])}")
+        del y, dw, db, ctx
+        peak = {}
+        for name, m in (("gemm", embed), ("conv", conv)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            m(x).backward(dy)
+            torch.cuda.synchronize()
+            peak[name] = (torch.cuda.max_memory_allocated() - base) / 1e6
+        log(f"patch embedding {label}: gaps {gaps} (<= {tol} but the "
+            f"conv's); peak added by forward and backward {peak} MB")
+        out[label] = {"times": times, "bounds": bounds, "gaps": gaps,
+                      "peak_added_mb": peak, "calls": embed.calls}
+        del x, dy, xc, dyc, embed, conv
+        torch.cuda.empty_cache()
+    return out
 
 
 def k2_extract_bf16_phase(card: str):
@@ -5764,6 +5906,7 @@ def main():
     bf16 = bf16_kernel_phase(name)
     k2["bf16_extract"] = k2_extract_bf16_phase(name)
     log(json.dumps({"self_attention": self_attention_phase(name)}))
+    log(json.dumps({"patch_embed": patch_embed_phase(name)}))
     launches = {label: run_slice(label, cfg, bs, parity_n, per_forward,
                                  card_line)
                 for label, cfg, bs, parity_n, per_forward in SLICES}

@@ -266,7 +266,7 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     same weights."""
     from .nn1d import BatchNorm1d, Conv1d
     from .nn3d import Conv2d, Conv3d
-    from .swin3d import ShiftedWindowAttention3d
+    from .swin3d import PatchEmbed3d, ShiftedWindowAttention3d
     from .wav2vec import (ConvPositionalEmbedding, Wav2Vec2Model,
                           weight_norm_of)
 
@@ -277,7 +277,7 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
         t.copy_(torch.rand(t.shape, generator=g) * (2 * bound) - bound)
 
     for m in model.modules():
-        if isinstance(m, (nn.Linear, Conv1d, Conv2d, Conv3d)):
+        if isinstance(m, (nn.Linear, Conv1d, Conv2d, Conv3d, PatchEmbed3d)):
             fan_in = m.weight[0].numel()
             fan_in_uniform_(m.weight, fan_in)
             if m.bias is not None:

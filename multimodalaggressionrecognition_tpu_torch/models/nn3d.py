@@ -3,11 +3,12 @@ models/nn3d.py), as `F.conv2d` / `F.conv3d`: the JAX package leaves these
 convs to XLA.
 
 The JAX package keeps video channels-last, (B, T, H, W, C).  `Conv3d`
-takes that layout by default, as Swin3D's patch embedding calls it, and
-torch's (B, C, T, H, W) with `channels_first=True`: the R3D and S3D
-networks permute a clip once at their entry and run every conv, norm and
-pool in that layout.  Images run in torch's (B, C, H, W) layout
-(models/vgg.py): `Conv2d` with padding and a bias.  `BatchNorm2d` and
+takes that layout by default, and torch's (B, C, T, H, W) with
+`channels_first=True`: the R3D and S3D networks permute a clip once at
+their entry and run every conv, norm and pool in that layout.  Swin3D's
+patch embedding, channels-last, is a product of its patches with the
+weight instead (models/swin3d.PatchEmbed3d).  Images run in torch's
+(B, C, H, W) layout (models/vgg.py): `Conv2d` with padding and a bias.  `BatchNorm2d` and
 `BatchNorm3d` are nn1d.BatchNorm1d's parameters and semantics on the
 channel axis 1.  The JAX package's `max_pool_nd` (-inf padding, floor) is
 `F.max_pool2d` / `F.max_pool3d`, and its `global_avg_pool` a mean over

@@ -1,8 +1,9 @@
 """Swin3D video transformer (tiny config), channels-last (the JAX package's
 models/swin3d.py, which follows torchvision's swin3d_t).
 
-Patch embed Conv3d(3->96, (2,4,4)), stages of shifted-window attention
-blocks (window (8,7,7), shift (4,3,3), depths (2,2,6,2), heads
+Patch embed (a conv 3->96 with kernel = stride (2,4,4), run as one product
+of the patches with the weight: `PatchEmbed3d`), stages of shifted-window
+attention blocks (window (8,7,7), shift (4,3,3), depths (2,2,6,2), heads
 (3,6,12,24)), patch merging between stages, final LayerNorm; the extractor
 mean-pools the (T', H', W') grid to a 768-d vector.  Every block's window
 attention runs through the fused window-attention kernels, forward and
@@ -30,6 +31,7 @@ are recomputed).
 """
 
 import functools
+import math
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -41,7 +43,6 @@ from ..ops.cuda.roll import roll
 from ..ops.cuda.window_attention import window_attention
 from ..ops.erf import check_gelu_mode, gelu
 from .layers import LayerNorm, Linear
-from .nn3d import Conv3d
 from .stochastic import REMAT_POLICIES, Stochastic, checkpoint
 
 
@@ -224,6 +225,111 @@ class PatchMerging3d(nn.Module):
         return self.reduction(self.norm(x))
 
 
+def _patches(x, kernel):
+    """(B, T, H, W, C) -> (B·T'·H'·W', kt·kh·kw·C) patches, T' = ⌊T/kt⌋
+    and so on (the trailing frames and pixels dropped, as an unpadded conv
+    with stride = kernel drops them).  Patch order (kt, kh, kw, C): a patch
+    row gathers runs of kw·C contiguous values."""
+    b, t, h, w, c = x.shape
+    kt, kh, kw = kernel
+    t, h, w = t // kt, h // kh, w // kw
+    x = x[:, :t * kt, :h * kh, :w * kw]
+    x = x.reshape(b, t, kt, h, kh, w, kw * c).permute(0, 1, 3, 5, 2, 4, 6)
+    return x.reshape(b * t * h * w, kt * kh * kw * c)
+
+
+def _patch_matrix(weight):
+    """(C_out, C, kt, kh, kw) conv weight -> (C_out, kt·kh·kw·C), the
+    patches' order."""
+    return weight.permute(0, 2, 3, 4, 1).reshape(weight.shape[0], -1)
+
+
+class _PatchGemm(torch.autograd.Function):
+    """The patch embedding's product with a backward that keeps x and the
+    weight, not the (N, K) patch matrix: it forms the patches again."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, kernel):
+        ctx.kernel = kernel
+        ctx.save_for_backward(x, weight)
+        return patch_gemm(x, weight, bias, kernel)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        kernel = ctx.kernel
+        c_out = weight.shape[0]
+        dy = dy.reshape(-1, c_out)
+        dx = dw = db = None
+        if ctx.needs_input_grad[1]:
+            # one product of depth N: cuBLAS splits the depth itself
+            dw = dy.t().mm(_patches(x, kernel))
+            dw = dw.view(c_out, *kernel, x.shape[-1]).permute(0, 4, 1, 2, 3)
+            dw = dw.contiguous()
+        if ctx.needs_input_grad[2]:
+            db = dy.sum(0)
+        if ctx.needs_input_grad[0]:
+            b, t, h, w, c = x.shape
+            kt, kh, kw = kernel
+            t, h, w = t // kt, h // kh, w // kw
+            dp = dy.mm(_patch_matrix(weight))
+            dx = x.new_zeros(x.shape)
+            dx[:, :t * kt, :h * kh, :w * kw] = dp.view(
+                b, t, h, w, kt, kh, kw, c).permute(
+                0, 1, 4, 2, 5, 3, 6, 7).reshape(
+                b, t * kt, h * kh, w * kw, c)
+        return dx, dw, db, None
+
+
+def patch_gemm(x, weight, bias, kernel):
+    """Conv3d with stride = kernel, no padding, channels-last: (B, T, H, W,
+    C) -> (B, T/kt, H/kh, W/kw, C_out), as one product of the patches with
+    the weight, the bias added in it."""
+    b, t, h, w, _ = x.shape
+    kt, kh, kw = kernel
+    y = torch.addmm(bias, _patches(x, kernel), _patch_matrix(weight).t())
+    return y.view(b, t // kt, h // kh, w // kw, -1)
+
+
+class PatchEmbed3d(nn.Module):
+    """The Swin's patch embedding, (B, T, H, W, C_in) -> (B, T/kt, H/kh,
+    W/kw, C_out): the unpadded conv with stride = kernel, as a product of
+    the (N, kt·kh·kw·C_in) patches with the weight (`patch_gemm`).
+
+    A conv's parameters, names, shapes and initialisation: weight (C_out,
+    C_in, kt, kh, kw) and bias (C_out), fan-in uniform, drawn in that order
+    (nn3d.Conv3d's), so that checkpoints and seeded weights carry over.
+    Computes in its input's dtype, the parameters cast to it.  Where a
+    gradient is needed the product runs through `_PatchGemm`, whose
+    backward forms the patches again rather than keeping them (at b32 f32
+    617 MB).  `calls` counts forwards.
+
+    Not `F.conv3d`: on an H100 at the fine-tune's b32 f32 clips its weight
+    gradient ran cuDNN's direct kernel, ~110 ms, where this product of
+    depth N takes ~1 ms."""
+
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: Tuple[int, int, int]):
+        super().__init__()
+        self.kernel_size = tuple(kernel_size)
+        self.weight = nn.Parameter(
+            torch.empty(features, in_channels, *self.kernel_size))
+        self.bias = nn.Parameter(torch.empty(features))
+        bound = 1.0 / math.sqrt(in_channels * math.prod(self.kernel_size))
+        nn.init.uniform_(self.weight, -bound, bound)
+        nn.init.uniform_(self.bias, -bound, bound)
+        self.calls = 0
+
+    def forward(self, x):
+        self.calls += 1
+        weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if torch.is_grad_enabled() and (
+                x.requires_grad or weight.requires_grad
+                or bias.requires_grad):
+            return _PatchGemm.apply(x, weight, bias, self.kernel_size)
+        return patch_gemm(x, weight, bias, self.kernel_size)
+
+
 class SwinTransformer3d(nn.Module):
     """Patch embed + stages + final norm: (B, T, H, W, 3) ->
     (B, T', H', W', C_final)."""
@@ -240,8 +346,7 @@ class SwinTransformer3d(nn.Module):
         # and recomputes its inside in the backward
         self.remat = remat
         self.remat_policy = _check_remat_policy(remat_policy)
-        self.patch_embed = Conv3d(in_channels, embed_dim, (2, 4, 4),
-                                  stride=(2, 4, 4))
+        self.patch_embed = PatchEmbed3d(in_channels, embed_dim, (2, 4, 4))
         self.patch_norm = LayerNorm(embed_dim, eps=1e-5)
         self.stages = []  # (block names, merge name or None) per stage
         total = sum(depths)
