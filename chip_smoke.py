@@ -343,6 +343,7 @@ Without a CUDA device it exits non-zero and prints no result.
 
 import contextlib
 import copy
+import dataclasses
 import gc
 import io
 import json
@@ -3740,6 +3741,267 @@ def self_attention_phase(card: str):
                                       "self_attention_bwd")}}
 
 
+# GigaChat's text tower in the benchmark's cell: batch, padded length, and
+# the b2 check's lengths
+GIGACHAT_BATCH, GIGACHAT_TOKENS, GIGACHAT_LENGTHS = 32, 256, (256, 97)
+
+
+def _events_ms(fn, reps=5):
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _gigachat_moe(cfg, g):
+    """One MoE block of `cfg` in bf16 on the card, its weights drawn as the
+    benchmark draws them (fan-in uniform, the correction bias 0.05 N)."""
+    from multimodalaggressionrecognition_tpu_torch.models import gigachat
+
+    moe = gigachat.MoE(cfg).to(DEVICE)
+    with torch.no_grad():
+        for name, p in moe.named_parameters():
+            fan = p.shape[-1]
+            p.copy_((torch.rand(p.shape, generator=g, device=DEVICE) * 2 - 1)
+                    / math.sqrt(fan))
+        moe.gate.e_score_correction_bias.copy_(
+            0.05 * torch.randn(cfg.router_experts, generator=g,
+                               device=DEVICE))
+    return moe.bfloat16()
+
+
+def gigachat_phase(card: str):
+    """GigaChat3.1's tower at its published widths on the benchmark's
+    share (models/gigachat.py `GIGACHAT3_1_EP32`), in bf16: at b2 (lengths
+    256 and 97) one MoE block's output and gradients through the grouped
+    products against the per-expert loop, the held-rows counter against the
+    reference router's rows (portbench/reference/gigachat.py `route`, in
+    f32 on the same inputs), the grouped block's step under CUDA's sync
+    debug mode "error"; the causal attention at head dim 192 through flash
+    against the composition (f32 scores), forward and backward; then at the
+    cell's b32 x 256 each block's forward and backward (CUDA events), the
+    grouped block against the loop, flash against the composition, the
+    peak memory each adds, and the kernels a MoE block launches."""
+    from multimodalaggressionrecognition_tpu_torch.models import gigachat
+    from portbench.reference import gigachat as ref_gigachat
+
+    cfg = gigachat.GIGACHAT3_1_EP32
+    g = torch.Generator(DEVICE).manual_seed(SEED + 43)
+    moe = _gigachat_moe(cfg, g)
+
+    def block(b, lengths):
+        x = torch.randn(b, GIGACHAT_TOKENS, cfg.hidden_size, generator=g,
+                        device=DEVICE).bfloat16()
+        valid = (torch.arange(GIGACHAT_TOKENS, device=DEVICE)[None]
+                 < torch.tensor(lengths, device=DEVICE)[:, None])
+        cot = torch.randn(x.shape, generator=g, device=DEVICE).bfloat16()
+        return x, valid, cot
+
+    def looped(x, valid):
+        """The block with its held experts by the per-expert loop, on the
+        block's own routing and sorted rows."""
+        flat = x.reshape(-1, cfg.hidden_size)
+        ids, w = moe.gate(flat)
+        key = gigachat.held_keys(ids, valid.reshape(-1), cfg.first_expert,
+                                 cfg.experts_held)
+        order, counts, keep, ws = gigachat.sort_assignments(
+            key, w, cfg.experts_held, x.dtype)
+        routed = gigachat.held_experts_loop(
+            flat, order, counts, keep, ws, moe.experts.gate_up_proj,
+            moe.experts.down_proj)
+        return routed.view(x.shape) + moe.shared_experts(x)
+
+    def run(impl, x, valid, cot):
+        """The block's output and gradients: "grouped" is the block's own
+        forward on a CUDA bf16 input, "loop" the per-expert loop."""
+        moe.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_(True)
+        out = moe(xi, valid) if impl == "grouped" else looped(xi, valid)
+        out.backward(cot)
+        return [out.detach(), xi.grad] + [p.grad for p in moe.parameters()]
+
+    x, valid, cot = block(2, GIGACHAT_LENGTHS)
+    moe.rows = None
+    grouped = run("grouped", x, valid, cot)
+    rows = moe.rows.clone()
+    loop = run("loop", x, valid, cot)
+    names = ["out", "dx"] + [n for n, _ in moe.named_parameters()]
+    gaps = {n: _gap(a, b) for n, a, b in zip(names, grouped, loop)}
+    if max(gaps.values()) > 2e-2:
+        raise AssertionError(f"gigachat grouped against loop: {gaps}")
+    flat = x.reshape(-1, cfg.hidden_size).float()
+    ids, _ = ref_gigachat.route(
+        flat, moe.gate.weight.float(), moe.gate.e_score_correction_bias,
+        {**dataclasses.asdict(cfg)}, types.SimpleNamespace(r=lambda t: t))
+    first, held = cfg.first_expert, cfg.experts_held
+    chosen = ids[valid.reshape(-1)]
+    want = torch.stack([(chosen == first + e).sum() for e in range(held)])
+    if not torch.equal(rows, want):
+        raise AssertionError(f"gigachat rows {rows.tolist()} against the "
+                             f"reference router's {want.tolist()}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run("grouped", x, valid, cot)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+    heads, d = cfg.num_attention_heads, cfg.qk_head_dim
+    scale = gigachat.softmax_scale(cfg)
+
+    def qkv(b):
+        return [(torch.randn(b, heads, GIGACHAT_TOKENS, d, generator=g,
+                             device=DEVICE)).bfloat16().requires_grad_(True)
+                for _ in range(3)]
+
+    def composed(q, k, v):
+        return gigachat.causal_attention(q.float(), k.float(), v.float(),
+                                         scale)
+
+    q, k, v = qkv(2)
+    cot_a = torch.randn(q.shape, generator=g, device=DEVICE).bfloat16()
+    out = gigachat.causal_attention(q, k, v, scale)
+    flash = [out.detach()] + list(torch.autograd.grad(out, (q, k, v), cot_a))
+    out = composed(q, k, v)
+    plain = [out.detach()] + list(torch.autograd.grad(out, (q, k, v),
+                                                      cot_a.float()))
+    attention_gaps = {n: _gap(a, b) for n, a, b in zip(
+        ("out", "dq", "dk", "dv"), flash, plain)}
+    if max(attention_gaps.values()) > 2e-2:
+        raise AssertionError(f"gigachat flash against the composition: "
+                             f"{attention_gaps}")
+
+    b = GIGACHAT_BATCH
+    x, valid, cot = block(b, [GIGACHAT_TOKENS] * b)
+    times, peaks = {}, {}
+    for impl in ("grouped", "loop"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times[f"moe_{impl}"] = _events_ms(lambda: run(impl, x, valid, cot),
+                                          reps=3)
+        peaks[f"moe_{impl}"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run("grouped", x, valid, cot)
+        torch.cuda.synchronize()
+    moe_kernels = sorted(
+        ((e.key, e.device_time_total / 1e3, e.count)
+         for e in prof.key_averages() if e.device_time_total > 0),
+        key=lambda r: -r[1])[:16]
+    q, k, v = qkv(b)
+    cot_a = torch.randn(q.shape, generator=g, device=DEVICE).bfloat16()
+    for name, attend in (("flash", gigachat.causal_attention),
+                         ("composed", composed)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+
+        def step():
+            out = attend(q, k, v, scale) if name == "flash" else attend(
+                q, k, v)
+            torch.autograd.grad(out, (q, k, v), cot_a.to(out.dtype))
+
+        times[f"attention_{name}"] = _events_ms(step, reps=3)
+        peaks[f"attention_{name}"] = (torch.cuda.max_memory_allocated()
+                                      - base) / 1e9
+    mla = gigachat.MLA(cfg).to(DEVICE).bfloat16()
+    cos, sin = gigachat.rope_tables(cfg, GIGACHAT_TOKENS, DEVICE)
+    xm = torch.randn(b, GIGACHAT_TOKENS, cfg.hidden_size, generator=g,
+                     device=DEVICE).bfloat16().requires_grad_(True)
+
+    def mla_step():
+        mla(xm, cos, sin).backward(cot)
+
+    times["mla"] = _events_ms(mla_step, reps=3)
+    log(f"gigachat b{b} x {GIGACHAT_TOKENS}: MoE block fwd+bwd grouped "
+        f"{times['moe_grouped']:.2f} ms ({peaks['moe_grouped']:.2f} GB), "
+        f"loop {times['moe_loop']:.2f} ms; MLA fwd+bwd {times['mla']:.2f} ms; "
+        f"attention flash {times['attention_flash']:.2f} ms, composed "
+        f"{times['attention_composed']:.2f} ms; rows {rows.tolist()}; "
+        f"grouped vs loop {gaps}; flash vs composed {attention_gaps}; "
+        f"{card}")
+    return {"times_ms": times, "peak_added_gb": peaks, "gaps": gaps,
+            "attention_gaps": attention_gaps, "rows_b2": rows.tolist(),
+            "moe_kernels": moe_kernels}
+
+
+def gigachat_routing_phase(card: str, batch: int = 4):
+    """The routing of the benchmark cell's tower at its published widths
+    against the plain reference's: the cell's configuration, the
+    benchmark's weights and token-id batch for one seed, the port's tower
+    in bf16 (the step's casts) and the reference's with bf16 products; the
+    share of the valid tokens' chosen experts both chose, per MoE layer,
+    and the features' distance."""
+    import json as _json
+
+    from torch.func import functional_call
+
+    from multimodalaggressionrecognition_tpu_torch.models import gigachat
+    from multimodalaggressionrecognition_tpu_torch.utils.precision import (
+        cast_floating)
+    from portbench import inputs
+    from portbench.models import physverb_gigachat as GM
+    from portbench.reference import gigachat as G
+    from portbench.reference import model as M
+
+    with open("portbench/configs/audiotext_gigachat31_ep32.json") as f:
+        cfg = _json.load(f)
+    spec = [s for s in G.parameter_spec(cfg, ("text",))
+            if s[0].startswith(G.PRE + ".")]
+    weights = inputs.make_weights(spec, SEED + 47, DEVICE)
+    g = torch.Generator(DEVICE).manual_seed(SEED + 47)
+    text = GM.make_batch(g, cfg, ("text",), batch, (), DEVICE)[
+        "modalities"]["text"]
+    ids, lengths = text["data"], text["lengths"]
+    tower = gigachat.GigaChatTextExtractor(GM.port_config(cfg)).to(DEVICE)
+    pre = G.PRE + "."
+    tower.load_state_dict({n[len(pre):]: w for n, w in weights.items()})
+    seen = []
+    for layer in tower.model.layers:
+        if layer.moe:
+            layer.mlp.gate.register_forward_hook(
+                lambda m, a, out: seen.append(out[0]))
+    with torch.no_grad():
+        feats = functional_call(tower, cast_floating(
+            dict(tower.named_parameters()), torch.bfloat16),
+            (ids, lengths)).float()
+    del tower
+    want = []
+    route = G.route
+
+    def recorded(*args, **kw):
+        out = route(*args, **kw)
+        want.append(out[0])
+        return out
+
+    G.route = recorded
+    try:
+        with torch.no_grad():
+            ref = G.tower(ids, lengths, weights, cfg, M.Products("bf16"))
+    finally:
+        G.route = route
+    valid = (torch.arange(ids.shape[1], device=DEVICE)[None]
+             < lengths[:, None]).reshape(-1)
+    agreement = []
+    for a, b in zip(seen, want):
+        a, b = a[valid], b[valid]
+        hit = (a[:, :, None] == b[:, None, :]).any(-1).sum()
+        agreement.append(float(hit) / a.numel())
+    gap = float((feats - ref).norm() / ref.norm())
+    log(f"gigachat routing at b{batch} x {ids.shape[1]}, published widths, "
+        f"bf16 port against the reference's bf16 products: agreement "
+        f"{[round(x, 5) for x in agreement]} by MoE layer, features "
+        f"{gap:.3e}; {card}")
+    return {"agreement": agreement, "features_gap": gap,
+            "valid_tokens": int(valid.sum())}
+
+
 # the tri-modal cells' clip batch, (B, T, H, W, C), and the Swin's patch
 PATCH_EMBED = ((32, 128, 112, 112, 3), (2, 4, 4), 96)
 
@@ -5907,6 +6169,8 @@ def main():
     k2["bf16_extract"] = k2_extract_bf16_phase(name)
     log(json.dumps({"self_attention": self_attention_phase(name)}))
     log(json.dumps({"patch_embed": patch_embed_phase(name)}))
+    log(json.dumps({"gigachat": gigachat_phase(name)}))
+    log(json.dumps({"gigachat_routing": gigachat_routing_phase(name)}))
     launches = {label: run_slice(label, cfg, bs, parity_n, per_forward,
                                  card_line)
                 for label, cfg, bs, parity_n, per_forward in SLICES}

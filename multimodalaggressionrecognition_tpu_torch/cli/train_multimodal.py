@@ -3,13 +3,15 @@
 Pipeline: time-intervals table + cluster split -> aggr-type-homogeneous
 batches with the EMPTY protocol -> PhysVerbModel (CNN1D audio tower +
 Linear 512->hidden, or with --audio_extractor xlsr_300m XLS-R 300M +
-Linear 1024->hidden; identity text tower; optional windowed Swin3D-T video
-tower, frozen or fine-tuned) -> fusion transformer -> PhysVerb concat heads,
-with focal loss ('phys', inverse-frequency alpha) + CE ('verb'), Adam (or
-the optimizer chain of cli/common.make_optimizer) and best-UAR
-checkpoints, in f32 or with --compute_dtype bfloat16 (the JAX package's
-tuned fine-tune: --video_remat false --compute_dtype bfloat16).  Runs on
-CUDA unless --device cpu.
+Linear 1024->hidden; the identity over precomputed RuBERT token embeddings
+as the text tower, or with --text_extractor gigachat3_1 GigaChat3.1's
+decoder over transcript token ids + Linear 7168->hidden; optional windowed
+Swin3D-T video tower, frozen or fine-tuned) -> fusion transformer ->
+PhysVerb concat heads, with focal loss ('phys', inverse-frequency alpha) +
+CE ('verb'), Adam (or the optimizer chain of cli/common.make_optimizer)
+and best-UAR checkpoints, in f32 or with --compute_dtype bfloat16 (the JAX
+package's tuned fine-tune: --video_remat false --compute_dtype bfloat16).
+Runs on CUDA unless --device cpu.
 
   python -m multimodalaggressionrecognition_tpu_torch.cli.train_multimodal \
       --dataset_root data/avabos --modalities audio,text,video \
@@ -22,6 +24,19 @@ no optimizer state), time masking and dropout on, on 10 s clips:
   python -m multimodalaggressionrecognition_tpu_torch.cli.train_multimodal \
       --modalities audio,text --audio_extractor xlsr_300m \
       --compute_dtype bfloat16 --audio_samples 160000 --synthetic
+
+GigaChat3.1-702B-A36B's decoder (models/gigachat.py `GIGACHAT3_1_EP32`) is
+the text tower over transcript token ids (`verbal/gigachat3_1_ids/*.npy`,
+int64, padded to --text_tokens; the batch carries their lengths), cut to one
+expert-parallel chip's share: 1 dense and 4 MoE layers, experts 0-7 of each
+layer's 256 (the router over all 256), the whole vocabulary.  Its token
+embedding is frozen and its correction bias is a buffer: neither takes a
+gradient or optimizer state.
+
+  python -m multimodalaggressionrecognition_tpu_torch.cli.train_multimodal \
+      --modalities audio,text --text_extractor gigachat3_1 \
+      --compute_dtype bfloat16 --text_tokens 256 --learning_rate 1e-5 \
+      --synthetic
 """
 
 from dataclasses import dataclass
@@ -33,6 +48,7 @@ from .common import (TrainConfig, build_trainer, compute_dtype,
 
 SWIN_WIDTH = 768  # Swin3D-T's final width: the video tokens' width
 AUDIO_EXTRACTORS = ("cnn1d", "xlsr_300m")
+TEXT_EXTRACTORS = ("identity", "gigachat3_1")
 
 
 @dataclass
@@ -42,6 +58,10 @@ class MultimodalConfig(TrainConfig):
     # the audio tower: "cnn1d", or "xlsr_300m" (XLS-R 300M, its conv
     # encoder frozen)
     audio_extractor: str = "cnn1d"
+    # the text tower: "identity" (precomputed 768-wide token embeddings),
+    # or "gigachat3_1" (GigaChat3.1's decoder, one expert-parallel share,
+    # over token ids)
+    text_extractor: str = "identity"
     hidden_size: int = 768
     fusion_layers: int = 1
     fusion_heads: int = 8
@@ -81,12 +101,14 @@ def audio_tokens(audio_samples: int) -> int:
     return t
 
 
-def build_model(cfg, modalities, audio_config=None):
+def build_model(cfg, modalities, audio_config=None, text_config=None):
     """The PhysVerbModel for `modalities` (a subset of audio, text, video),
     on the CPU with torch's default initialization; the caller loads
     weights.  `audio_config` (a `FineTuneConfig`) replaces the XLS-R
-    tower's published geometry (tests' small sizes); a `cfg` without
-    `audio_extractor` (the JAX package's configs) takes the CNN1D."""
+    tower's published geometry, `text_config` (a `GigaChatConfig`) the
+    GigaChat share's (tests' small sizes); a `cfg` without
+    `audio_extractor` or `text_extractor` (the JAX package's configs) takes
+    the CNN1D and the identity."""
     from ..models.cnn1d import AudioCnn1DExtractorWrapper
     from ..models.fusion import EqualSizedTransformerModalitiesFusion
     from ..models.physverb import (IdentityExtractor,
@@ -102,6 +124,7 @@ def build_model(cfg, modalities, audio_config=None):
     if audio not in AUDIO_EXTRACTORS:
         raise SystemExit(f"--audio_extractor must be one of "
                          f"{AUDIO_EXTRACTORS}, got {audio!r}")
+    text = text_extractor(cfg)
     extractors = {}
     adaptor_sizes = {}
     feature_shapes = {}
@@ -117,7 +140,14 @@ def build_model(cfg, modalities, audio_config=None):
         adaptor_sizes["audio"] = (cfg.hidden_size, cfg.adaptor_out)
         feature_shapes["audio"] = (tokens, cfg.hidden_size)
     if "text" in modalities:
-        extractors["text"] = IdentityExtractor()
+        if text == "identity":
+            extractors["text"] = IdentityExtractor()
+        else:
+            from ..models.gigachat import (GIGACHAT3_1_EP32,
+                                           GigaChatTextExtractor)
+
+            extractors["text"] = GigaChatTextExtractor(
+                text_config or GIGACHAT3_1_EP32, cfg.hidden_size)
         adaptor_sizes["text"] = (cfg.hidden_size, cfg.adaptor_out)
         feature_shapes["text"] = (cfg.text_tokens, cfg.hidden_size)
     if "video" in modalities:
@@ -148,20 +178,32 @@ def build_model(cfg, modalities, audio_config=None):
     )
 
 
+def text_extractor(cfg) -> str:
+    """--text_extractor, checked; "identity" for a config without it."""
+    text = getattr(cfg, "text_extractor", "identity")
+    if text not in TEXT_EXTRACTORS:
+        raise SystemExit(f"--text_extractor must be one of "
+                         f"{TEXT_EXTRACTORS}, got {text!r}")
+    return text
+
+
 def make_loaders(cfg, df, split, modalities):
     from ..data.avabos import MultimodalSource, split_by_clusters
     from ..data.pipeline import BatchLoader
     from ..data.sampler import AggrBatchSampler
-    from ..data.transforms import pad_audio, pad_text, pad_video
+    from ..data.synthetic import TOKEN_IDS_TYPE
+    from ..data.transforms import pad_audio, pad_ids, pad_text, pad_video
 
-    transforms = {"text": pad_text(cfg.text_tokens),
+    ids = text_extractor(cfg) != "identity"
+    transforms = {"text": (pad_ids if ids else pad_text)(cfg.text_tokens),
                   "audio": pad_audio(cfg.audio_samples),
                   "video": pad_video(cfg.video_frames)}
     loaders = []
     for clusters, shuffle in ((split["train"], True), (split["test"], False)):
         d = split_by_clusters(df, clusters)
         src = MultimodalSource(d, cfg.dataset_root, modalities,
-                               transforms=transforms)
+                               transforms=transforms,
+                               text_ids=TOKEN_IDS_TYPE if ids else None)
         sampler = AggrBatchSampler(d["aggr_type"].to_numpy(), cfg.batch_size,
                                    shuffle=shuffle, seed=cfg.seed)
         loaders.append(BatchLoader(src, sampler, pad_to=cfg.batch_size,
@@ -179,7 +221,12 @@ def make_trainer(cfg):
     resolve_device(cfg.device)  # fail before any data or model work
     compute_dtype(cfg)
     modalities = tuple(cfg.modalities.split(","))
-    df, split = ensure_dataset(cfg)
+    synth = {}
+    if text_extractor(cfg) != "identity":
+        from ..models.gigachat import GIGACHAT3_1_EP32
+
+        synth["token_vocab"] = GIGACHAT3_1_EP32.vocab_size
+    df, split = ensure_dataset(cfg, **synth)
     train_loader, test_loader = make_loaders(cfg, df, split, modalities)
     model = seeded_init_(build_model(cfg, modalities), cfg.seed)
     loss_specs = {

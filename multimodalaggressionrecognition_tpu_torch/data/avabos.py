@@ -71,14 +71,19 @@ class MultimodalSource:
 
     `transforms` maps modality -> callable(np.ndarray) -> np.ndarray applied
     on the host (pad/resize/augment).  Fixed output shapes are the
-    transforms' responsibility.
+    transforms' responsibility.  With `text_ids` (a directory name under
+    `verbal/`) the text modality is a transcript's int64 token ids, one
+    `.npy` a clip, and its transform returns (padded ids, length): the batch
+    then carries the text's `lengths` beside its `data`.
     """
 
     def __init__(self, df, root: str, modalities: Sequence[str],
                  transforms: Optional[Dict] = None,
                  text_embedding_type: str = "ru_conversational_cased_L-12_H-768_A-12_pt_v1_tokens",
-                 modality2aggr: Dict[str, str] = None):
+                 modality2aggr: Dict[str, str] = None,
+                 text_ids: Optional[str] = None):
         self.df = df.reset_index(drop=True)
+        self.text_ids = text_ids
         self.root = root
         self.modalities = tuple(modalities)
         self.transforms = transforms or {}
@@ -105,7 +110,11 @@ class MultimodalSource:
             if modality in present_modalities:
                 kind = "phys" if modality == "video" else "verb"
                 name = clip_name(row, kind)
-                if modality == "text":
+                if modality == "text" and self.text_ids:
+                    x = np.load(os.path.join(self.root, "verbal",
+                                             self.text_ids, f"{name}.npy"))
+                    x = x.astype(np.int64).reshape(-1)
+                elif modality == "text":
                     path = os.path.join(self.root, "verbal",
                                         self.text_embedding_type, f"{name}.npy")
                     x = np.load(path).astype(np.float32)
@@ -167,8 +176,15 @@ class MultimodalSource:
         for m in self.modalities:
             if samples[0][0][m] is None:
                 continue
-            stack = np.stack([s[0][m] for s in samples])
             pres = np.asarray([s[1][m] for s in samples], np.float32) * sample_mask
+            if isinstance(samples[0][0][m], tuple):  # token ids, length
+                modalities[m] = {
+                    "data": np.stack([s[0][m][0] for s in samples]),
+                    "lengths": np.asarray([s[0][m][1] for s in samples],
+                                          np.int64),
+                    "present": pres}
+                continue
+            stack = np.stack([s[0][m] for s in samples])
             modalities[m] = {"data": stack, "present": pres}
         labels = {}
         label_mask = {}

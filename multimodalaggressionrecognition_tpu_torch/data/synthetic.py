@@ -9,6 +9,8 @@ on-disk layout (reference datasets.py:513-562, split_dataset.py:34-91):
 
   root/
     verbal/<embed_type>/c-...npy        (T_text, 768) RuBERT token embeddings
+    verbal/<ids_type>/c-...npy          (T,) int64 transcript token ids
+                                        (with `token_vocab` only)
     verbal/pt_waveform/c-...pt          (1, L) 16 kHz waveform
     physical/video/c-...pt              (T, C, H, W) uint8-ish frames
     time_intervals.csv
@@ -22,6 +24,7 @@ import numpy as np
 import pandas as pd
 
 _AGGR_TYPES = ("verb", "phys", "phys&verb")
+TOKEN_IDS_TYPE = "gigachat3_1_ids"  # the token ids' directory under verbal/
 _LABELS = ("NOAGGR", "AGGR")
 
 
@@ -29,11 +32,19 @@ def generate_synthetic_avabos(
         root: str, num_clusters: int = 4, samples_per_cluster: int = 6,
         seed: int = 0, audio_len: int = 48000, text_len: int = 32,
         text_dim: int = 768, video_frames: int = 32, video_hw: int = 64,
-        embed_type: str = "ru_conversational_cased_L-12_H-768_A-12_pt_v1_tokens"):
-    """Writes the artifact tree; returns (intervals_df, split_dict)."""
+        embed_type: str = "ru_conversational_cased_L-12_H-768_A-12_pt_v1_tokens",
+        token_vocab: int = 0, ids_type: str = TOKEN_IDS_TYPE):
+    """Writes the artifact tree; returns (intervals_df, split_dict).  With
+    `token_vocab` each verbal clip also gets 4 to `text_len` token ids in
+    [1, token_vocab), class-coded (AGGR ids from the vocabulary's upper
+    half), drawn from a generator of their own so the rest of the tree is
+    the same with or without them."""
     import torch  # the .pt artifacts
 
     rng = np.random.default_rng(seed)
+    id_rng = np.random.default_rng([seed, 1])
+    if token_vocab:
+        os.makedirs(os.path.join(root, "verbal", ids_type), exist_ok=True)
     os.makedirs(os.path.join(root, "verbal", embed_type), exist_ok=True)
     os.makedirs(os.path.join(root, "verbal", "pt_waveform"), exist_ok=True)
     os.makedirs(os.path.join(root, "physical", "video"), exist_ok=True)
@@ -70,6 +81,13 @@ def generate_synthetic_avabos(
                        + verb_shift * 0.05)
                 torch.save(torch.from_numpy(wav),
                            os.path.join(root, "verbal", "pt_waveform", f"{name}.pt"))
+                if token_vocab:
+                    half = token_vocab // 2
+                    lo = half if verb_label == "AGGR" else 1
+                    n = int(id_rng.integers(4, text_len + 1))
+                    ids = id_rng.integers(lo, lo + half - 1, n).astype(np.int64)
+                    np.save(os.path.join(root, "verbal", ids_type,
+                                         f"{name}.npy"), ids)
             if "video" in present:
                 phys_shift = 0.3 if phys_label == "AGGR" else -0.3
                 name = clip_name(row, "phys")

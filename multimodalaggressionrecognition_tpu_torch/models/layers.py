@@ -261,9 +261,13 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
     two standard deviations; GRU and LSTM weights and biases from
     U(+-1/sqrt(H)); wav2vec's positional conv from a normal with std
     sqrt(4 / (K * E)) and a zero bias (weight-normed: v so, g its norm)
-    and its time mask's embedding from U[0, 1).  Deterministic on
+    and its time mask's embedding from U[0, 1); GigaChat's RMSNorms at
+    one, its router and stacked experts fan-in uniform with a zero
+    correction bias, its token embedding from a normal with std 0.02 (HF's
+    `initializer_range`).  Deterministic on
     the CPU, so a model built this way and moved to any device carries the
     same weights."""
+    from .gigachat import HeldExperts, MoEGate, RMSNorm
     from .nn1d import BatchNorm1d, Conv1d
     from .nn3d import Conv2d, Conv3d
     from .swin3d import PatchEmbed3d, ShiftedWindowAttention3d
@@ -303,6 +307,16 @@ def seeded_init_(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(m, Wav2Vec2Model) and hasattr(m, "masked_spec_embed"):
             m.masked_spec_embed.copy_(
                 torch.rand(m.masked_spec_embed.shape, generator=g))
+        elif isinstance(m, RMSNorm):
+            m.weight.fill_(1.0)
+        elif isinstance(m, MoEGate):
+            fan_in_uniform_(m.weight, m.weight.shape[1])
+            m.e_score_correction_bias.zero_()
+        elif isinstance(m, HeldExperts):
+            fan_in_uniform_(m.gate_up_proj, m.gate_up_proj.shape[2])
+            fan_in_uniform_(m.down_proj, m.down_proj.shape[2])
+        elif isinstance(m, nn.Embedding):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=g) * 0.02)
         elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, BatchNorm1d)):
             m.weight.fill_(1.0)
             m.bias.zero_()

@@ -5,9 +5,10 @@ models/physverb.py).
 -> per-aggression-type heads.  A batch carries only the present modalities;
 absent ones become static zero feature stubs (`feature_shapes`), and a
 per-row {0,1} `present` mask zeroes the features of absent rows — padded
-serving rows included.  A stub is f32 under any compute dtype, as the JAX
-package's: under bf16 it promotes that forward's fusion and heads to f32,
-which run on the bf16-rounded weights.
+serving rows included.  A modality whose batch entry carries `lengths`
+(token ids) hands them to its extractor beside its data.  A stub is f32
+under any compute dtype, as the JAX package's: under bf16 it promotes that
+forward's fusion and heads to f32, which run on the bf16-rounded weights.
 """
 
 from typing import Dict, Mapping, Optional, Tuple
@@ -160,7 +161,10 @@ class PhysVerbModel(nn.Module):
             with span("forward." + name, device=True):
                 if name in batch:
                     data = batch[name]["data"]
-                    f = (self.extractors[name](data)
+                    # a token-id text carries its lengths beside its ids
+                    args = ((data, batch[name]["lengths"])
+                            if "lengths" in batch[name] else (data,))
+                    f = (self.extractors[name](*args)
                          if name in self.extractors else data)
                     backward_mark(f, "backward." + name)
                     present = batch[name].get("present")

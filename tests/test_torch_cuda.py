@@ -33,6 +33,8 @@ ulp + 3e-5, their keep mask to `u < keep` bit for bit, each bit for bit
 over two launches, and an XLS-R train step launches each once a layer.
 """
 
+import os
+
 import pytest
 import torch
 
@@ -1354,6 +1356,81 @@ def test_train_step_never_blocks_the_host(cuda, compute_dtype):
     assert TABLE_COUNTS["builds"] == before["builds"]
     assert TABLE_COUNTS["hits"] == before["hits"] + 6
     assert all(bool(torch.isfinite(x)) for x in losses)
+
+
+@pytest.mark.cuda
+def test_gigachat_bf16_train_step_never_blocks_the_host(cuda):
+    """Steps 2-4 of the audio,text model's bf16 train step with the
+    GigaChat text tower (`--text_extractor gigachat3_1`) at the benchmark
+    model's CPU sizes (portbench/models/physverb_gigachat.py `TINY`) on
+    right-padded token ids raise nothing under CUDA's sync debug mode
+    "error": routing, the sort of the assignments, the held experts'
+    grouped products over device-side offsets and their recompute in the
+    backward, flash attention; the correction biases stay as loaded and
+    each step's held-rows counts are the valid tokens' held assignments of
+    that step's routing."""
+    import json
+
+    from multimodalaggressionrecognition_tpu_torch.cli.train_multimodal import (
+        MultimodalConfig, build_model)
+    from multimodalaggressionrecognition_tpu_torch.models.layers import (
+        seeded_init_)
+    from multimodalaggressionrecognition_tpu_torch.models.stochastic import (
+        set_generator)
+    from multimodalaggressionrecognition_tpu_torch.train.state import (
+        OptimizerConfig, create_train_state)
+    from multimodalaggressionrecognition_tpu_torch.train.steps import (
+        LossSpec, train_step)
+    from portbench.models import physverb_gigachat as GM
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "portbench", "configs",
+                           "audiotext_gigachat31_ep32.json")) as f:
+        tiny = {**json.load(f), **GM.TINY["config"]}
+    cfg = MultimodalConfig(text_extractor="gigachat3_1", audio_samples=16000,
+                           text_tokens=tiny["text_tokens"])
+    model = seeded_init_(build_model(cfg, ("audio", "text"),
+                                     text_config=GM.port_config(tiny)), 0)
+    state = create_train_state(model, OptimizerConfig(1e-5), cuda)
+    set_generator(state.model, torch.Generator(cuda).manual_seed(0))
+    g = torch.Generator(cuda).manual_seed(1)
+    batch = GM.make_batch(g, tiny, ("audio", "text"), 4, ("verb",), cuda)
+    specs = {"phys": LossSpec("focal", class_weights=(0.5, 0.5)),
+             "verb": LossSpec("ce")}
+    tower = state.model.extractors["text"].model
+    biases = {n: b.clone() for n, b in tower.named_buffers()}
+    train_step(state, batch, specs, 2, compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    moe = {i: layer.mlp for i, layer in enumerate(tower.layers) if layer.moe}
+    routes = {i: [] for i in moe}  # each step's chosen experts, on the card
+    hooks = [m.gate.register_forward_hook(
+        lambda mod, args, out, i=i: routes[i].append(out[0]))
+        for i, m in moe.items()]
+    rows = [{i: r.clone() for i, r in tower.expert_rows().items()}]
+    losses = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            losses.append(train_step(state, batch, specs, 2,
+                                     compute_dtype="bfloat16")["total_loss"])
+            rows.append({i: r.clone() for i, r in tower.expert_rows().items()})
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        for h in hooks:
+            h.remove()
+    assert all(bool(torch.isfinite(x)) for x in losses)
+    assert all(torch.equal(b, biases[n]) for n, b in tower.named_buffers())
+    text = batch["modalities"]["text"]
+    valid = (torch.arange(text["data"].shape[1], device=cuda)[None]
+             < text["lengths"][:, None]).reshape(-1)
+    for i, m in moe.items():
+        first, held = m.cfg.first_expert, m.cfg.experts_held
+        for step, ids in enumerate(routes[i]):
+            chosen = ids[valid]
+            want = torch.stack([(chosen == first + e).sum()
+                                for e in range(held)])
+            assert torch.equal(rows[step + 1][i] - rows[step][i], want), i
+            assert int(want.sum()) > 0
 
 
 @pytest.mark.cuda
